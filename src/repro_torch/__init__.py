@@ -1,0 +1,15 @@
+"""repro_torch: the PyTorch/CUDA port of the LUNA-CIM serving system.
+
+A package of its own beside the JAX reference ``repro``: it imports
+``torch`` and numpy, never ``jax`` and nothing of ``repro``.  The module
+layout mirrors ``repro`` so each port module's counterpart can be found by
+path (``repro_torch.core.quant`` <-> ``repro.core.quant``).
+
+Every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"`` (see :mod:`repro_torch.device`).  On the card the decode
+projections of the frozen 4-bit LUT path run on hand-written Hopper
+kernels (:mod:`repro_torch.kernels.lut_gemm`).
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,94 @@
+"""Weight bridge: the JAX package's parameter tree, already converted to
+numpy by the caller, into the port's modules.  Imports no jax.
+
+* Stacked ``(L, ...)`` block leaves are split per layer.
+* A ``QuantizedWeight`` arrives as a dict of its numpy children plus its
+  ``kernel`` string and becomes the port's ``QuantizedWeight``.
+* Float leaves cross with their dtype unchanged; a bfloat16 array
+  (numpy's ``ml_dtypes`` bfloat16) crosses through float32, which is
+  exact.
+
+:func:`params_to_numpy` is the way back, for round-trip checks.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantizedWeight
+from repro_torch.device import resolve_device
+
+_QW_FIELDS = tuple(f.name for f in fields(QuantizedWeight))
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)     # a writable copy
+
+
+def _leaf(node, device):
+    if isinstance(node, dict) and "kernel" in node:
+        return QuantizedWeight(**{
+            k: (node[k] if k == "kernel" or node.get(k) is None
+                else _tensor(node[k], device))
+            for k in _QW_FIELDS if k in node})
+    if isinstance(node, dict):
+        return {k: _leaf(v, device) for k, v in node.items()}
+    return _tensor(node, device)
+
+
+def _split_layers(node, n: int) -> list:
+    """A stacked block subtree -> a list of ``n`` per-layer subtrees."""
+    if isinstance(node, QuantizedWeight):
+        return [node[i] for i in range(n)]
+    if isinstance(node, dict):
+        per = {k: _split_layers(v, n) for k, v in node.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(node.unbind(0))
+
+
+def params_from_numpy(tree: dict, cfg, device=None):
+    """Build the port's :class:`TransformerLM` over a numpy copy of the JAX
+    dense-family tree (``model.init`` output or its frozen decode tree)."""
+    from repro_torch.models.transformer import TransformerLM
+    device = resolve_device(device)
+    params = {k: _leaf(v, device) for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = _split_layers(_leaf(tree["blocks"], device),
+                                     cfg.num_layers)
+    return TransformerLM.from_params(cfg, params, device=device)
+
+
+def params_to_numpy(model) -> dict:
+    """The model's tree in the JAX layout (layers stacked on a leading
+    axis), bfloat16 leaves as float32 numpy arrays."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def conv(node):
+        if isinstance(node, QuantizedWeight):
+            return {k: (getattr(node, k) if k == "kernel"
+                        or getattr(node, k) is None else arr(getattr(node, k)))
+                    for k in _QW_FIELDS}
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return arr(node)
+
+    tree = model.params_tree()
+    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    per = [conv(b) for b in tree["blocks"]]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        if isinstance(nodes[0], str) or nodes[0] is None:
+            return nodes[0]
+        return np.stack(nodes)
+
+    out["blocks"] = stack(per)
+    return out

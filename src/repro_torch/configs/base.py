@@ -1,0 +1,52 @@
+"""Config dataclasses for the port's model zoo (mirrors
+``repro.configs.base``).
+
+Only the dense family is ported, so :class:`ModelConfig` carries the
+fields the dense GQA path reads; the MoE/MLA/SSM/hybrid/encdec/VLM
+sub-configs arrive with their families (ROADMAP queue 1 item 7).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+from repro_torch.core.layers import QuantConfig
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # only "dense" is ported
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0            # 0 -> d_model // num_heads
+    mlp_type: str = "swiglu"     # swiglu | gelu
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    quant: QuantConfig = field(default_factory=QuantConfig)
+    attn_impl: str = "chunked"   # full | chunked
+    attn_chunk: int = 512
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A smoke-test-sized config of the same family (the JAX
+        ``ModelConfig.reduced`` widths)."""
+        small = dict(
+            num_layers=min(self.num_layers, 2),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else 0,
+            d_ff=256,
+            vocab_size=512,
+            head_dim=32,
+        )
+        small.update(overrides)
+        return replace(self, **small)

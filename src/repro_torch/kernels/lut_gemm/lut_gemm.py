@@ -1,0 +1,158 @@
+"""Wrappers of the hand-written Hopper LUT GEMM kernels.
+
+* :func:`lut_gemm_dc` — ``(x @ (HI[q>>2] + LO[q&3] - zp)) * scale``, the
+  affine D&C sub-table GEMM (``quant="lut4"``).  Replaces the Pallas
+  ``repro/kernels/lut_gemm/lut_gemm.py:214 lut_gemm_dc``.
+* :func:`lut_gemm_dc_res` — the same plus a per-code residual ``RES[q]``
+  (non-affine NF4, ``quant="nf4"``/``"nf4p"``).  Replaces the Pallas
+  ``lut_gemm.py:168 lut_gemm_dc_res``.
+
+A CUDA tensor launches the kernel (``csrc/lut_gemm.cu``, built on first
+use) on ``torch.cuda.current_stream()``, or the call raises; a CPU tensor
+takes the plain version in ``ref.py``.  Nothing falls back.  Each wrapper
+counts its kernel launches in a plain integer attribute, ``launches``.
+
+Tolerance of kernel against plain version on the card: rtol = atol =
+``KERNEL_RTOL``/``KERNEL_ATOL`` (1e-4).  Both sum up to 11008 f32 products
+per output in different orders (the kernel: split-K slices of <= 1024 rows
+in k order, the slices summed in index order; the plain version: the
+library matmul's own tiling), which moves results by ~1e-6 at unit
+output scale; the bound leaves two orders of margin.  The dequantized
+weight itself (``x = I``) must match bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.lut_gemm.ref import (lut_gemm_dc_ref,
+                                              lut_gemm_dc_res_ref)
+
+KERNEL_RTOL = 1e-4
+KERNEL_ATOL = 1e-4
+
+#: the kernel's geometry (mirrors the constants in csrc/lut_gemm.cu)
+BLOCK_N = 512
+KSPLIT_MAX = 1024
+M_TILE_MAX = 8
+#: blocks to aim for: four per SM of an H100 (132 SMs)
+TARGET_BLOCKS = 4 * 132
+
+
+def split_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(m_tile, splits, k_split) for an (M, K) x (K, N) problem: enough
+    K-splits to put ~``TARGET_BLOCKS`` blocks on the card, every slice a
+    multiple of 32 rows and at most ``KSPLIT_MAX``."""
+    m_tile = next(t for t in (1, 2, 4, M_TILE_MAX) if t >= min(m, M_TILE_MAX))
+    tiles = -(-n // BLOCK_N) * -(-m // m_tile)
+    want = max(1, -(-TARGET_BLOCKS // tiles))
+    k_split = -(-k // want)
+    k_split = min(KSPLIT_MAX, -(-k_split // 32) * 32)
+    return m_tile, -(-k // k_split), k_split
+
+
+def _lib():
+    from repro_torch.kernels._build import load_library
+    lib = load_library("lut_gemm")
+    fn = lib.lut_gemm_dc_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        geometry = (lib.lut_gemm_block_n(), lib.lut_gemm_ksplit_max(),
+                    lib.lut_gemm_m_tile_max())
+        if geometry != (BLOCK_N, KSPLIT_MAX, M_TILE_MAX):
+            raise RuntimeError(f"lut_gemm.cu geometry {geometry} differs "
+                               "from the wrapper's")
+    return fn
+
+
+def _check(x, w_codes, tables, zero_point, scale):
+    if x.ndim != 2 or w_codes.ndim != 2 or x.shape[1] != w_codes.shape[0]:
+        raise ValueError(f"shapes x {tuple(x.shape)}, codes "
+                         f"{tuple(w_codes.shape)}: want (M, K) and (K, N)")
+    n = w_codes.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w_codes.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {w_codes.dtype}")
+    for name, t, size in (*tables, ("zero_point", zero_point, n),
+                          ("scale", scale, n)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (size,):
+            raise ValueError(f"{name} must be float32 of shape ({size},), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    devs = {t.device for t in (x, w_codes, zero_point, scale,
+                               *(t for _, t, _ in tables))}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+
+
+def _launch(x, w_codes, hi_tab, lo_tab, residual, zero_point, scale):
+    for t in (x, w_codes, hi_tab, lo_tab, zero_point, scale,
+              *(() if residual is None else (residual,))):
+        if not t.is_contiguous():
+            raise ValueError("lut_gemm kernels take contiguous operands")
+    m, k = x.shape
+    n = w_codes.shape[1]
+    m_tile, splits, k_split = split_plan(m, k, n)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    vec = n % 4 == 0 and w_codes.data_ptr() % 4 == 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                     w_codes.data_ptr(), hi_tab.data_ptr(), lo_tab.data_ptr(),
+                     None if residual is None else residual.data_ptr(),
+                     zero_point.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), m, k, n, m_tile, splits, k_split,
+                     int(vec), stream)
+    if err != 0:
+        raise RuntimeError(f"lut_gemm kernel launch failed: cudaError_t "
+                           f"{err}")
+    return out
+
+
+def lut_gemm_dc(x: torch.Tensor, w_codes: torch.Tensor, hi_tab: torch.Tensor,
+                lo_tab: torch.Tensor, zero_point: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ (HI[q>>2] + LO[q&3] - zp)) * scale`` -> (M, N) f32.
+
+    x: (M, K) f32/bf16; w_codes: (K, N) int8 in [0, 16); hi_tab/lo_tab:
+    (4,) f32 code-space sub-tables; zero_point/scale: (N,) f32.
+    """
+    _check(x, w_codes, (("hi_tab", hi_tab, 4), ("lo_tab", lo_tab, 4)),
+           zero_point, scale)
+    if x.device.type == "cpu":
+        return lut_gemm_dc_ref(x, w_codes, hi_tab, lo_tab, zero_point, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"lut_gemm_dc runs on cuda or cpu, not {x.device}")
+    out = _launch(x, w_codes, hi_tab, lo_tab, None, zero_point, scale)
+    lut_gemm_dc.launches += 1
+    return out
+
+
+def lut_gemm_dc_res(x: torch.Tensor, w_codes: torch.Tensor,
+                    hi_tab: torch.Tensor, lo_tab: torch.Tensor,
+                    residual: torch.Tensor, zero_point: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ (HI[q>>2] + LO[q&3] + RES[q] - zp)) * scale`` -> (M, N) f32.
+
+    As :func:`lut_gemm_dc` plus residual: (16,) f32 per-code correction
+    (zeros at pruned codes).
+    """
+    _check(x, w_codes, (("hi_tab", hi_tab, 4), ("lo_tab", lo_tab, 4),
+                        ("residual", residual, 16)), zero_point, scale)
+    if x.device.type == "cpu":
+        return lut_gemm_dc_res_ref(x, w_codes, hi_tab, lo_tab, residual,
+                                   zero_point, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"lut_gemm_dc_res runs on cuda or cpu, not "
+                         f"{x.device}")
+    out = _launch(x, w_codes, hi_tab, lo_tab, residual, zero_point, scale)
+    lut_gemm_dc_res.launches += 1
+    return out
+
+
+lut_gemm_dc.launches = 0
+lut_gemm_dc_res.launches = 0

@@ -1,0 +1,73 @@
+"""Serving CLI of the port: batched requests through the synchronous engine.
+
+  # reduced yi-9b (the default), on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --quant lut4
+
+  # full-width yi-9b (48 layers, bf16):
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced --quant lut4
+
+  # on the CPU (plain PyTorch versions of the kernels):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --quant nf4p
+
+Weights are random, drawn from ``--seed``.  ``--quant lut4|int4|nf4|nf4p``
+freezes the decode projections to 4 bits (lut4 and nf4/nf4p run the
+hand-written LUT GEMM kernels on the card); prefill stays full precision.
+Prints each request's tokens and the ``serve()`` stats.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    from repro_torch.serve.config import EngineConfig
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True, help="smoke-test widths (--no-reduced: "
+                                       "the published widths)")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU (default: the card)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    EngineConfig.add_cli_args(ap)
+    ap.set_defaults(max_batch=4, max_seq=128)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.engine import Engine, Request
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = get_model(cfg, device=device).init(gen)
+    engine = Engine(cfg, model, EngineConfig.from_args(args), device=device)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, 6).tolist(),
+                    max_new=args.max_new)
+            for i in range(args.requests)]
+    stats = engine.serve(reqs)
+    for r in reqs:
+        print(f"rid {r.rid}: {r.out}")
+    tok_count = sum(len(r.out) for r in reqs)
+    print(f"{cfg.name} x{cfg.num_layers} layers on {device}: {tok_count} "
+          f"tokens over {len(reqs)} requests, {stats['wall_s']:.2f}s wall, "
+          f"done={stats['done']}")
+    print(f"  prefill: {stats['prefill_tokens']} tok in "
+          f"{stats['prefill_s']:.2f}s ({stats['prefill_tok_s']:.0f} tok/s, "
+          f"{stats['prefill_calls']} bucket calls)")
+    print(f"  decode:  {stats['decode_tokens']} tok in "
+          f"{stats['decode_s']:.2f}s ({stats['decode_tok_s']:.0f} tok/s, "
+          f"occupancy {stats['occupancy']:.0%})")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

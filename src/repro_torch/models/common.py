@@ -1,0 +1,103 @@
+"""Shared model building blocks (mirrors ``repro.models.common``)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    """Cache-layout request of ``init_cache``.  Only the dense slab is
+    ported: a paged spec (``block_size``/``num_blocks``) raises, and the
+    paged pool is ROADMAP queue 1 item 6."""
+    block_size: int | None = None
+    num_blocks: int | None = None
+
+    def __post_init__(self):
+        if self.block_size is not None or self.num_blocks is not None:
+            raise NotImplementedError(
+                "paged KV caches are not ported yet: ROADMAP queue 1 item 6")
+
+    @property
+    def paged(self) -> bool:
+        return False
+
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+
+
+def set_leaf(module: nn.Module, name: str, value) -> None:
+    """A float tensor becomes a (frozen) parameter sharing its storage; a
+    ``QuantizedWeight`` stays a plain attribute."""
+    if isinstance(value, torch.Tensor):
+        module.register_parameter(name, nn.Parameter(value,
+                                                     requires_grad=False))
+    else:
+        setattr(module, name, value)
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return TORCH_DTYPES[cfg.dtype]
+
+
+def dense_init(gen: torch.Generator, out: torch.Tensor,
+               scale: float | None = None) -> torch.Tensor:
+    """Fill an (in, out) weight in place with N(0, 1) / sqrt(in) drawn in
+    f32 from ``gen`` (on the weight's device), then cast."""
+    scale = scale if scale is not None else 1.0 / out.shape[0] ** 0.5
+    draw = torch.randn(out.shape, generator=gen, device=out.device,
+                       dtype=torch.float32)
+    return out.copy_(draw.mul_(scale))
+
+
+def embed_init(gen: torch.Generator, out: torch.Tensor) -> torch.Tensor:
+    """Fill a (vocab, dim) embedding in place with N(0, 0.02^2)."""
+    return dense_init(gen, out, scale=0.02)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * weight.float()).to(dt)
+
+
+def token_positions(s: int, cache_index, device) -> torch.Tensor:
+    """Absolute positions of ``s`` new tokens appended at ``cache_index``
+    (a Python int, or a (B,) int tensor of per-row depths).  Returns
+    (1, S) or (B, S)."""
+    ar = torch.arange(s, device=device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        return cache_index[:, None] + ar[None, :]
+    return ar[None, :] + cache_index
+
+
+def gather_last(hidden: torch.Tensor, last_pos: torch.Tensor) -> torch.Tensor:
+    """hidden: (B, S, D) -> (B, 1, D) at per-row ``last_pos`` (B,)."""
+    idx = last_pos.long().reshape(-1, 1, 1).expand(-1, 1, hidden.shape[-1])
+    return torch.gather(hidden, 1, idx)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    # a tensor divisor keeps the quotient correctly rounded on CUDA too
+    return 1.0 / (theta ** (ar / torch.full_like(ar, head_dim)))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions broadcast to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    angles = positions[..., None].float() * freqs
+    if x.ndim == angles.ndim + 1:                      # head axis present
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)

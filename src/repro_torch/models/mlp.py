@@ -1,0 +1,39 @@
+"""Feed-forward blocks: SwiGLU and GELU (mirrors ``repro.models.mlp``).
+
+Every projection routes through ``core.layers.quant_matmul``, so a frozen
+4-bit leaf (the engine's decode tree) runs the LUT GEMM.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.layers import quant_matmul
+from repro_torch.models.common import set_leaf
+
+
+def mlp_shapes(cfg) -> dict[str, tuple[int, int]]:
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = {"w_up": (d, ff), "w_down": (ff, d)}
+    if cfg.mlp_type == "swiglu":
+        shapes["w_gate"] = (d, ff)
+    return shapes
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name in mlp_shapes(cfg):
+            set_leaf(self, name, params[name])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        up = quant_matmul(x, self.w_up, cfg.quant, "mlp")
+        if cfg.mlp_type == "swiglu":
+            gate = quant_matmul(x, self.w_gate, cfg.quant, "mlp")
+            h = F.silu(gate) * up
+        else:
+            h = F.gelu(up, approximate="tanh")
+        return quant_matmul(h, self.w_down, cfg.quant, "mlp")

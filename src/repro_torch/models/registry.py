@@ -1,0 +1,54 @@
+"""Architecture registry of the port: ``--arch <id>`` -> config, model.
+
+Only ``yi-9b`` (the dense GQA family) is ported.  Every other arch of the
+JAX registry raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import replace
+
+from repro_torch.configs.base import ModelConfig
+
+ARCH_MODULES = {
+    "yi-9b": "repro_torch.configs.yi_9b",
+}
+
+#: archs of the JAX registry still to be ported -> the ROADMAP item
+UNPORTED_ARCHS = {
+    "starcoder2-15b": "queue 1 item 4 (dense GQA parity)",
+    "minitron-4b": "queue 1 item 4 (dense GQA parity)",
+    "deepseek-67b": "queue 1 item 4 (dense GQA parity)",
+    "deepseek-v2-lite-16b": "queue 1 item 7 (MoE + MLA)",
+    "deepseek-v2-236b": "queue 1 item 7 (MoE + MLA)",
+    "whisper-base": "queue 1 item 7 (encdec)",
+    "zamba2-1.2b": "queue 1 item 7 (hybrid)",
+    "mamba2-1.3b": "queue 1 item 7 (ssm)",
+    "llava-next-mistral-7b": "queue 1 item 7 (vlm)",
+    "luna-mlp": "queue 1 item 8 (model-level quant modes)",
+}
+
+ARCH_IDS = list(ARCH_MODULES)
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    if arch in UNPORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet: ROADMAP {UNPORTED_ARCHS[arch]}")
+    if arch not in ARCH_MODULES:
+        raise ValueError(f"unknown arch {arch!r}")
+    cfg = importlib.import_module(ARCH_MODULES[arch]).CONFIG
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+def get_model(cfg: ModelConfig, device=None):
+    """An uninitialised :class:`TransformerLM` on ``device`` (the card
+    unless ``device="cpu"``); call ``.init(generator)`` or load weights
+    through :mod:`repro_torch.bridge`."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 "
+            "item 7")
+    from repro_torch.models.transformer import TransformerLM
+    return TransformerLM(cfg, device=device)

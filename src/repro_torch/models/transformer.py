@@ -1,0 +1,165 @@
+"""Decoder-only transformer LM, dense GQA family (mirrors
+``repro.models.transformer``).
+
+The JAX model stacks its layers on a leading L axis and runs them under
+``lax.scan``; here the layers are an ``nn.ModuleList`` and ``forward`` is
+a Python loop.  Parameters live on the module.  ``params_tree()`` returns
+them as the JAX tree's nesting with a per-layer list in place of the
+stacked axis (``{"embed", "ln_f", "lm_head", "blocks": [{"ln1", "ln2",
+"attn": {...}, "mlp": {...}}, ...]}``), and :meth:`TransformerLM.
+from_params` builds a model over such a tree without copying, which is how
+the engine's frozen 4-bit decode model shares every other tensor with the
+full-precision one.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.layers import quant_matmul
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import GQAAttention, KVCache, gqa_shapes
+from repro_torch.models.common import (CacheSpec, dense_init, dtype_of,
+                                       embed_init, gather_last, rms_norm,
+                                       set_leaf, token_positions)
+from repro_torch.models.mlp import MLP, mlp_shapes
+
+
+def _empty_params(cfg, device) -> dict:
+    """Uninitialised weights (norm weights are f32 ones, as in JAX)."""
+    dt = dtype_of(cfg)
+
+    def mat(shape):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    def ones():
+        return torch.ones(cfg.d_model, dtype=torch.float32, device=device)
+
+    params = {"embed": mat((cfg.vocab_size, cfg.d_model)), "ln_f": ones()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mat((cfg.d_model, cfg.vocab_size))
+    params["blocks"] = [
+        {"ln1": ones(), "ln2": ones(),
+         "attn": {n: mat(s) for n, s in gqa_shapes(cfg).items()},
+         "mlp": {n: mat(s) for n, s in mlp_shapes(cfg).items()}}
+        for _ in range(cfg.num_layers)]
+    return params
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        set_leaf(self, "ln1", params["ln1"])
+        set_leaf(self, "ln2", params["ln2"])
+        self.attn = GQAAttention(cfg, params["attn"])
+        self.mlp = MLP(cfg, params["mlp"])
+
+    def forward(self, x, *, positions, cache, cache_index):
+        h = rms_norm(x, self.ln1, self.cfg.norm_eps)
+        a, cache = self.attn(h, positions=positions, cache=cache,
+                             cache_index=cache_index)
+        x = x + a
+        h = rms_norm(x, self.ln2, self.cfg.norm_eps)
+        return x + self.mlp(h), cache
+
+    def params_tree(self) -> dict:
+        return {"ln1": self.ln1, "ln2": self.ln2,
+                "attn": {n: getattr(self.attn, n) for n in gqa_shapes(self.cfg)},
+                "mlp": {n: getattr(self.mlp, n) for n in mlp_shapes(self.cfg)}}
+
+
+class TransformerLM(nn.Module):
+    """Dense GQA decoder LM on ``device`` (the card unless ``"cpu"``)."""
+
+    def __init__(self, cfg, device=None, params: dict | None = None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 "
+                "item 7")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            params = _empty_params(cfg, self.device)
+        set_leaf(self, "embed", params["embed"])
+        set_leaf(self, "ln_f", params["ln_f"])
+        if not cfg.tie_embeddings:
+            set_leaf(self, "lm_head", params["lm_head"])
+        self.blocks = nn.ModuleList(Block(cfg, p) for p in params["blocks"])
+
+    @classmethod
+    def from_params(cls, cfg, params: dict, device=None) -> "TransformerLM":
+        """A model over an existing parameter tree (no copies)."""
+        return cls(cfg, device=device, params=params)
+
+    def params_tree(self) -> dict:
+        tree = {"embed": self.embed, "ln_f": self.ln_f}
+        if not self.cfg.tie_embeddings:
+            tree["lm_head"] = self.lm_head
+        tree["blocks"] = [blk.params_tree() for blk in self.blocks]
+        return tree
+
+    # ---------------- params ----------------
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "TransformerLM":
+        """Random weights drawn from ``gen`` (a generator on this model's
+        device): N(0, 0.02^2) embeddings, N(0, 1/fan_in) projections, unit
+        norm weights.  Returns ``self``."""
+        embed_init(gen, self.embed)
+        if not self.cfg.tie_embeddings:
+            dense_init(gen, self.lm_head)
+        for blk in self.blocks:
+            for name in gqa_shapes(self.cfg):
+                dense_init(gen, getattr(blk.attn, name))
+            for name in mlp_shapes(self.cfg):
+                dense_init(gen, getattr(blk.mlp, name))
+        return self
+
+    # ---------------- forward ----------------
+    def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0):
+        """Returns (hidden (B, S, D), caches)."""
+        x = F.embedding(tokens, self.embed)
+        positions = token_positions(tokens.shape[1], cache_index, x.device)
+        new_caches = [] if caches is not None else None
+        for i, blk in enumerate(self.blocks):
+            x, c = blk(x, positions=positions,
+                       cache=caches[i] if caches is not None else None,
+                       cache_index=cache_index)
+            if caches is not None:
+                new_caches.append(c)
+        return rms_norm(x, self.ln_f, self.cfg.norm_eps), new_caches
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return quant_matmul(hidden, head, None)
+
+    # ---------------- serving ----------------
+    def init_cache(self, batch: int, s_max: int, *,
+                   spec: CacheSpec | None = None) -> list[KVCache]:
+        """Dense slab caches: one KVCache of (batch, s_max, Hkv, Dh) zeros
+        per layer."""
+        del spec     # a paged spec already raised at construction
+        cfg = self.cfg
+        shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+        dt = dtype_of(cfg)
+        return [KVCache(torch.zeros(shape, dtype=dt, device=self.device),
+                        torch.zeros(shape, dtype=dt, device=self.device))
+                for _ in range(cfg.num_layers)]
+
+    def prefill(self, tokens, caches, *, last_pos=None, cache_index=0):
+        """Prompt forward writing ``caches`` at ``cache_index``; returns the
+        (B, 1, V) logits at ``last_pos`` (default: the last column)."""
+        hidden, caches = self.forward(tokens, caches=caches,
+                                      cache_index=cache_index)
+        last = (hidden[:, -1:] if last_pos is None
+                else gather_last(hidden, last_pos))
+        return self.logits(last), caches
+
+    def decode_step(self, token, state, index):
+        """token: (B, 1); index: int shared by all rows, or a (B,) tensor of
+        per-row positions.  Under the engine's frozen decode model every
+        projection runs the LUT GEMM of its ``QuantizedWeight``."""
+        hidden, caches = self.forward(token, caches=state, cache_index=index)
+        return self.logits(hidden), caches

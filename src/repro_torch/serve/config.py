@@ -1,0 +1,131 @@
+"""EngineConfig: the serving knobs in one validated dataclass (mirrors
+``repro.serve.config``), with the shared argparse binding.
+
+The port serves the synchronous path over a dense slab.  The switches of
+the JAX engine's other paths (``paged``, ``prefix_cache``,
+``prefill_chunk``, ``spec``, ``trace``) are accepted so a caller gets a
+clear error: :meth:`EngineConfig.validate` raises ``NotImplementedError``
+naming ROADMAP queue 1 item 6, which ports them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+
+from repro_torch.serve.sampling import SamplingConfig
+
+#: engine-level decode quantization modes (EngineConfig.quant): the affine
+#: pair lut4 (D&C sub-table LUT) / int4 (direct dequant) and the NF4 pair
+#: nf4 (D&C + full residual) / nf4p (residual pruned).
+ENGINE_QUANT_MODES = ("lut4", "int4", "nf4", "nf4p")
+
+#: families the port's engine serves
+SERVED_FAMILIES = ("dense",)
+
+_UNPORTED = ("paged", "prefix_cache", "prefill_chunk", "spec", "trace")
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """* ``max_batch`` / ``max_seq`` — slot count and per-slot token budget.
+    * ``prefill_bucket`` — prompt lengths are padded up to multiples of
+      this; one prefill call per bucket.
+    * ``sampling`` / ``seed`` — sampling mode (None = greedy) and seed.
+    * ``starvation_bound`` — scheduler aging threshold (see
+      ``repro_torch.serve.engine.Scheduler``).
+    * ``quant`` — decode weight quantization (``ENGINE_QUANT_MODES``);
+      prefill always runs full precision; None keeps full-precision decode.
+    * ``paged`` / ``prefix_cache`` / ``prefill_chunk`` / ``spec`` /
+      ``trace`` — not ported (ROADMAP queue 1 item 6).
+    """
+    max_batch: int = 8
+    max_seq: int = 256
+    prefill_bucket: int = 16
+    sampling: SamplingConfig | None = None
+    seed: int = 0
+    starvation_bound: int = 8
+    quant: str | None = None
+    paged: bool = False
+    prefix_cache: bool = False
+    prefill_chunk: int | None = None
+    spec: str | None = None
+    trace: bool = False
+
+    def __post_init__(self):
+        if self.quant is not None and self.quant not in ENGINE_QUANT_MODES:
+            raise ValueError(
+                f"quant must be one of {ENGINE_QUANT_MODES} or None, "
+                f"got {self.quant!r}")
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_seq < 2:
+            raise ValueError(f"max_seq must be >= 2 (one prompt token + one "
+                             f"generated), got {self.max_seq}")
+        if self.prefill_bucket < 1:
+            raise ValueError(f"prefill_bucket must be >= 1, "
+                             f"got {self.prefill_bucket}")
+        if self.starvation_bound < 1:
+            raise ValueError(f"starvation_bound must be >= 1, "
+                             f"got {self.starvation_bound}")
+
+    def validate(self, family: str) -> None:
+        if family not in SERVED_FAMILIES:
+            raise NotImplementedError(
+                f"serving family {family!r} is not ported yet: ROADMAP "
+                "queue 1 item 7")
+        on = [name for name in _UNPORTED if getattr(self, name)]
+        if on:
+            raise NotImplementedError(
+                f"EngineConfig {', '.join(on)} not ported yet: ROADMAP "
+                "queue 1 item 6 (the port serves the synchronous dense-slab "
+                "path)")
+
+    # --- CLI binding ----------------------------------------------------
+    @staticmethod
+    def add_cli_args(ap) -> None:
+        """Register the engine flags on an argparse parser."""
+        ap.add_argument("--max-batch", type=int, default=None,
+                        help="concurrent sequence slots")
+        ap.add_argument("--max-seq", type=int, default=None,
+                        help="per-slot token budget (prompt + generation)")
+        ap.add_argument("--prefill-bucket", type=int, default=None,
+                        help="prompt lengths are padded up to multiples of "
+                             "this and prefilled one call per bucket")
+        for flag in ("--paged", "--prefix-cache", "--trace"):
+            ap.add_argument(flag, action="store_true",
+                            help="not ported yet (ROADMAP queue 1 item 6)")
+        ap.add_argument("--prefill-chunk", type=int, default=None,
+                        help="not ported yet (ROADMAP queue 1 item 6)")
+        ap.add_argument("--spec", default=None,
+                        help="not ported yet (ROADMAP queue 1 item 6)")
+        ap.add_argument("--sampling", default="greedy",
+                        choices=["greedy", "temperature", "top_k"])
+        ap.add_argument("--temperature", type=float, default=1.0)
+        ap.add_argument("--top-k", type=int, default=40)
+        ap.add_argument("--seed", type=int, default=0)
+        ap.add_argument("--quant", default=None,
+                        help="decode weight quantization: lut4 (D&C "
+                             "sub-table LUT gemm), int4 (direct dequant), "
+                             "nf4 (NF4 codebook, D&C + residual) or nf4p "
+                             "(pruned residual); bf16 or unset = none")
+
+    @classmethod
+    def from_args(cls, args, **overrides) -> "EngineConfig":
+        """Build a config from a namespace of :meth:`add_cli_args`;
+        ``overrides`` win, flags left at None/False keep the defaults.
+        ``--quant`` reaches ``quant`` only for engine modes."""
+        vals = {}
+        for f in fields(cls):
+            if f.name in ("sampling", "quant"):
+                continue
+            v = getattr(args, f.name, None)
+            if v is not None and v is not False:
+                vals[f.name] = v
+        q = getattr(args, "quant", None)
+        if q in ENGINE_QUANT_MODES:
+            vals["quant"] = q
+        mode = getattr(args, "sampling", "greedy")
+        vals["sampling"] = SamplingConfig(
+            mode=mode, temperature=getattr(args, "temperature", 1.0),
+            top_k=getattr(args, "top_k", 0) if mode == "top_k" else 0)
+        vals.update(overrides)
+        return replace(cls(), **vals)

@@ -1,0 +1,182 @@
+"""The port's engine against the JAX engine, and the JAX engine's pins.
+
+* Greedy tokens equal the JAX ``Engine``'s on the same prompts and bridged
+  weights, for ``quant=None``, ``lut4``, ``nf4`` and ``nf4p``.
+* The JAX pins hold in the port: mixed-length batch == sequential,
+  lut4 == int4 tokens, nf4 == the direct NF4 dequant oracle.
+* Sampled modes: a request's tokens depend on (seed, rid) only — the same
+  in a mixed batch and alone, reproducible, and changed by the seed.
+"""
+import argparse
+
+import jax
+import numpy as np
+import pytest
+
+from repro.models.registry import get_config as jax_config
+from repro.models.registry import get_model as jax_model
+from repro.serve.config import EngineConfig as JaxEngineConfig
+from repro.serve.engine import Engine as JaxEngine
+from repro.serve.engine import Request as JaxRequest
+from repro_torch.bridge import params_from_numpy
+from repro_torch.core.quant import quantize_decode_params
+from repro_torch.models.registry import get_config
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.sampling import SamplingConfig
+
+MIXED_LENS = (3, 9, 5)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_config("yi-9b").reduced(dtype="float32", attn_impl="full")
+    jparams = jax_model(jcfg).init(jax.random.PRNGKey(1))
+    cfg = get_config("yi-9b").reduced(dtype="float32", attn_impl="full")
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, jparams, cfg, model
+
+
+def _prompts(cfg, lens=MIXED_LENS, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def _serve(cfg, model, prompts, max_new=8, max_batch=None, rids=None,
+           **conf):
+    eng = Engine(cfg, model, EngineConfig(
+        max_batch=max_batch or len(prompts), max_seq=48, **conf),
+        device="cpu")
+    reqs = [Request(rid=rids[i] if rids else i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    assert eng.serve(reqs)["done"]
+    return [r.out for r in reqs], eng
+
+
+@pytest.mark.parametrize("quant", [None, "lut4", "nf4", "nf4p"])
+def test_greedy_tokens_equal_jax_engine(setup, quant):
+    jcfg, jparams, cfg, model = setup
+    prompts = _prompts(cfg)
+    jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(
+        max_batch=len(prompts), max_seq=48, quant=quant))
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new=8)
+             for i, p in enumerate(prompts)]
+    assert jeng.serve(jreqs)["done"]
+    port, _ = _serve(cfg, model, prompts, quant=quant)
+    assert port == [r.out for r in jreqs]
+
+
+def test_mixed_length_batch_matches_sequential(setup):
+    """5 mixed-length requests on a 3-slot slab (slot reuse, mixed depths)
+    == each request served alone."""
+    _, _, cfg, model = setup
+    prompts = _prompts(cfg, lens=(3, 9, 5, 17, 2))
+    batched, _ = _serve(cfg, model, prompts, max_new=6, max_batch=3)
+    for i, p in enumerate(prompts):
+        alone, _ = _serve(cfg, model, [p], max_new=6)
+        assert batched[i] == alone[0], (i, len(p))
+
+
+def test_quant_none_aliases_params(setup):
+    _, _, cfg, model = setup
+    _, eng = _serve(cfg, model, _prompts(cfg), max_new=2)
+    assert eng.decode_params is eng.params is model
+
+
+def test_lut4_and_int4_tokens_identical(setup):
+    """Two evaluations of one affine grid emit identical tokens."""
+    _, _, cfg, model = setup
+    prompts = _prompts(cfg)
+    lut, eng = _serve(cfg, model, prompts, quant="lut4")
+    i4, _ = _serve(cfg, model, prompts, quant="int4")
+    assert lut == i4
+    # the decode model shares every unquantized tensor with the float one
+    assert eng.decode_params.embed.data_ptr() == model.embed.data_ptr()
+    assert eng.decode_params.blocks[0].attn.wq.kernel == "lut_dc"
+
+
+def test_nf4_tokens_identical_to_direct_dequant_oracle(setup):
+    """nf4 (6-select D&C + residual) == the direct 16-entry NF4 lookup,
+    and the first (full-precision prefill) token equals bf16 decode's."""
+    _, _, cfg, model = setup
+    prompts = _prompts(cfg)
+    base, _ = _serve(cfg, model, prompts)
+    nf4, _ = _serve(cfg, model, prompts, quant="nf4")
+    eng = Engine(cfg, model, EngineConfig(max_batch=len(prompts), max_seq=48,
+                                          quant="nf4"), device="cpu")
+    eng.decode_params = TransformerLM.from_params(
+        cfg, quantize_decode_params(model.params_tree(), "nf4_direct"),
+        device="cpu")
+    reqs = [Request(rid=i, prompt=p, max_new=8)
+            for i, p in enumerate(prompts)]
+    assert eng.serve(reqs)["done"]
+    assert nf4 == [r.out for r in reqs]
+    assert [o[0] for o in nf4] == [o[0] for o in base]
+
+
+@pytest.mark.parametrize("sampling", [
+    SamplingConfig("temperature", temperature=0.8),
+    SamplingConfig("top_k", temperature=1.0, top_k=5)])
+def test_sampled_streams_depend_on_seed_and_rid_only(setup, sampling):
+    _, _, cfg, model = setup
+    prompts = _prompts(cfg, lens=(3, 9, 5, 6))
+    rids = [7, 3, 11, 5]
+    kw = dict(max_new=6, rids=rids, sampling=sampling, seed=3)
+    batched, _ = _serve(cfg, model, prompts, max_batch=2, **kw)
+    again, _ = _serve(cfg, model, prompts, max_batch=4, **kw)
+    assert batched == again                     # slot/co-tenant independent
+    for i, p in enumerate(prompts):
+        alone, _ = _serve(cfg, model, [p], max_new=6, rids=[rids[i]],
+                          sampling=sampling, seed=3)
+        assert alone[0] == batched[i], i
+    reseeded, _ = _serve(cfg, model, prompts, max_batch=4, max_new=6,
+                         rids=rids, sampling=sampling, seed=4)
+    assert reseeded != batched
+
+
+def test_scheduler_admits_higher_priority_first(setup):
+    _, _, cfg, model = setup
+    eng = Engine(cfg, model, EngineConfig(max_batch=1, max_seq=48),
+                 device="cpu")
+    low = Request(rid=0, prompt=[5, 6, 7], max_new=2, priority=0)
+    high = Request(rid=1, prompt=[8, 9], max_new=2, priority=1)
+    assert eng.serve([low, high])["done"]
+    assert high.token_ts[-1] <= low.token_ts[0]
+
+
+def test_engine_validation(setup):
+    _, _, cfg, model = setup
+    eng = Engine(cfg, model, EngineConfig(max_batch=1, max_seq=8),
+                 device="cpu")
+    with pytest.raises(ValueError, match="prompt length"):
+        eng.serve([Request(rid=0, prompt=list(range(1, 9)))])
+    with pytest.raises(ValueError, match="max_new"):
+        eng.serve([Request(rid=0, prompt=[1], max_new=0)])
+    with pytest.raises(ValueError, match="quant"):
+        EngineConfig(quant="fp3")
+    for knob in (dict(paged=True), dict(prefix_cache=True),
+                 dict(prefill_chunk=8), dict(spec="ngram"), dict(trace=True)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            Engine(cfg, model, EngineConfig(**knob), device="cpu")
+
+
+def test_from_args_routes_quant_flag():
+    ap = argparse.ArgumentParser()
+    EngineConfig.add_cli_args(ap)
+    for mode in ("lut4", "int4", "nf4", "nf4p"):
+        assert EngineConfig.from_args(
+            ap.parse_args(["--quant", mode])).quant == mode
+    assert EngineConfig.from_args(ap.parse_args(["--quant", "bf16"])).quant \
+        is None
+    conf = EngineConfig.from_args(ap.parse_args(
+        ["--max-batch", "3", "--sampling", "top_k", "--top-k", "7"]))
+    assert conf.max_batch == 3 and conf.sampling.top_k == 7
+
+
+def test_cli_serves_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+    stats = main(["--device", "cpu", "--quant", "nf4p", "--requests", "2",
+                  "--max-new", "3"])
+    assert stats["done"] and stats["decode_tokens"] == 4
+    assert "rid 1:" in capsys.readouterr().out

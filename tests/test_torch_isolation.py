@@ -1,0 +1,91 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* With ``jax`` blocked, every ``repro_torch`` module (and ``chip_smoke``)
+  imports, and no module of the JAX package ``repro`` gets loaded.
+* Without a GPU, every entry point raises unless given ``device="cpu"``.
+* What the slice does not port raises ``NotImplementedError`` naming the
+  ROADMAP item that ports it.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.core.layers import QuantConfig
+from repro_torch.models.attention import sdpa
+from repro_torch.models.common import CacheSpec
+from repro_torch.models.registry import get_config, get_model
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.engine import Engine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        leaked = sorted(m for m in sys.modules
+                        if m == "repro" or m.startswith("repro."))
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20      # the whole package walked
+
+
+def _small_cfg():
+    return get_config("yi-9b").reduced(dtype="float32", attn_impl="full")
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = _small_cfg()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({}, cfg)
+    model = get_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model, EngineConfig(max_batch=1, max_seq=16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, model, EngineConfig(max_batch=1, max_seq=16),
+               device="cuda")
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--requests", "1"])
+
+
+def test_unported_parts_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        get_config("starcoder2-15b")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        get_config("mamba2-1.3b")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        QuantConfig(mode="luna_approx")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        CacheSpec(block_size=16, num_blocks=8)
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="queue 2 kernel 3"):
+        sdpa(q, q, q, impl="flash")
+    from dataclasses import replace
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        TransformerLM(replace(_small_cfg(), family="moe"), device="cpu")
