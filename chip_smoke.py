@@ -8,23 +8,41 @@ Phases, each fatal on failure (the script exits nonzero and prints no
 result line):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> fail;
-2. build every CUDA source of the port with nvcc for sm_90a (seconds);
-3. each LUT GEMM kernel against its plain PyTorch version on the card at
-   every yi-9b decode projection shape, M in {1, 8}, bf16 x, at the
-   tolerance stated in ``kernels/lut_gemm/lut_gemm.py``; the dequantized
-   weight (x = I) bitwise; a ragged shape; times by CUDA events;
+2. build every CUDA source of the port with nvcc for sm_90a, one nvcc per
+   source, all started together (seconds);
+3. each kernel against its plain PyTorch version on the card at every
+   yi-9b projection shape, times by CUDA events with the codes cold in
+   L2, each beside its bound:
+   a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``), M in
+      {1, 8}, bf16 x, at the tolerance stated in
+      ``kernels/lut_gemm/lut_gemm.py``; x = I bitwise; a ragged shape;
+   b. the LUNA GEMM (``luna_mm``) in all five modes, M in {8, 512}, int32
+      bitwise; a ragged shape; ``torch._int_mm`` as the library yardstick
+      for the exact modes at M = 512;
+   c. the full-table LUT GEMM (``lut_gemm``), NF4 codes, M in {8, 512},
+      1e-4; x = I bitwise; a ragged shape;
 4. a reduced f32 yi-9b: quantization on the card equals the CPU's
    bitwise, and decode logits through the kernels agree with the CPU's
-   plain path;
-5. the main path: the engine serves 8 requests (prompts 16-512, 32 new
-   tokens) at yi-9b's full width in bf16 under quant="lut4", then
-   "nf4p", asserting every request finished, every logit is finite and
-   the kernel launch counters grew by exactly ticks x layers x 7; then
+   plain path (lut4, nf4p; lut_nf4, whose codes depend on the weights
+   only);
+5. ``quant_matmul`` on the card against the CPU's on identical f32 inputs
+   under every model-level mode: codes and LUNA int32 accumulators
+   bitwise, outputs 1e-5;
+6. the main path at yi-9b's full width in bf16 (random weights, seed 0):
+   the engine serves 8 requests (prompts 16-512, 32 new tokens)
+   a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
+      decode projections on the D&C kernels);
+   b. under the model-level modes luna_approx2, luna_dc (every projection
+      of prefill and decode on luna_mm) and lut_nf4 (on lut_gemm);
+   each run asserting every request finished, every logit is finite and
+   each kernel's launch counter (all set to 0 just before the run, read
+   just after) equals the projections the run made through it; then
    (after the counts are read) a torch.profiler window over 4 decode
-   ticks of the lut4 engine: device time by kernel and the idle share.
+   ticks: device time by kernel and the idle share.
 
-Every line but the last is one JSON object; the ``{"kernels": [...]}``
-line comes just before the last, which is ``{"ok": true, "device": ...}``.
+Every line is one JSON object (``t_s``: seconds since the start); the
+``{"kernels": [...]}`` line comes just before the last, which is
+``{"ok": true, "device": ...}``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -44,6 +62,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 #: H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
+INT8_OP_S = 1979e12
+F32_FLOP_S = 67e12           # outside the tensor cores
 #: (K, N) of yi-9b's decode projections, in layer order wq wk wv wo
 #: w_gate w_up w_down
 LAYER_SHAPES = [(4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
@@ -51,8 +71,13 @@ LAYER_SHAPES = [(4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
 COLD_BYTES = 256 << 20       # rotate code copies past the 50 MB L2
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def check(cond, what: str) -> None:
@@ -76,19 +101,41 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(m: int, k: int, n: int, x_bytes: int, table_bytes: int
-             ) -> tuple[float, str]:
+def bound_ms(m: int, k: int, n: int, x_bytes: int, table_bytes: int,
+             vec_bytes: int = 8, ops: float | None = None,
+             peak: float = BF16_FLOP_S) -> tuple[float, str]:
     """Least time for one call: each input read once (x, codes, tables,
-    zp, scale), the f32 output written once, vs 2MKN flops at the bf16
-    tensor-core peak."""
-    nbytes = m * k * x_bytes + k * n + table_bytes + 2 * n * 4 + m * n * 4
+    ``vec_bytes`` per output channel), the 4-byte output written once,
+    against ``ops`` (default 2MKN) at ``peak``; the larger of the two."""
+    nbytes = m * k * x_bytes + k * n + table_bytes + vec_bytes * n + m * n * 4
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = 2 * m * k * n / BF16_FLOP_S * 1e3
+    t_ops = (2 * m * k * n if ops is None else ops) / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def layer_summary(name: str, rows: list, m: int, **kw) -> dict:
+    """The kernels-line entry: one yi-9b layer's 7 projections at ``m``
+    rows, summed from the per-shape ``rows`` of one kernel (and mode)."""
+    at = {(s["k"], s["n"]): s for s in rows if s["m"] == m}
+    layer = [at[kn] for kn in LAYER_SHAPES]
+    lib = [s.get("library_ms") for s in layer]
+    return {
+        "name": name, "route": "cuda", "launches": None,
+        "ms": sum(s["ms"] for s in layer),
+        "plain_ms": sum(s["plain_ms"] for s in layer),
+        "bound_ms": sum(s["bound_ms"] for s in layer),
+        "bound_by": "bytes" if all(s["bound_by"] == "bytes"
+                                   for s in layer) else "operations",
+        "library_ms": None if None in lib else sum(lib), **kw}
+
+
+def cold_copies(t, nbytes: int) -> list:
+    """``t`` and enough clones of it to exceed the 50 MB L2 together."""
+    return [t] + [t.clone() for _ in range(max(1, COLD_BYTES // nbytes) - 1)]
+
+
 def kernel_phase(dev):
-    """Phase 3: both kernels against their plain versions on the card."""
+    """Phase 3a: both D&C kernels against their plain versions."""
     from dataclasses import replace
 
     import torch
@@ -161,25 +208,181 @@ def kernel_phase(dev):
               "per_shape": per_shape})
 
         # one decoder layer's 7 projections at the main path's M = 8
-        at = {(s["k"], s["n"]): s for s in per_shape if s["m"] == 8}
-        layer = [at[kn] for kn in LAYER_SHAPES]
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
-            "replaces": sp["replaces"], "launches": None,
-            "max_abs_err": max_err,
-            "ms": sum(s["ms"] for s in layer),
-            "plain_ms": sum(s["plain_ms"] for s in layer),
-            "bound_ms": sum(s["bound_ms"] for s in layer),
-            "bound_by": "bytes" if all(s["bound_by"] == "bytes"
-                                       for s in layer) else "operations",
-            "library_ms": None,
-            "timed_as": "one yi-9b layer's 7 decode projections, M=8, "
-                        "bf16 x, codes cold in L2",
-            "per_shape": per_shape}
+        results[name] = layer_summary(
+            name, per_shape, 8,
+            source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
+            replaces=sp["replaces"], max_abs_err=max_err,
+            timed_as="one yi-9b layer's 7 decode projections, M=8, bf16 x, "
+                     "codes cold in L2",
+            per_shape=per_shape)
         gc.collect()
         torch.cuda.empty_cache()
     return results
+
+
+LUNA_MODES = ("conventional", "opt_dc", "dc", "approx_dc", "approx_dc2")
+#: digit-plane contractions each mode runs (approx_dc2 adds colsum(W))
+LUNA_PLANES = {"conventional": 1, "dc": 2, "opt_dc": 2, "approx_dc": 1,
+               "approx_dc2": 1}
+
+
+def luna_kernel_phase(dev):
+    """Phase 3b: luna_mm against its plain version, every mode, bitwise."""
+    import torch
+
+    from repro_torch.kernels.luna_mm import luna_mm as lm
+    from repro_torch.kernels.luna_mm.ref import luna_mm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def codes(*shape):
+        return torch.randint(0, 16, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    for mode in LUNA_MODES:                 # ragged M, K, N: masked path
+        y, w = codes(3, 72), codes(72, 40)
+        check(torch.equal(lm.luna_mm(y, w, mode), luna_mm_ref(y, w, mode)),
+              f"luna_mm {mode}: ragged 3x72x40 differs from the plain "
+              "version")
+    per_shape = []
+    for k, n in sorted(set(LAYER_SHAPES)):
+        copies = cold_copies(codes(k, n), k * n)
+        for m in (8, 512):
+            y = codes(m, k)
+            lib_ms = (cuda_ms(lambda i: torch._int_mm(
+                y, copies[i % len(copies)]), 50) if m > 16 else None)
+            for mode in LUNA_MODES:
+                out = lm.luna_mm(y, copies[0], mode)
+                check(torch.equal(out, luna_mm_ref(y, copies[0], mode)),
+                      f"luna_mm {mode} ({m}, {k}, {n}): not bitwise equal "
+                      "to the plain version")
+                ms = cuda_ms(lambda i: lm.luna_mm(y, copies[i % len(copies)],
+                                                  mode), 50)
+                plain_ms = cuda_ms(lambda i: luna_mm_ref(
+                    y, copies[i % len(copies)], mode), 5)
+                ops = (2 * m * k * n * LUNA_PLANES[mode]
+                       + (k * n if mode == "approx_dc2" else 0))
+                b_ms, b_by = bound_ms(m, k, n, 1, 0, 0, ops, INT8_OP_S)
+                exact = mode in ("conventional", "dc", "opt_dc")
+                per_shape.append({
+                    "mode": mode, "m": m, "k": k, "n": n, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms if exact else None})
+        del copies
+    emit({"kernel_check": "luna_mm", "passed": True, "max_abs_err": 0,
+          "bitwise": True, "modes": list(LUNA_MODES),
+          "per_shape": per_shape})
+    entry = layer_summary(
+        "luna_mm", [s for s in per_shape if s["mode"] == "approx_dc2"], 8,
+        source="src/repro_torch/kernels/luna_mm/csrc/luna_mm.cu",
+        replaces="src/repro/kernels/luna_mm/luna_mm.py:77", max_abs_err=0,
+        timed_as="one yi-9b layer's 7 projections, M=8 (decode), mode "
+                 "approx_dc2 (luna_approx2), codes cold in L2; library: "
+                 "torch._int_mm needs M > 16 and computes only the exact "
+                 "modes (per_shape, M=512)",
+        per_shape=per_shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"luna_mm": entry}
+
+
+def lut_full_kernel_phase(dev):
+    """Phase 3c: the full-table lut_gemm against its plain version."""
+    import torch
+
+    from repro_torch.core.lut import NF4_CODEBOOK
+    from repro_torch.kernels.lut_gemm import lut_gemm as lg
+    from repro_torch.kernels.lut_gemm import ref
+    from repro_torch.kernels.lut_gemm.ops import codebook_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+
+    def qweight(k, n):
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        return codebook_quantize(w.bfloat16(), cb)
+
+    codes, scale = qweight(256, 4096)
+    eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    check(torch.equal(lg.lut_gemm(eye, codes, cb, scale),
+                      cb[codes.long()] * scale[None, :]),
+          "lut_gemm: x = I output is not bitwise CB[q] * scale")
+    codes, scale = qweight(72, 40)
+    x = torch.randn((3, 72), generator=gen, device=dev)
+    torch.testing.assert_close(lg.lut_gemm(x, codes, cb, scale),
+                               ref.lut_gemm_ref(x, codes, cb, scale),
+                               rtol=lg.KERNEL_RTOL, atol=lg.KERNEL_ATOL)
+    per_shape, max_err = [], 0.0
+    for k, n in sorted(set(LAYER_SHAPES)):
+        codes, scale = qweight(k, n)
+        copies = cold_copies(codes, k * n)
+        for m in (8, 512):
+            x = torch.randn((m, k), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            out = lg.lut_gemm(x, codes, cb, scale)
+            plain = ref.lut_gemm_ref(x, codes, cb, scale)
+            torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
+                                       atol=lg.KERNEL_ATOL)
+            max_err = max(max_err, (out - plain).abs().max().item())
+            ms = cuda_ms(lambda i: lg.lut_gemm(x, copies[i % len(copies)],
+                                               cb, scale), 50)
+            plain_ms = cuda_ms(lambda i: ref.lut_gemm_ref(
+                x, copies[i % len(copies)], cb, scale), 5)
+            b_ms, b_by = bound_ms(m, k, n, 2, 64, 4, peak=F32_FLOP_S)
+            per_shape.append({"m": m, "k": k, "n": n, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None})
+        del copies
+    emit({"kernel_check": "lut_gemm", "passed": True, "max_abs_err": max_err,
+          "rtol": lg.KERNEL_RTOL, "atol": lg.KERNEL_ATOL,
+          "per_shape": per_shape})
+    entry = layer_summary(
+        "lut_gemm", per_shape, 8,
+        source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
+        replaces="src/repro/kernels/lut_gemm/lut_gemm.py:78",
+        max_abs_err=max_err,
+        timed_as="one yi-9b layer's 7 projections, M=8 (decode), bf16 x, "
+                 "NF4 codes cold in L2; bound by f32 FMAs at 67 TFLOP/s "
+                 "or bytes; no single PyTorch call computes it",
+        per_shape=per_shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lut_gemm": entry}
+
+
+def quant_matmul_phase(dev):
+    """Phase 5: the card's quant_matmul against the CPU's, every mode."""
+    import torch
+
+    from repro_torch.core import luna, quant
+    from repro_torch.core.layers import QUANT_MODES, QuantConfig, quant_matmul
+    from repro_torch.kernels.luna_mm.ops import luna_mm_codes
+
+    gen = torch.Generator().manual_seed(3)
+    errs = {}
+    for m in (8, 40):          # int8: the f64 (M <= 16) and _int_mm routes
+        x = torch.randn((m, 4096), generator=gen)
+        w = torch.randn((4096, 1024), generator=gen) / 64
+        xq, wq = quant.calibrate(x, 4), quant.calibrate(w, 4, axis=-1)
+        qx, qw = quant.quantize(x, xq), quant.quantize(w, wq)
+        xg, wg = x.to(dev), w.to(dev)
+        qxg = quant.quantize(xg, quant.calibrate(xg, 4))
+        qwg = quant.quantize(wg, quant.calibrate(wg, 4, axis=-1))
+        check(torch.equal(qxg.cpu(), qx) and torch.equal(qwg.cpu(), qw),
+              f"M={m}: 4-bit codes on the card differ from the CPU's")
+        for mode in LUNA_MODES:
+            check(torch.equal(luna_mm_codes(qxg, qwg, mode=mode).cpu(),
+                              luna.luna_matmul(qx, qw, mode=mode)),
+                  f"M={m} {mode}: int32 accumulators differ from the CPU's")
+        for mode in QUANT_MODES:
+            cfg = QuantConfig(mode=mode)
+            got = quant_matmul(xg, wg, cfg).cpu()
+            want = quant_matmul(x, w, cfg)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            errs[f"{mode} M={m}"] = (got - want).abs().max().item()
+    emit({"quant_matmul_card_vs_cpu": "f32 x (M, 4096) @ w (4096, 1024)",
+          "codes_bitwise": True, "int32_accumulators_bitwise": True,
+          "max_abs_err": errs, "rtol": 1e-5, "atol": 1e-5})
 
 
 def small_reference_phase(dev):
@@ -230,7 +433,23 @@ def small_reference_phase(dev):
             torch.testing.assert_close(logits[1], logits[0], rtol=1e-4,
                                        atol=1e-4)
             out[quant] = (logits[1] - logits[0]).abs().max().item()
-    emit({"small_reference": "reduced yi-9b f32, decode logits card vs cpu",
+        # model-level lut_nf4: codes depend on the weights only, so the
+        # card (full-table kernel) and the CPU (JAX's library order) agree
+        # up to f32 summation order
+        from dataclasses import replace
+
+        from repro_torch.core.layers import QuantConfig
+        qcfg = replace(cfg, quant=QuantConfig(mode="lut_nf4"))
+        logits = []
+        for model, device in ((cpu, "cpu"), (gpu, dev)):
+            m = TransformerLM.from_params(qcfg, model.params_tree(),
+                                          device=device)
+            lg_, _ = m.prefill(toks.to(device), m.init_cache(4, 32))
+            logits.append(lg_.float().cpu())
+        torch.testing.assert_close(logits[1], logits[0], rtol=1e-4,
+                                   atol=1e-4)
+        out["lut_nf4 prefill"] = (logits[1] - logits[0]).abs().max().item()
+    emit({"small_reference": "reduced yi-9b f32, logits card vs cpu",
           "max_abs_err": out, "rtol": 1e-4, "atol": 1e-4})
 
 
@@ -265,29 +484,36 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    lut_ms = sum(r[1] for r in rows
-                 if "lut_gemm" in r[0] or "splitk_reduce" in r[0])
+    ours_ms = sum(r[1] for r in rows
+                  if any(t in r[0] for t in ("lut_gemm", "luna_mm",
+                                             "splitk_reduce")))
     return {"profile": "decode ticks", "ticks": ticks, "wall_ms": wall_ms,
             "device_ms": device_ms if rows else "not measured",
-            "lut_kernels_ms": lut_ms if rows else "not measured",
+            "port_kernels_ms": ours_ms if rows else "not measured",
             "device_idle_share": (1 - device_ms / wall_ms) if rows
             else "not measured",
             "top": [{"kernel": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:12]]}
 
 
-def main_path_phase(dev, layers: int):
-    """Phase 5: the engine at yi-9b's full width, lut4 then nf4p."""
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.luna_mm.luna_mm import luna_mm
+    from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
+                                                       lut_gemm_dc_res)
+    return {f.__name__: f for f in (lut_gemm_dc, lut_gemm_dc_res, luna_mm,
+                                    lut_gemm)}
+
+
+def build_model(dev, layers: int):
+    """yi-9b at its published widths, ``layers`` deep, bf16, random weights
+    from seed 0; and the request mix (8 prompts of 16-512 tokens)."""
     from dataclasses import replace
 
     import numpy as np
     import torch
 
-    from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm_dc,
-                                                       lut_gemm_dc_res)
     from repro_torch.models.registry import get_config, get_model
-    from repro_torch.serve.config import EngineConfig
-    from repro_torch.serve.engine import Engine, Request
 
     cfg = replace(get_config("yi-9b"), num_layers=layers)
     t0 = time.perf_counter()
@@ -301,67 +527,112 @@ def main_path_phase(dev, layers: int):
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 513, size=8)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
+    return cfg, model, prompts
 
-    launches, first_tokens = {}, {}
-    for quant, kern, other in (("lut4", lut_gemm_dc, lut_gemm_dc_res),
-                               ("nf4p", lut_gemm_dc_res, lut_gemm_dc)):
-        t0 = time.perf_counter()
+
+def serve_once(dev, cfg, model, prompts, quant, kern: str
+               ) -> tuple[dict, list]:
+    """One main-path run: the engine serves the request mix; every kernel
+    counter is set to 0 just before and read just after.  ``quant``: an
+    engine-level mode (EngineConfig.quant: frozen decode projections,
+    prefill full precision) or a model-level one (cfg.quant, every
+    projection of prefill and decode; the model shares ``model``'s
+    tensors).  ``kern`` must have launched once per projection (7 a layer)
+    of each decode tick, and of each prefill call under a model-level
+    mode, and no other kernel at all.  Profiles 4 decode ticks after."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.config import ENGINE_QUANT_MODES, EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    if quant in ENGINE_QUANT_MODES:
         eng = Engine(cfg, model, EngineConfig(quant=quant, max_batch=8,
                                               max_seq=1024), device=dev)
-        torch.cuda.synchronize()
-        quant_s = time.perf_counter() - t0
-        finite = []
+    else:
+        qcfg = replace(cfg, quant=QuantConfig(mode=quant))
+        eng = Engine(qcfg, TransformerLM.from_params(
+            qcfg, model.params_tree(), device=dev),
+            EngineConfig(max_batch=8, max_seq=1024), device=dev)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    finite = []
 
-        def watch(m):
-            base = m.logits
+    def watch(m):
+        base = m.logits
 
-            def logits(hidden):
-                out = base(hidden)
-                finite.append(torch.isfinite(out).all())
-                return out
-            m.logits = logits
+        def logits(hidden):
+            out = base(hidden)
+            finite.append(torch.isfinite(out).all())
+            return out
+        m.logits = logits
 
-        for m in {id(eng.params): eng.params,
-                  id(eng.decode_params): eng.decode_params}.values():
-            watch(m)
-        reqs = [Request(rid=i, prompt=p, max_new=32)
-                for i, p in enumerate(prompts)]
-        lut_gemm_dc.launches = 0
-        lut_gemm_dc_res.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = eng.serve(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_kern, n_other = kern.launches, other.launches
-        del model.logits
-        ticks = eng.metrics.ticks
-        check(stats["done"] and all(len(r.out) == 32 for r in reqs),
-              f"{quant}: not every request finished")
-        check(finite and bool(torch.stack(finite).all()),
-              f"{quant}: non-finite logits")
-        check(n_kern == ticks * layers * 7 and n_other == 0,
-              f"{quant}: {kern.__name__} launched {n_kern} times, want "
-              f"{ticks} ticks x {layers} layers x 7 (other kernel "
-              f"{n_other})")
-        launches[kern.__name__] = n_kern
-        first_tokens[quant] = [r.out[0] for r in reqs]
-        if quant == "lut4":   # after the counts are read: not the main run
-            emit(profile_decode(eng, prompts))
-        emit({"main_path": quant, "requests": len(reqs),
-              "prompt_lens": [int(n) for n in lens], "max_new": 32,
-              "layers": layers, "decode_ticks": ticks,
-              "launches": {kern.__name__: n_kern},
-              "prefill_tok_s": stats["prefill_tok_s"],
-              "decode_tok_s": stats["decode_tok_s"],
-              "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
-              "wall_s": wall, "quantize_s": quant_s,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-        del eng, reqs
-        gc.collect()
-        torch.cuda.empty_cache()
-    # prefill runs the same full-precision model in both runs
-    check(first_tokens["lut4"] == first_tokens["nf4p"],
+    watched = {id(eng.params): eng.params,
+               id(eng.decode_params): eng.decode_params}.values()
+    for m in watched:
+        watch(m)
+    reqs = [Request(rid=i, prompt=p, max_new=32)
+            for i, p in enumerate(prompts)]
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in wrappers.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: f.launches for name, f in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in watched:
+        del m.logits
+    layers = cfg.num_layers
+    ticks = eng.metrics.ticks
+    model_level = quant not in ENGINE_QUANT_MODES
+    want = (ticks + model_level * stats["prefill_calls"]) * layers * 7
+    check(stats["done"] and all(len(r.out) == 32 for r in reqs),
+          f"{quant}: not every request finished")
+    check(finite and bool(torch.stack(finite).all()),
+          f"{quant}: non-finite logits")
+    check(counts[kern] == want and all(
+        n == 0 for name, n in counts.items() if name != kern),
+        f"{quant}: launches {counts}, want {kern} = {want} and no other")
+    prof = profile_decode(eng, prompts)    # after the counts are read
+    emit({"main_path": quant, "requests": len(reqs),
+          "prompt_lens": [len(p) for p in prompts], "max_new": 32,
+          "layers": layers, "decode_ticks": ticks,
+          "prefill_calls": stats["prefill_calls"], "launches": counts,
+          "prefill_tok_s": stats["prefill_tok_s"],
+          "decode_tok_s": stats["decode_tok_s"],
+          "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+          "wall_s": wall, "quantize_s": quant_s, "peak_mem_gb": peak_gb,
+          "first_tokens": [r.out[0] for r in reqs], **{
+              f"profile_{k}": v for k, v in prof.items()}})
+    out = [r.out for r in reqs]
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def main_path_phase(dev, cfg, model, prompts) -> dict:
+    """Phase 6: the engine at yi-9b's full width; returns launches by
+    kernel.  6a: engine-level lut4 / nf4p (decode projections on the D&C
+    kernels, prefill full precision).  6b: model-level luna_approx2 /
+    luna_dc (every projection on luna_mm) and lut_nf4 (on lut_gemm)."""
+    launches, outs = {}, {}
+    for quant, kern in (("lut4", "lut_gemm_dc"), ("nf4p", "lut_gemm_dc_res"),
+                        ("luna_approx2", "luna_mm"), ("luna_dc", "luna_mm"),
+                        ("lut_nf4", "lut_gemm")):
+        counts, outs[quant] = serve_once(dev, cfg, model, prompts, quant,
+                                         kern)
+        launches[kern] = launches.get(kern, 0) + counts[kern]
+    # prefill runs the same full-precision model under lut4 and nf4p
+    check([o[0] for o in outs["lut4"]] == [o[0] for o in outs["nf4p"]],
           "first (prefill) tokens differ between the lut4 and nf4p runs")
     return launches
 
@@ -404,8 +675,14 @@ def main() -> int:
               and "0 bytes spill stores, 0 bytes spill loads" not in ln})})
 
     kernels = kernel_phase(dev)
+    kernels.update(luna_kernel_phase(dev))
+    kernels.update(lut_full_kernel_phase(dev))
     small_reference_phase(dev)
-    launches = main_path_phase(dev, args.layers)
+    quant_matmul_phase(dev)
+    launches = main_path_phase(dev, *build_model(dev, args.layers))
+    check(set(launches) == set(kernels),
+          f"kernels launched on the main path {sorted(launches)} are not "
+          f"the kernels checked {sorted(kernels)}")
     for name, n in launches.items():
         kernels[name]["launches"] = n
     emit({"kernels": list(kernels.values())})

@@ -7,8 +7,9 @@ path (``repro_torch.core.quant`` <-> ``repro.core.quant``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (see :mod:`repro_torch.device`).  On the card the decode
-projections of the frozen 4-bit LUT path run on hand-written Hopper
-kernels (:mod:`repro_torch.kernels.lut_gemm`).
+projections of the frozen 4-bit LUT path and every projection under the
+model-level LUNA / NF4 modes run on hand-written Hopper kernels
+(:mod:`repro_torch.kernels.lut_gemm`, :mod:`repro_torch.kernels.luna_mm`).
 """
 from repro_torch.device import resolve_device
 

@@ -9,6 +9,10 @@ numpy by the caller, into the port's modules.  Imports no jax.
   exact.
 
 :func:`params_to_numpy` is the way back, for round-trip checks.
+
+Configs do not cross: the caller builds the port's ``ModelConfig``.  Its
+``QuantConfig`` has no ``use_pallas`` (the port picks the kernel by the
+tensor's device), so a JAX config's ``use_pallas`` has nothing to map to.
 """
 from __future__ import annotations
 

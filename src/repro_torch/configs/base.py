@@ -28,7 +28,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
-    quant: QuantConfig = field(default_factory=QuantConfig)
+    quant: QuantConfig = field(default_factory=QuantConfig)  # model-level
     attn_impl: str = "chunked"   # full | chunked
     attn_chunk: int = 512
 

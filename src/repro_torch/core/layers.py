@@ -1,10 +1,28 @@
 """``quant_matmul``: the one matmul every projection routes through
-(mirrors ``repro.core.layers``).
+(mirrors ``repro.core.layers``), so one ``--quant`` flag turns the model
+into a LUNA-quantized one.  Modes:
 
-Two cases are ported: a frozen :class:`QuantizedWeight` goes to the LUT
-GEMM dispatch (``kernels.lut_gemm.ops.quantized_matmul``), and everything
-else is a plain ``x @ w``.  The model-level dynamic quant modes (int8,
-int4_dequant, lut_nf4, luna_*) are ROADMAP queue 1 item 8.
+  bf16              — no quantization
+  int8              — symmetric int8 dynamic quantization
+  int4_dequant      — weight-only uniform int4, dequant then matmul (the
+                      "conventional math" baseline the paper argues against)
+  luna_conventional — full-LUT LUNA (exact; paper Fig 1)
+  luna_dc           — exact D&C LUNA (paper Figs 2/3; optimized table)
+  luna_approx       — ApproxD&C, Z_LSB := 0 (paper Fig 9)
+  luna_approx2      — ApproxD&C2, Z_LSB := W (paper Fig 10)
+  lut_nf4           — NF4 codebook weights through the programmable LUT
+
+Every mode quantizes dynamically on each call.  A frozen
+:class:`QuantizedWeight` (the engine's ``EngineConfig(quant=...)`` decode
+tree) goes to the LUT GEMM its ``kernel`` tag selects whatever the config.
+
+Device routing (the port's rule, in place of JAX's ``use_pallas`` switch,
+which the port drops): on CUDA tensors the ``luna_*`` modes run the
+hand-written LUNA GEMM (``kernels.luna_mm``) and ``lut_nf4`` the full-table
+LUT GEMM (``kernels.lut_gemm``, scale applied after the product as in the
+Pallas kernel); on CPU tensors every mode is JAX's library path, operation
+for operation, so the CPU port emits the JAX engine's tokens.  The STE
+wrapper for training (``ste_luna_matmul``) is ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -12,28 +30,110 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.quant import QuantizedWeight
+from repro_torch.core import lut
+from repro_torch.core.luna import LunaMode
+from repro_torch.core.quant import (QuantizedWeight, calibrate, dequantize,
+                                    luna_matmul_f32, nf4_encode, quantize)
+
+LUNA_MODE_OF = {
+    "luna_conventional": LunaMode.CONVENTIONAL,
+    "luna_dc": LunaMode.OPT_DC,
+    "luna_approx": LunaMode.APPROX_DC,
+    "luna_approx2": LunaMode.APPROX_DC2,
+}
+
+QUANT_MODES = ("bf16", "int8", "int4_dequant", "lut_nf4", *LUNA_MODE_OF)
 
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """Model-level quantization; only ``mode="bf16"`` (none) is ported."""
+    """Model-level quantization.  ``targets``: the projection groups to
+    quantize (router/embeddings/LM head stay full precision).  JAX's
+    ``use_pallas`` is dropped: the port selects the kernel by device."""
     mode: str = "bf16"
+    bits: int = 4
+    targets: tuple = ("attn", "mlp", "moe")
 
     def __post_init__(self):
-        if self.mode != "bf16":
-            raise NotImplementedError(
-                f"model-level quant mode {self.mode!r} is not ported yet: "
-                "ROADMAP queue 1 item 8")
+        if self.mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {self.mode!r}; one of {QUANT_MODES}")
+
+    def applies(self, group: str) -> bool:
+        return self.mode != "bf16" and group in self.targets
+
+
+def _int_mm_exact(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> exact int32.
+
+    CUDA's ``torch.matmul`` has no integer path and f32 is not exact past
+    2**24, so on the card ``torch._int_mm`` (cuBLAS int8 GEMM with int32
+    accumulation) runs where its shape rules hold (M > 16, K and N
+    multiples of 8) and a float64 product (every partial sum an integer
+    below 2**53, so exact) elsewhere.  On the CPU an int32 matmul.
+    """
+    m, k = qx.shape
+    n = qw.shape[1]
+    if qx.device.type != "cuda":
+        return qx.to(torch.int32) @ qw.to(torch.int32)
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        return torch._int_mm(qx.contiguous(), qw.contiguous())
+    return (qx.double() @ qw.double()).to(torch.int32)
+
+
+def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    xq = calibrate(x, 8, axis=None, symmetric=True)
+    wq = calibrate(w, 8, axis=-1, symmetric=True)
+    qx = (quantize(x, xq) - xq.zero_point).to(torch.int8)
+    qw = (quantize(w, wq) - wq.zero_point).to(torch.int8)
+    acc = _int_mm_exact(qx.reshape(-1, x.shape[-1]), qw)
+    acc = acc.reshape(*x.shape[:-1], w.shape[-1])
+    return acc.float() * (xq.scale * wq.scale)
+
+
+def _int4_dequant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    wq = calibrate(w, 4, axis=-1)
+    w_hat = dequantize(quantize(w, wq), wq).to(x.dtype)
+    return x @ w_hat
+
+
+def _nf4_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weight-only NF4 through the mux tree (JAX's library order: the
+    absmax scale folded into the weight before the matmul)."""
+    absmax = torch.clamp_min(torch.amax(torch.abs(w), dim=0), 1e-8)
+    codes = nf4_encode(w / absmax).to(torch.int32)
+    cb = torch.as_tensor(lut.NF4_CODEBOOK, device=w.device)
+    w_hat = lut.codebook_dequant(codes, cb) * absmax
+    return x @ w_hat.to(x.dtype)
 
 
 def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
                  group: str = "mlp") -> torch.Tensor:
-    """``x @ w``; ``w`` may be a frozen :class:`QuantizedWeight` (the
-    engine's 4-bit decode tree), evaluated by the LUT GEMM its ``kernel``
-    tag selects.  Output dtype follows ``x``."""
-    del cfg, group    # bf16 only: nothing to select on yet
+    """``x @ w`` under the configured quantization mode.
+
+    ``x``: (..., K); ``w``: (K, N) or a frozen :class:`QuantizedWeight`.
+    Output dtype follows ``x``.
+    """
     if isinstance(w, QuantizedWeight):
         from repro_torch.kernels.lut_gemm import ops as lut_ops
         return lut_ops.quantized_matmul(x, w)
-    return x @ w
+    if cfg is None or not cfg.applies(group):
+        return x @ w
+    cuda = x.device.type == "cuda"
+    if cfg.mode == "int8":
+        return _int8_matmul(x, w).to(x.dtype)
+    if cfg.mode == "int4_dequant":
+        return _int4_dequant_matmul(x, w)
+    if cfg.mode == "lut_nf4":
+        if cuda:
+            from repro_torch.kernels.lut_gemm import ops as lut_ops
+            out = lut_ops.nf4_matmul_kernel(
+                x.reshape(-1, x.shape[-1]).contiguous(), w)
+            return out.reshape(*x.shape[:-1], -1).to(x.dtype)
+        return _nf4_matmul(x, w)
+    mode = LUNA_MODE_OF[cfg.mode]
+    if cuda:
+        from repro_torch.kernels.luna_mm import ops as luna_ops
+        return luna_ops.luna_matmul_f32_kernel(
+            x.float(), w.float(), mode=mode.value, bits=cfg.bits).to(x.dtype)
+    return luna_matmul_f32(x.float(), w.float(), mode.value,
+                           cfg.bits).to(x.dtype)

@@ -1,8 +1,15 @@
-"""Affine quantizers and the frozen 4-bit decode weights (mirrors
-``repro.core.quant``, serving half).
+"""Affine quantizers, the real-valued LUNA matmul and the frozen 4-bit
+decode weights (mirrors ``repro.core.quant``; the STE wrapper for training
+is ROADMAP queue 1 item 8).
 
 Real tensors map to unsigned codes with asymmetric affine quantization,
-``x ~= s * (q - z)``, ``q in [0, 2**bits)``.  :class:`QuantizedWeight`
+``x ~= s * (q - z)``, ``q in [0, 2**bits)``, and the integer-GEMM identity
+recovers the real product from the code-space LUNA accumulation::
+
+    x @ w ~= s_x s_w [ L(q_x, q_w) - z_x colsum(q_w) - rowsum(q_x) z_w
+                       + K z_x z_w ]
+
+(:func:`luna_matmul_f32`).  :class:`QuantizedWeight`
 freezes a projection into 4-bit codes plus per-channel params at engine
 construction; :func:`quantize_decode_params` walks a parameter tree and
 replaces every decode-projection leaf.  The D&C sub-tables stored beside
@@ -19,6 +26,8 @@ from dataclasses import dataclass, fields
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.luna import LunaMode, luna_matmul
 
 
 class QParams(NamedTuple):
@@ -58,6 +67,46 @@ def quantize(x: torch.Tensor, qp: QParams) -> torch.Tensor:
 
 def dequantize(codes: torch.Tensor, qp: QParams) -> torch.Tensor:
     return (codes.float() - qp.zero_point) * qp.scale
+
+
+def quant_error(x: torch.Tensor, qp: QParams) -> torch.Tensor:
+    return dequantize(quantize(x, qp), qp) - x
+
+
+def luna_epilogue(acc: torch.Tensor, qx: torch.Tensor, qw: torch.Tensor,
+                  x_qp: QParams, w_qp: QParams) -> torch.Tensor:
+    """Zero-point correction and rescale of the int32 LUNA accumulator, in
+    JAX's float order: ``acc - zx*colsum - rowsum*zw + k*zx*zw``, then
+    ``(sx*sw) * corrected``."""
+    k = qx.shape[-1]
+    acc = acc.float()
+    colsum_qw = torch.sum(qw, dim=0).float()                     # (N,)
+    rowsum_qx = torch.sum(qx, dim=-1, keepdim=True).float()
+    zx, zw = x_qp.zero_point, w_qp.zero_point
+    corrected = (acc
+                 - zx * colsum_qw
+                 - rowsum_qx * zw
+                 + k * zx * zw)
+    return (x_qp.scale * w_qp.scale) * corrected
+
+
+def luna_matmul_f32(x: torch.Tensor, w: torch.Tensor, mode: LunaMode | str,
+                    bits: int = 4, x_qp: QParams | None = None,
+                    w_qp: QParams | None = None) -> torch.Tensor:
+    """Float-in/float-out matmul with LUNA integer arithmetic inside.
+
+    ``x``: (..., K); ``w``: (K, N).  Dynamic per-tensor activation quant,
+    per-output-channel weight quant unless QParams are given (static PTQ).
+    The integer core is :func:`repro_torch.core.luna.luna_matmul`; the
+    card's kernel route is ``kernels.luna_mm.ops.luna_matmul_f32_kernel``.
+    """
+    mode = LunaMode(mode)
+    x_qp = x_qp or calibrate(x, bits, axis=None)
+    w_qp = w_qp or calibrate(w, bits, axis=-1)
+    qx = quantize(x, x_qp)
+    qw = quantize(w, w_qp)
+    acc = luna_matmul(qx, qw, bits=bits, mode=mode)
+    return luna_epilogue(acc, qx, qw, x_qp, w_qp)
 
 
 #: evaluation strategies for a frozen 4-bit weight: "lut_dc" sums the two
@@ -120,15 +169,19 @@ def _nf4_dc_tables(prune_threshold: float | None):
     return hi_tab, lo_tab, residual
 
 
-def nf4_encode(wn: torch.Tensor) -> torch.Tensor:
-    """Nearest NF4 entry of each normalised weight, FIRST minimum on ties
-    (``jnp.argmin`` semantics).  A running strict-``<`` minimum over the
-    16 entries keeps the temporaries at the weight's own size instead of
-    a (K, N, 16) distance tensor."""
+def nf4_encode(wn: torch.Tensor, codebook=None) -> torch.Tensor:
+    """Nearest codebook entry (default NF4) of each normalised weight,
+    FIRST minimum on ties (``jnp.argmin`` semantics), distances in f32 (a
+    bf16 ``wn`` promotes against JAX's f32 codebook).  A running
+    strict-``<`` minimum over the entries keeps the temporaries at the
+    weight's own size instead of a (K, N, 16) distance tensor."""
     from repro_torch.core.lut import NF4_CODEBOOK
+    if codebook is None:
+        codebook = NF4_CODEBOOK
+    wn = wn.float()
     best_d = torch.full_like(wn, float("inf"))
     codes = torch.zeros(wn.shape, dtype=torch.int8, device=wn.device)
-    for j, c in enumerate(NF4_CODEBOOK.tolist()):
+    for j, c in enumerate(torch.as_tensor(codebook).tolist()):
         d = torch.abs(wn - c)
         codes.masked_fill_(d < best_d, j)
         best_d = torch.minimum(d, best_d)

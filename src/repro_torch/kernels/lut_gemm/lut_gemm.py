@@ -1,5 +1,8 @@
 """Wrappers of the hand-written Hopper LUT GEMM kernels.
 
+* :func:`lut_gemm` — ``(x @ CB[q]) * scale``, the full 16-entry codebook
+  GEMM (paper Fig 1; the model-level ``lut_nf4`` mode on the card).
+  Replaces the Pallas ``repro/kernels/lut_gemm/lut_gemm.py:78 lut_gemm``.
 * :func:`lut_gemm_dc` — ``(x @ (HI[q>>2] + LO[q&3] - zp)) * scale``, the
   affine D&C sub-table GEMM (``quant="lut4"``).  Replaces the Pallas
   ``repro/kernels/lut_gemm/lut_gemm.py:214 lut_gemm_dc``.
@@ -9,8 +12,11 @@
 
 A CUDA tensor launches the kernel (``csrc/lut_gemm.cu``, built on first
 use) on ``torch.cuda.current_stream()``, or the call raises; a CPU tensor
-takes the plain version in ``ref.py``.  Nothing falls back.  Each wrapper
-counts its kernel launches in a plain integer attribute, ``launches``.
+takes the plain version in ``ref.py`` (for :func:`lut_gemm`, JAX's
+``lut_gemm_ref``, which folds the scale into the weight before the
+matmul; the kernel applies it after, as the Pallas kernel does).  Nothing
+falls back.  Each wrapper counts its kernel launches in a plain integer
+attribute, ``launches``.
 
 Tolerance of kernel against plain version on the card: rtol = atol =
 ``KERNEL_RTOL``/``KERNEL_ATOL`` (1e-4).  Both sum up to 11008 f32 products
@@ -27,7 +33,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.lut_gemm.ref import (lut_gemm_dc_ref,
-                                              lut_gemm_dc_res_ref)
+                                              lut_gemm_dc_res_ref,
+                                              lut_gemm_ref)
 
 KERNEL_RTOL = 1e-4
 KERNEL_ATOL = 1e-4
@@ -53,22 +60,26 @@ def split_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
 
 
 def _lib():
+    """The built library, its two entry points typed on first use."""
     from repro_torch.kernels._build import load_library
     lib = load_library("lut_gemm")
-    fn = lib.lut_gemm_dc_launch
-    if fn.argtypes is None:
+    if lib.lut_gemm_dc_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
+        lib.lut_gemm_dc_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, i,
+                                           i, i, i, i, i, i, p]
+        lib.lut_gemm_full_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i,
+                                             i, i, i, p]
+        lib.lut_gemm_dc_launch.restype = ctypes.c_int
+        lib.lut_gemm_full_launch.restype = ctypes.c_int
         geometry = (lib.lut_gemm_block_n(), lib.lut_gemm_ksplit_max(),
                     lib.lut_gemm_m_tile_max())
         if geometry != (BLOCK_N, KSPLIT_MAX, M_TILE_MAX):
             raise RuntimeError(f"lut_gemm.cu geometry {geometry} differs "
                                "from the wrapper's")
-    return fn
+    return lib
 
 
-def _check(x, w_codes, tables, zero_point, scale):
+def _check(x, w_codes, tables, scale, zero_point=None):
     if x.ndim != 2 or w_codes.ndim != 2 or x.shape[1] != w_codes.shape[0]:
         raise ValueError(f"shapes x {tuple(x.shape)}, codes "
                          f"{tuple(w_codes.shape)}: want (M, K) and (K, N)")
@@ -77,22 +88,24 @@ def _check(x, w_codes, tables, zero_point, scale):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if w_codes.dtype != torch.int8:
         raise TypeError(f"codes must be int8, got {w_codes.dtype}")
-    for name, t, size in (*tables, ("zero_point", zero_point, n),
-                          ("scale", scale, n)):
+    vecs = (*tables, ("scale", scale, n),
+            *(() if zero_point is None else (("zero_point", zero_point, n),)))
+    for name, t, size in vecs:
         if t.dtype != torch.float32 or tuple(t.shape) != (size,):
             raise ValueError(f"{name} must be float32 of shape ({size},), "
                              f"got {t.dtype} {tuple(t.shape)}")
-    devs = {t.device for t in (x, w_codes, zero_point, scale,
-                               *(t for _, t, _ in tables))}
+    devs = {t.device for t in (x, w_codes, *(t for _, t, _ in vecs))}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
 
 
-def _launch(x, w_codes, hi_tab, lo_tab, residual, zero_point, scale):
-    for t in (x, w_codes, hi_tab, lo_tab, zero_point, scale,
-              *(() if residual is None else (residual,))):
-        if not t.is_contiguous():
-            raise ValueError("lut_gemm kernels take contiguous operands")
+def _launch(x, w_codes, scale, hi_tab=None, lo_tab=None, residual=None,
+            zero_point=None, codebook=None):
+    """D&C (``hi_tab``/``lo_tab``/``zero_point``, optional ``residual``)
+    or full table (``codebook``)."""
+    ops = (x, w_codes, scale, hi_tab, lo_tab, residual, zero_point, codebook)
+    if not all(t.is_contiguous() for t in ops if t is not None):
+        raise ValueError("lut_gemm kernels take contiguous operands")
     m, k = x.shape
     n = w_codes.shape[1]
     m_tile, splits, k_split = split_plan(m, k, n)
@@ -100,13 +113,19 @@ def _launch(x, w_codes, hi_tab, lo_tab, residual, zero_point, scale):
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     vec = n % 4 == 0 and w_codes.data_ptr() % 4 == 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), w_codes.data_ptr())
+    tail = (m, k, n, m_tile, splits, k_split, int(vec), stream)
     with torch.cuda.device(x.device):
-        err = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                     w_codes.data_ptr(), hi_tab.data_ptr(), lo_tab.data_ptr(),
-                     None if residual is None else residual.data_ptr(),
-                     zero_point.data_ptr(), scale.data_ptr(), ws.data_ptr(),
-                     out.data_ptr(), m, k, n, m_tile, splits, k_split,
-                     int(vec), stream)
+        if codebook is not None:
+            err = _lib().lut_gemm_full_launch(
+                *head, codebook.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), *tail)
+        else:
+            err = _lib().lut_gemm_dc_launch(
+                *head, hi_tab.data_ptr(), lo_tab.data_ptr(),
+                None if residual is None else residual.data_ptr(),
+                zero_point.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"lut_gemm kernel launch failed: cudaError_t "
                            f"{err}")
@@ -122,12 +141,12 @@ def lut_gemm_dc(x: torch.Tensor, w_codes: torch.Tensor, hi_tab: torch.Tensor,
     (4,) f32 code-space sub-tables; zero_point/scale: (N,) f32.
     """
     _check(x, w_codes, (("hi_tab", hi_tab, 4), ("lo_tab", lo_tab, 4)),
-           zero_point, scale)
+           scale, zero_point)
     if x.device.type == "cpu":
         return lut_gemm_dc_ref(x, w_codes, hi_tab, lo_tab, zero_point, scale)
     if x.device.type != "cuda":
         raise ValueError(f"lut_gemm_dc runs on cuda or cpu, not {x.device}")
-    out = _launch(x, w_codes, hi_tab, lo_tab, None, zero_point, scale)
+    out = _launch(x, w_codes, scale, hi_tab, lo_tab, None, zero_point)
     lut_gemm_dc.launches += 1
     return out
 
@@ -142,17 +161,35 @@ def lut_gemm_dc_res(x: torch.Tensor, w_codes: torch.Tensor,
     (zeros at pruned codes).
     """
     _check(x, w_codes, (("hi_tab", hi_tab, 4), ("lo_tab", lo_tab, 4),
-                        ("residual", residual, 16)), zero_point, scale)
+                        ("residual", residual, 16)), scale, zero_point)
     if x.device.type == "cpu":
         return lut_gemm_dc_res_ref(x, w_codes, hi_tab, lo_tab, residual,
                                    zero_point, scale)
     if x.device.type != "cuda":
         raise ValueError(f"lut_gemm_dc_res runs on cuda or cpu, not "
                          f"{x.device}")
-    out = _launch(x, w_codes, hi_tab, lo_tab, residual, zero_point, scale)
+    out = _launch(x, w_codes, scale, hi_tab, lo_tab, residual, zero_point)
     lut_gemm_dc_res.launches += 1
+    return out
+
+
+def lut_gemm(x: torch.Tensor, w_codes: torch.Tensor, codebook: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ CB[q]) * scale`` -> (M, N) f32: the full 16-entry codebook.
+
+    x: (M, K) f32/bf16; w_codes: (K, N) int8 in [0, 16); codebook: (16,)
+    f32; scale: (N,) f32 per output channel.
+    """
+    _check(x, w_codes, (("codebook", codebook, 16),), scale)
+    if x.device.type == "cpu":
+        return lut_gemm_ref(x, w_codes, codebook, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"lut_gemm runs on cuda or cpu, not {x.device}")
+    out = _launch(x, w_codes, scale, codebook=codebook)
+    lut_gemm.launches += 1
     return out
 
 
 lut_gemm_dc.launches = 0
 lut_gemm_dc_res.launches = 0
+lut_gemm.launches = 0

@@ -1,8 +1,11 @@
-"""Plain PyTorch versions of the D&C LUT GEMM kernels.
+"""Plain PyTorch versions of the LUT GEMM kernels.
 
-Both follow the Pallas kernels' operation order (``repro/kernels/lut_gemm/
-lut_gemm.py``): the zero point is subtracted before the matmul and the
-scale applied to the f32 product after it.  (The JAX oracle
+:func:`lut_gemm_ref` is JAX's ``repro.kernels.lut_gemm.ref.lut_gemm_ref``:
+the full 16-entry codebook read per code, the scale folded into the weight
+before the matmul.  The two D&C versions follow the Pallas kernels'
+operation order (``repro/kernels/lut_gemm/lut_gemm.py``): the zero point is
+subtracted before the matmul and the scale applied to the f32 product
+after it.  (The JAX oracle
 ``repro.kernels.lut_gemm.ref.lut_gemm_dc_ref`` folds the scale in BEFORE
 the matmul instead; the port's CPU engine path, ``ops.quantized_matmul``,
 keeps that order for token parity with the JAX engine.)
@@ -10,6 +13,13 @@ keeps that order for token parity with the JAX engine.)
 from __future__ import annotations
 
 import torch
+
+
+def lut_gemm_ref(x: torch.Tensor, w_codes: torch.Tensor,
+                 codebook: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x @ (CB[q] * scale)`` -> (M, N) f32 (full-table, paper Fig 1)."""
+    w = codebook[w_codes.long()] * scale[None, :]
+    return x.float() @ w
 
 
 def dc_dequant(w_codes: torch.Tensor, hi_tab: torch.Tensor,

@@ -9,10 +9,17 @@
   # on the CPU (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --quant nf4p
 
+  # the paper's LUNA multiplier on every projection (model-level):
+  PYTHONPATH=src python -m repro_torch.launch.serve --quant luna_approx2
+
 Weights are random, drawn from ``--seed``.  ``--quant lut4|int4|nf4|nf4p``
 freezes the decode projections to 4 bits (lut4 and nf4/nf4p run the
 hand-written LUT GEMM kernels on the card); prefill stays full precision.
-Prints each request's tokens and the ``serve()`` stats.
+Any other spelling but bf16 (``luna_*``, ``lut_nf4``, ``int8``,
+``int4_dequant``) is a model-level mode that quantizes every projection
+dynamically (``luna_*`` on the card run the LUNA GEMM kernel, ``lut_nf4``
+the full-table LUT GEMM).  Prints each request's tokens and the
+``serve()`` stats.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import argparse
 
 
 def main(argv=None):
-    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.config import EngineConfig, model_quant
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-9b")
@@ -35,6 +42,8 @@ def main(argv=None):
     ap.set_defaults(max_batch=4, max_seq=128)
     args = ap.parse_args(argv)
 
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
@@ -46,6 +55,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    qcfg = model_quant(args.quant)
+    if qcfg is not None:
+        cfg = replace(cfg, quant=qcfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = get_model(cfg, device=device).init(gen)
     engine = Engine(cfg, model, EngineConfig.from_args(args), device=device)
@@ -57,7 +69,8 @@ def main(argv=None):
     for r in reqs:
         print(f"rid {r.rid}: {r.out}")
     tok_count = sum(len(r.out) for r in reqs)
-    print(f"{cfg.name} x{cfg.num_layers} layers on {device}: {tok_count} "
+    print(f"{cfg.name} x{cfg.num_layers} layers on {device}, quant "
+          f"{args.quant or 'bf16'}: {tok_count} "
           f"tokens over {len(reqs)} requests, {stats['wall_s']:.2f}s wall, "
           f"done={stats['done']}")
     print(f"  prefill: {stats['prefill_tokens']} tok in "

@@ -26,7 +26,7 @@ UNPORTED_ARCHS = {
     "zamba2-1.2b": "queue 1 item 7 (hybrid)",
     "mamba2-1.3b": "queue 1 item 7 (ssm)",
     "llava-next-mistral-7b": "queue 1 item 7 (vlm)",
-    "luna-mlp": "queue 1 item 8 (model-level quant modes)",
+    "luna-mlp": "queue 1 item 8 (training: examples/fig13_nn_accuracy.py)",
 }
 
 ARCH_IDS = list(ARCH_MODULES)

@@ -18,6 +18,17 @@ from repro_torch.serve.sampling import SamplingConfig
 #: nf4 (D&C + full residual) / nf4p (residual pruned).
 ENGINE_QUANT_MODES = ("lut4", "int4", "nf4", "nf4p")
 
+
+def model_quant(quant: str | None):
+    """The model-level ``QuantConfig`` a ``--quant`` spelling names, or None
+    for an engine-level mode, ``bf16`` or unset (JAX's launcher rule: any
+    spelling but bf16 and the engine modes quantizes the model)."""
+    if quant in (None, "bf16", *ENGINE_QUANT_MODES):
+        return None
+    from repro_torch.core.layers import QuantConfig
+    return QuantConfig(mode=quant)
+
+
 #: families the port's engine serves
 SERVED_FAMILIES = ("dense",)
 
@@ -103,16 +114,23 @@ class EngineConfig:
         ap.add_argument("--top-k", type=int, default=40)
         ap.add_argument("--seed", type=int, default=0)
         ap.add_argument("--quant", default=None,
-                        help="decode weight quantization: lut4 (D&C "
-                             "sub-table LUT gemm), int4 (direct dequant), "
-                             "nf4 (NF4 codebook, D&C + residual) or nf4p "
-                             "(pruned residual); bf16 or unset = none")
+                        help="weight quantization.  Engine-level (frozen "
+                             "4-bit decode weights, prefill full precision): "
+                             "lut4 (D&C sub-table LUT gemm), int4 (direct "
+                             "dequant), nf4 (NF4 codebook, D&C + residual), "
+                             "nf4p (pruned residual).  Model-level (every "
+                             "projection, dynamically, prefill and decode): "
+                             "int8, int4_dequant, lut_nf4, "
+                             "luna_conventional, luna_dc, luna_approx, "
+                             "luna_approx2.  bf16 or unset = none")
 
     @classmethod
     def from_args(cls, args, **overrides) -> "EngineConfig":
         """Build a config from a namespace of :meth:`add_cli_args`;
         ``overrides`` win, flags left at None/False keep the defaults.
-        ``--quant`` reaches ``quant`` only for engine modes."""
+        ``--quant`` reaches ``quant`` only for engine modes; a model-level
+        spelling is the caller's to route into ``cfg.quant`` (see
+        :func:`model_quant`)."""
         vals = {}
         for f in fields(cls):
             if f.name in ("sampling", "quant"):

@@ -3,13 +3,17 @@
 
 A fixed set of ``max_batch`` slots over a dense KV slab.  New requests are
 bucketed by padded prompt length and prefilled in one call per bucket,
-full precision, their rows copied into the slab; every decode tick then
-advances ALL ``max_batch`` rows one token at their own positions (a
-``(max_batch,)`` position tensor), through the decode model, which under
-``EngineConfig(quant=...)`` carries frozen 4-bit projections evaluated by
-the LUT GEMM kernels.  Free rows sit at position 0 with token 0 and
-compute garbage that is ignored, exactly as in JAX (their KV writes land
-in their own row and the next admission overwrites the whole row).
+their rows copied into the slab; every decode tick then advances ALL
+``max_batch`` rows one token at their own positions (a ``(max_batch,)``
+position tensor).  Under ``EngineConfig(quant=...)`` prefill runs full
+precision and the decode model carries frozen 4-bit projections evaluated
+by the LUT GEMM kernels; a model-level ``cfg.quant`` mode (``luna_*``,
+``lut_nf4``, ...) instead quantizes every projection of prefill and decode
+on each call.  The two do not combine.  Free rows sit at position 0 with
+token 0 and compute garbage that is ignored, exactly as in JAX (their KV
+writes land in their own row and the next admission overwrites the whole
+row); under a model-level mode they also enter the per-tensor activation
+calibration, as in JAX.
 
 Ported: ``serve()``/``step()``, the priority/FIFO :class:`Scheduler`,
 bucketed admission, the decode tick, emit and retire, and a plain
@@ -143,6 +147,12 @@ class Engine:
         if config is None:
             config = EngineConfig()
         config.validate(cfg.family)
+        if config.quant is not None and cfg.quant.mode != "bf16":
+            raise ValueError(
+                f"EngineConfig(quant={config.quant!r}) freezes decode "
+                f"weights to 4-bit; combining it with model-level "
+                f"quant mode {cfg.quant.mode!r} would quantize twice — "
+                "pick one")
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"model lives on {params.device}, engine on "

@@ -1,0 +1,104 @@
+"""The port's hand-written kernels on the card (every test marked ``cuda``;
+each skips without a GPU).  This file imports no jax, so it also runs on a
+machine with the card and no JAX:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+* ``lut_gemm_dc`` / ``lut_gemm_dc_res`` / ``lut_gemm`` against their plain
+  versions at the tolerance stated in ``kernels/lut_gemm/lut_gemm.py``;
+  the dequantized weight (x = I) bitwise;
+* ``luna_mm`` against its plain version, bitwise, every mode;
+* ``quant_matmul`` on CUDA tensors against the CPU's on identical f32
+  inputs, every model-level mode (1e-5), the LUNA int32 accumulators
+  bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import luna as tl
+from repro_torch.core import quant as tq
+from repro_torch.core.layers import QUANT_MODES, QuantConfig, quant_matmul
+from repro_torch.core.lut import NF4_CODEBOOK
+from repro_torch.kernels.luna_mm import luna_mm as lkern
+from repro_torch.kernels.luna_mm.ops import luna_mm_codes
+from repro_torch.kernels.luna_mm.ref import luna_mm_ref
+from repro_torch.kernels.lut_gemm import lut_gemm as tkern
+from repro_torch.kernels.lut_gemm import ops as tops
+from repro_torch.kernels.lut_gemm import ref as tref
+
+pytestmark = pytest.mark.cuda
+MODES = [m.value for m in tl.LunaMode]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 512), (8, 4096, 4096),
+                                   (3, 72, 40)])
+def test_kernels_match_plain_on_card(dev, m, k, n):
+    """Each LUT GEMM kernel against its plain version; x = I bitwise (for
+    the full-table kernel: ``CB[q] * scale``)."""
+    w = torch.randn((k, n), device=dev) / k ** 0.5
+    for kernel, fn, ref in (
+            ("lut_dc", tkern.lut_gemm_dc, tref.lut_gemm_dc_ref),
+            ("nf4_dc", tkern.lut_gemm_dc_res, tref.lut_gemm_dc_res_ref)):
+        q = tq.quantize_weight(w, kernel, tq.NF4P_PRUNE_THRESHOLD
+                               if kernel == "nf4_dc" else None)
+        tables = ((q.hi_tab, q.lo_tab) if kernel == "lut_dc"
+                  else (q.hi_tab, q.lo_tab, q.residual))
+        x = torch.randn((m, k), device=dev, dtype=torch.bfloat16)
+        torch.testing.assert_close(
+            fn(x, q.codes, *tables, q.zero_point, q.scale),
+            ref(x, q.codes, *tables, q.zero_point, q.scale),
+            rtol=tkern.KERNEL_RTOL, atol=tkern.KERNEL_ATOL)
+        eye = torch.eye(k, device=dev, dtype=torch.bfloat16)[:min(k, 256)]
+        want = (tref.dc_dequant(q.codes, q.hi_tab, q.lo_tab, q.zero_point,
+                                q.residual) * q.scale[None, :])[:eye.shape[0]]
+        assert torch.equal(fn(eye, q.codes, *tables, q.zero_point, q.scale),
+                           want)
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    codes, scale = tops.codebook_quantize(w, cb)
+    x = torch.randn((m, k), device=dev, dtype=torch.bfloat16)
+    torch.testing.assert_close(tkern.lut_gemm(x, codes, cb, scale),
+                               tref.lut_gemm_ref(x, codes, cb, scale),
+                               rtol=tkern.KERNEL_RTOL, atol=tkern.KERNEL_ATOL)
+    eye = torch.eye(k, device=dev, dtype=torch.bfloat16)[:min(k, 256)]
+    assert torch.equal(tkern.lut_gemm(eye, codes, cb, scale),
+                       (cb[codes.long()] * scale[None, :])[:eye.shape[0]])
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 512), (8, 11008, 4096),
+                                   (512, 4096, 11008), (3, 72, 40),
+                                   (17, 70, 9)])
+def test_luna_mm_matches_plain_on_card(dev, m, k, n):
+    """Bitwise in every mode: the result is integer."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    y = torch.randint(0, 16, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(0, 16, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    for mode in MODES:
+        assert torch.equal(lkern.luna_mm(y, w, mode),
+                           luna_mm_ref(y, w, mode)), mode
+
+
+def test_quant_matmul_card_matches_cpu(dev):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(4, 8, 512)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(512, 384)) / 8).astype(np.float32))
+    for mode in QUANT_MODES:
+        cfg = QuantConfig(mode=mode)
+        torch.testing.assert_close(quant_matmul(x.to(dev), w.to(dev),
+                                                cfg).cpu(),
+                                   quant_matmul(x, w, cfg), rtol=1e-5,
+                                   atol=1e-5)
+    qx = tq.quantize(x, tq.calibrate(x, 4)).reshape(-1, 512)
+    qw = tq.quantize(w, tq.calibrate(w, 4, axis=-1))
+    for mode in MODES:
+        assert torch.equal(luna_mm_codes(qx.to(dev), qw.to(dev), mode=mode)
+                           .cpu(), tl.luna_matmul(qx, qw, mode=mode))

@@ -1,28 +1,34 @@
 """The port's engine against the JAX engine, and the JAX engine's pins.
 
 * Greedy tokens equal the JAX ``Engine``'s on the same prompts and bridged
-  weights, for ``quant=None``, ``lut4``, ``nf4`` and ``nf4p``.
+  weights, for ``quant=None``, ``lut4``, ``nf4`` and ``nf4p`` (engine
+  level) and the model-level ``luna_approx2``, ``luna_dc`` and ``lut_nf4``.
+* The launcher routes a model-level ``--quant`` into ``cfg.quant``; the
+  engine refuses engine- and model-level quantization together.
 * The JAX pins hold in the port: mixed-length batch == sequential,
   lut4 == int4 tokens, nf4 == the direct NF4 dequant oracle.
 * Sampled modes: a request's tokens depend on (seed, rid) only — the same
   in a mixed batch and alone, reproducible, and changed by the seed.
 """
 import argparse
+from dataclasses import replace
 
 import jax
 import numpy as np
 import pytest
 
+from repro.core.layers import QuantConfig as JaxQuantConfig
 from repro.models.registry import get_config as jax_config
 from repro.models.registry import get_model as jax_model
 from repro.serve.config import EngineConfig as JaxEngineConfig
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.bridge import params_from_numpy
+from repro_torch.core.layers import QuantConfig
 from repro_torch.core.quant import quantize_decode_params
 from repro_torch.models.registry import get_config
 from repro_torch.models.transformer import TransformerLM
-from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.config import ENGINE_QUANT_MODES, EngineConfig, model_quant
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.sampling import SamplingConfig
 
@@ -54,16 +60,26 @@ def _serve(cfg, model, prompts, max_new=8, max_batch=None, rids=None,
     return [r.out for r in reqs], eng
 
 
-@pytest.mark.parametrize("quant", [None, "lut4", "nf4", "nf4p"])
+@pytest.mark.parametrize("quant", [None, "lut4", "nf4", "nf4p",
+                                   "luna_approx2", "luna_dc", "lut_nf4"])
 def test_greedy_tokens_equal_jax_engine(setup, quant):
+    """Engine-level modes go to ``EngineConfig.quant``, model-level ones to
+    ``cfg.quant`` (per-tensor activation calibration then spans padded
+    bucket rows and idle decode slots: both engines feed the same ones)."""
     jcfg, jparams, cfg, model = setup
+    engine_quant = quant if quant in ENGINE_QUANT_MODES else None
+    if quant is not None and engine_quant is None:
+        jcfg = replace(jcfg, quant=JaxQuantConfig(mode=quant))
+        cfg = replace(cfg, quant=QuantConfig(mode=quant))
+        model = TransformerLM.from_params(cfg, model.params_tree(),
+                                          device="cpu")
     prompts = _prompts(cfg)
     jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(
-        max_batch=len(prompts), max_seq=48, quant=quant))
+        max_batch=len(prompts), max_seq=48, quant=engine_quant))
     jreqs = [JaxRequest(rid=i, prompt=p, max_new=8)
              for i, p in enumerate(prompts)]
     assert jeng.serve(jreqs)["done"]
-    port, _ = _serve(cfg, model, prompts, quant=quant)
+    port, _ = _serve(cfg, model, prompts, quant=engine_quant)
     assert port == [r.out for r in jreqs]
 
 
@@ -169,9 +185,62 @@ def test_from_args_routes_quant_flag():
             ap.parse_args(["--quant", mode])).quant == mode
     assert EngineConfig.from_args(ap.parse_args(["--quant", "bf16"])).quant \
         is None
+    assert model_quant("bf16") is model_quant(None) is model_quant("lut4") \
+        is None
+    for mode in ("int8", "int4_dequant", "lut_nf4", "luna_conventional",
+                 "luna_dc", "luna_approx", "luna_approx2"):
+        args = ap.parse_args(["--quant", mode])
+        assert EngineConfig.from_args(args).quant is None
+        assert model_quant(args.quant) == QuantConfig(mode=mode)
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        model_quant("fp3")
     conf = EngineConfig.from_args(ap.parse_args(
         ["--max-batch", "3", "--sampling", "top_k", "--top-k", "7"]))
     assert conf.max_batch == 3 and conf.sampling.top_k == 7
+
+
+def test_engine_refuses_double_quantization(setup):
+    _, _, cfg, model = setup
+    qcfg = replace(cfg, quant=QuantConfig(mode="luna_approx2"))
+    with pytest.raises(ValueError, match="would quantize twice"):
+        Engine(qcfg, model, EngineConfig(max_batch=1, max_seq=16,
+                                         quant="lut4"), device="cpu")
+    # each alone is fine
+    Engine(qcfg, model, EngineConfig(max_batch=1, max_seq=16), device="cpu")
+    Engine(replace(cfg, quant=QuantConfig(mode="bf16")), model,
+           EngineConfig(max_batch=1, max_seq=16, quant="lut4"), device="cpu")
+
+
+def _cli_tokens(out: str) -> list[list[int]]:
+    return [eval(line.split(":", 1)[1]) for line in out.splitlines()
+            if line.startswith("rid ")]
+
+
+def test_cli_routes_model_quant_to_the_luna_path(capsys):
+    """``--quant luna_approx2`` reaches ``cfg.quant`` (it once served in
+    full precision): the CLI's tokens equal an engine built directly with
+    that ``QuantConfig`` and differ from bf16's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import main
+    argv = ["--device", "cpu", "--requests", "2", "--max-new", "6"]
+    main(argv + ["--quant", "luna_approx2"])
+    luna = _cli_tokens(capsys.readouterr().out)
+    main(argv)
+    bf16 = _cli_tokens(capsys.readouterr().out)
+    cfg = get_config("yi-9b").reduced(quant=QuantConfig(mode="luna_approx2"))
+    model = TransformerLM(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, 6).tolist() for _ in range(2)]
+    eng = Engine(cfg, model, EngineConfig(max_batch=4, max_seq=128),
+                 device="cpu")
+    reqs = [Request(rid=i, prompt=p, max_new=6)
+            for i, p in enumerate(prompts)]
+    assert eng.serve(reqs)["done"]
+    assert luna == [r.out for r in reqs]
+    assert luna != bf16
 
 
 def test_cli_serves_on_cpu(capsys):

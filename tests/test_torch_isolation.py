@@ -15,7 +15,6 @@ import pytest
 import torch
 
 from repro_torch.bridge import params_from_numpy
-from repro_torch.core.layers import QuantConfig
 from repro_torch.models.attention import sdpa
 from repro_torch.models.common import CacheSpec
 from repro_torch.models.registry import get_config, get_model
@@ -80,7 +79,7 @@ def test_unported_parts_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         get_config("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        QuantConfig(mode="luna_approx")
+        get_config("luna-mlp")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         CacheSpec(block_size=16, num_blocks=8)
     q = torch.zeros(1, 4, 2, 8)

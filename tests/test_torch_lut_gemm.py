@@ -1,14 +1,19 @@
 """The port's LUT GEMM plain versions and CPU dispatch against the JAX
 package.
 
-* ``lut_gemm_dc_ref`` / ``lut_gemm_dc_res_ref`` equal JAX's Pallas
-  ``lut_gemm_dc`` / ``lut_gemm_dc_res`` run in interpret mode, at
-  rtol = atol = 1e-5 (f32 sums in another order), ragged shapes included;
+* ``lut_gemm_dc_ref`` / ``lut_gemm_dc_res_ref`` / ``lut_gemm_ref`` equal
+  JAX's Pallas ``lut_gemm_dc`` / ``lut_gemm_dc_res`` / ``lut_gemm`` run in
+  interpret mode, at rtol = atol = 1e-5 (f32 sums in another order), ragged
+  shapes and an arbitrary codebook included;
+* ``codebook_quantize`` codes equal JAX's bitwise, and the wrappers
+  ``nf4_matmul_kernel`` / ``lut4_matmul_kernel`` / ``nf4dc_matmul_kernel``
+  equal JAX's at 1e-5;
 * the wrappers take the plain version for CPU tensors and count no launch;
 * ``ops.quantized_matmul`` on the CPU equals JAX's ``quantized_matmul``
-  for every weight kernel;
-* on a card, each kernel against its plain version (marked ``cuda``:
-  skips without one).
+  for every weight kernel.
+
+The kernels against their plain versions on the card:
+``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +23,7 @@ import torch
 from repro.core import quant as jq
 from repro.kernels.lut_gemm import lut_gemm as jkern
 from repro.kernels.lut_gemm import ops as jops
+from repro.kernels.lut_gemm import ref as jref
 from repro_torch.core import quant as tq
 from repro_torch.kernels.lut_gemm import lut_gemm as tkern
 from repro_torch.kernels.lut_gemm import ops as tops
@@ -75,11 +81,78 @@ def test_lut_gemm_dc_res_ref_matches_pallas(m, k, n, bk, prune):
                                atol=1e-5)
 
 
+def _codebook(seed=3):
+    return np.sort(np.random.default_rng(seed).normal(size=16)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("m,k,n,bk", SHAPES)
+def test_lut_gemm_ref_matches_pallas_arbitrary_codebook(m, k, n, bk):
+    """Programmability: any 16-entry table (mirrors JAX's
+    ``test_lut_gemm_arbitrary_codebook``)."""
+    rng = np.random.default_rng(4)
+    cb = _codebook()
+    codes = rng.integers(0, 16, (k, n)).astype(np.int8)
+    scale = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    x = _x(m, k)
+    pallas = jkern.lut_gemm(jnp.asarray(x), jnp.asarray(codes),
+                            jnp.asarray(cb), jnp.asarray(scale), bm=m, bn=n,
+                            bk=bk, interpret=True)
+    args = [torch.from_numpy(a) for a in (x, codes, cb, scale)]
+    port = tref.lut_gemm_ref(*args)
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        port.numpy(), np.asarray(jref.lut_gemm_ref(*map(jnp.asarray, (
+            x, codes, cb, scale)))), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("codebook", ["nf4", "arbitrary"])
+def test_codebook_quantize_bitwise_equals_jax(codebook):
+    cb = (np.asarray(jops.NF4_CODEBOOK) if codebook == "nf4"
+          else _codebook(5))
+    w = np.random.default_rng(6).normal(size=(96, 40)).astype(np.float32)
+    w[:, 3] = 0.0                                   # an all-zero channel
+    jc, js = jops.codebook_quantize(jnp.asarray(w), jnp.asarray(cb))
+    tc, ts = tops.codebook_quantize(torch.from_numpy(w), torch.from_numpy(cb))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("wrapper", ["nf4_matmul_kernel",
+                                     "lut4_matmul_kernel",
+                                     "nf4dc_matmul_kernel", "nf4dc_pruned"])
+def test_padded_wrappers_match_jax(wrapper):
+    """JAX pads to its Pallas blocks and runs them in interpret mode; the
+    port runs the kernels' plain versions on the CPU: 1e-5."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(5, 72)).astype(np.float32)
+    w = (rng.normal(size=(72, 40)) / 8).astype(np.float32)
+    kw, jfn = {}, getattr(jops, wrapper.replace("_pruned", "_matmul_kernel"))
+    if wrapper == "nf4dc_pruned":
+        # JAX's own jit cannot trace the pruning (``prune_residual`` takes
+        # numpy of a traced array): hold the port to the unjitted body
+        wrapper, kw = "nf4dc_matmul_kernel", dict(
+            prune_threshold=tq.NF4P_PRUNE_THRESHOLD)
+        jfn = jfn.__wrapped__
+    want = jfn(jnp.asarray(x), jnp.asarray(w), **kw)
+    got = getattr(tops, wrapper)(torch.from_numpy(x), torch.from_numpy(w),
+                                 **kw)
+    assert got.shape == (5, 40) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     _, qa = _frozen(72, 40, "lut_dc")
     _, qn = _frozen(72, 40, "nf4_dc", tq.NF4P_PRUNE_THRESHOLD)
     x = torch.from_numpy(_x(3, 72))
-    before = (tkern.lut_gemm_dc.launches, tkern.lut_gemm_dc_res.launches)
+    cb = torch.from_numpy(_codebook())
+    assert torch.equal(tkern.lut_gemm(x, qa.codes, cb, qa.scale),
+                       tref.lut_gemm_ref(x, qa.codes, cb, qa.scale))
+    before = (tkern.lut_gemm_dc.launches, tkern.lut_gemm_dc_res.launches,
+              tkern.lut_gemm.launches)
     assert torch.equal(
         tkern.lut_gemm_dc(x, qa.codes, qa.hi_tab, qa.lo_tab, qa.zero_point,
                           qa.scale),
@@ -90,8 +163,10 @@ def test_wrappers_take_plain_version_on_cpu():
                               qn.zero_point, qn.scale),
         tref.lut_gemm_dc_res_ref(x, qn.codes, qn.hi_tab, qn.lo_tab,
                                  qn.residual, qn.zero_point, qn.scale))
-    assert (tkern.lut_gemm_dc.launches,
-            tkern.lut_gemm_dc_res.launches) == before
+    assert torch.equal(tkern.lut_gemm(x, qa.codes, cb, qa.scale),
+                       tref.lut_gemm_ref(x, qa.codes, cb, qa.scale))
+    assert (tkern.lut_gemm_dc.launches, tkern.lut_gemm_dc_res.launches,
+            tkern.lut_gemm.launches) == before
 
 
 def test_wrappers_reject_bad_operands():
@@ -106,6 +181,8 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="zero_point"):
         tkern.lut_gemm_dc(x, q.codes, q.hi_tab, q.lo_tab,
                           q.zero_point[:-1], q.scale)
+    with pytest.raises(ValueError, match="codebook"):
+        tkern.lut_gemm(x, q.codes, q.hi_tab, q.scale)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         tkern.lut_gemm_dc(x.to("meta"), q.codes.to("meta"),
                           q.hi_tab.to("meta"), q.lo_tab.to("meta"),
@@ -130,32 +207,3 @@ def test_cpu_dispatch_output_follows_x_dtype():
     _, tqw = _frozen(72, 40, "nf4_dc")
     x = torch.from_numpy(_x(2, 72)).bfloat16()
     assert tops.quantized_matmul(x, tqw).dtype == torch.bfloat16
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 4096, 512), (8, 4096, 4096),
-                                   (3, 72, 40)])
-def test_kernels_match_plain_on_card(m, k, n):
-    """Each kernel against its plain version on the card, at the tolerance
-    stated in ``lut_gemm.py``; the dequantized weight (x = I) bitwise."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
-    dev = torch.device("cuda")
-    w = torch.randn((k, n), device=dev) / k ** 0.5
-    for kernel, fn, ref in (
-            ("lut_dc", tkern.lut_gemm_dc, tref.lut_gemm_dc_ref),
-            ("nf4_dc", tkern.lut_gemm_dc_res, tref.lut_gemm_dc_res_ref)):
-        q = tq.quantize_weight(w, kernel, tq.NF4P_PRUNE_THRESHOLD
-                               if kernel == "nf4_dc" else None)
-        tables = ((q.hi_tab, q.lo_tab) if kernel == "lut_dc"
-                  else (q.hi_tab, q.lo_tab, q.residual))
-        x = torch.randn((m, k), device=dev, dtype=torch.bfloat16)
-        torch.testing.assert_close(
-            fn(x, q.codes, *tables, q.zero_point, q.scale),
-            ref(x, q.codes, *tables, q.zero_point, q.scale),
-            rtol=tkern.KERNEL_RTOL, atol=tkern.KERNEL_ATOL)
-        eye = torch.eye(k, device=dev, dtype=torch.bfloat16)[:min(k, 256)]
-        want = (tref.dc_dequant(q.codes, q.hi_tab, q.lo_tab, q.zero_point,
-                                q.residual) * q.scale[None, :])[:eye.shape[0]]
-        assert torch.equal(fn(eye, q.codes, *tables, q.zero_point, q.scale),
-                           want)
