@@ -2,7 +2,7 @@
 """On-card smoke of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py             # the whole check, 48 layers
-    python3 chip_smoke.py --layers 8  # the same with the depth cut
+    python3 chip_smoke.py --layers 8  # the same with yi-9b's depth cut
 
 Phases, each fatal on failure (the script exits nonzero and prints no
 result line):
@@ -10,21 +10,28 @@ result line):
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> fail;
 2. build every CUDA source of the port with nvcc for sm_90a, one nvcc per
    source, all started together (seconds);
-3. each kernel against its plain PyTorch version on the card at every
-   yi-9b projection shape, times by CUDA events with the codes cold in
-   L2, each beside its bound:
-   a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``), M in
-      {1, 8}, bf16 x, at the tolerance stated in
+3. each kernel against its plain PyTorch version on the card, times by
+   CUDA events, each beside its bound:
+   a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``) at every
+      yi-9b and mamba2-1.3b decode projection shape (mamba2's w_in
+      2048 x 8512 leaves a ragged 320-column block), M in {1, 8}, bf16 x,
+      codes cold in L2, at the tolerance stated in
       ``kernels/lut_gemm/lut_gemm.py``; x = I bitwise; a ragged shape;
    b. the LUNA GEMM (``luna_mm``) in all five modes, M in {8, 512}, int32
       bitwise; a ragged shape; ``torch._int_mm`` as the library yardstick
       for the exact modes at M = 512;
    c. the full-table LUT GEMM (``lut_gemm``), NF4 codes, M in {8, 512},
       1e-4; x = I bitwise; a ragged shape;
-4. a reduced f32 yi-9b: quantization on the card equals the CPU's
-   bitwise, and decode logits through the kernels agree with the CPU's
-   plain path (lut4, nf4p; lut_nf4, whose codes depend on the weights
-   only);
+   d. the SSD chunk scan (``ssd_scan``) at mamba2's widths (H = 64, P =
+      64, N = 128, G = 1, chunk min(256, S)) for (B, S) in {(1, 48),
+      (1, 272) with a carried initial state, (1, 448) masked at 438 (off
+      the chunk grid), (8, 512)}, and a small G = 2 case, within the
+      tolerance stated in ``kernels/ssd_scan/ssd_scan.py``;
+4. reduced f32 models, card against CPU: yi-9b (quantization on the card
+   equals the CPU's bitwise; decode logits through the kernels under
+   lut4, nf4p; lut_nf4 prefill) and mamba2 (right-padded prefill with
+   ``last_pos`` through ``ssd_scan``; w_in/w_out codes bitwise; one
+   decode step under lut4 and nf4p), logits at 1e-4;
 5. ``quant_matmul`` on the card against the CPU's on identical f32 inputs
    under every model-level mode: codes and LUNA int32 accumulators
    bitwise, outputs 1e-5;
@@ -34,11 +41,18 @@ result line):
       decode projections on the D&C kernels);
    b. under the model-level modes luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm) and lut_nf4 (on lut_gemm);
-   each run asserting every request finished, every logit is finite and
-   each kernel's launch counter (all set to 0 just before the run, read
-   just after) equals the projections the run made through it; then
-   (after the counts are read) a torch.profiler window over 4 decode
-   ticks: device time by kernel and the idle share.
+7. the main path at mamba2-1.3b's full width (always all 48 layers, bf16,
+   random weights from seed 0): the same 8 request lengths under
+   full precision, lut4 and nf4p; every prefill runs the SSD scan on
+   ``ssd_scan`` (once per layer per call), decode the O(1) recurrence
+   with w_in/w_out on the D&C kernels; the first (prefill) tokens agree
+   across the three runs;
+each run of 6 and 7 asserting every request finished, every logit is
+finite and each kernel's launch counter (all set to 0 just before the
+run, read just after) equals the launches the run made through it; then
+(after the counts are read) a torch.profiler window over 4 decode ticks
+(and for mamba2 one prefill call): device time by kernel and the idle
+share.
 
 Every line is one JSON object (``t_s``: seconds since the start); the
 ``{"kernels": [...]}`` line comes just before the last, which is
@@ -68,6 +82,10 @@ F32_FLOP_S = 67e12           # outside the tensor cores
 #: w_gate w_up w_down
 LAYER_SHAPES = [(4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
                 (4096, 11008), (4096, 11008), (11008, 4096)]
+#: (K, N) of mamba2-1.3b's decode projections: w_in, w_out
+MAMBA2_SHAPES = [(2048, 8512), (4096, 2048)]
+#: frozen decode projections per layer, by family
+PROJECTIONS = {"dense": 7, "ssm": 2}
 COLD_BYTES = 256 << 20       # rotate code copies past the 50 MB L2
 
 
@@ -113,11 +131,13 @@ def bound_ms(m: int, k: int, n: int, x_bytes: int, table_bytes: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def layer_summary(name: str, rows: list, m: int, **kw) -> dict:
-    """The kernels-line entry: one yi-9b layer's 7 projections at ``m``
-    rows, summed from the per-shape ``rows`` of one kernel (and mode)."""
+def layer_summary(name: str, rows: list, m: int, shapes=LAYER_SHAPES,
+                  **kw) -> dict:
+    """The kernels-line entry: one layer's projections (default yi-9b's
+    7) at ``m`` rows, summed from the per-shape ``rows`` of one kernel
+    (and mode)."""
     at = {(s["k"], s["n"]): s for s in rows if s["m"] == m}
-    layer = [at[kn] for kn in LAYER_SHAPES]
+    layer = [at[kn] for kn in shapes]
     lib = [s.get("library_ms") for s in layer]
     return {
         "name": name, "route": "cuda", "launches": None,
@@ -183,7 +203,7 @@ def kernel_phase(dev):
                                    rtol=lg.KERNEL_RTOL, atol=lg.KERNEL_ATOL)
 
         per_shape, max_err = [], 0.0
-        for k, n in sorted(set(LAYER_SHAPES)):
+        for k, n in sorted(set(LAYER_SHAPES) | set(MAMBA2_SHAPES)):
             q = qweight(k, n)
             copies = [q] + [replace(q, codes=q.codes.clone()) for _ in
                             range(max(1, COLD_BYTES // (k * n)) - 1)]
@@ -214,6 +234,13 @@ def kernel_phase(dev):
             replaces=sp["replaces"], max_abs_err=max_err,
             timed_as="one yi-9b layer's 7 decode projections, M=8, bf16 x, "
                      "codes cold in L2",
+            mamba2_layer={
+                k: v for k, v in layer_summary(
+                    name, per_shape, 8, MAMBA2_SHAPES).items()
+                if k in ("ms", "plain_ms", "bound_ms", "bound_by")} | {
+                "timed_as": "one mamba2-1.3b layer's w_in (2048 x 8512, "
+                            "ragged 320-column block) and w_out (4096 x "
+                            "2048), M=8"},
             per_shape=per_shape)
         gc.collect()
         torch.cuda.empty_cache()
@@ -350,6 +377,137 @@ def lut_full_kernel_phase(dev):
     return {"lut_gemm": entry}
 
 
+#: phase 3d at mamba2-1.3b's widths: (B, S, valid length or None for no
+#: mask, initial state: None, "zero" as the main path carries it into a
+#: prefill, or "random"); the engine's buckets are B = 1
+SSD_CASES = [(1, 48, None, None), (1, 272, None, "random"),
+             (1, 448, 438, "zero"), (8, 512, None, None)]
+SSD_WIDTHS = dict(h=64, p=64, g=1, n=128)
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+              carried: bool) -> int:
+    """Operations the chunk scan needs over the real positions: per chunk
+    of q positions, C·Bᵀ once per group on the causal triangle, and per
+    head the decay mask, the intra-chunk (C·Bᵀ ⊙ L)(x·dt), the
+    inter-chunk C·S with its decay, and the state update
+    (seg_end·B)ᵀ(x·dt) with its decay; a multiply-add counts 2.  Chunk 0
+    meets the initial state, so its inter-chunk C·S and state decay count
+    only when that state is ``carried`` non-zero; a zero state needs none
+    of them."""
+    total = 0
+    for c in range(-(-s // chunk)):
+        q = min(chunk, s - c * chunk)
+        tri = q * (q + 1) // 2
+        total += g * 2 * tri * n
+        total += h * (tri + 2 * tri * p + 2 * q * n * p + q * n)
+        if c > 0 or carried:
+            total += h * (2 * q * n * p + q * p + n * p)
+    return b * total
+
+
+def ssd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> tuple[float, str]:
+    """Least time of one scan: x, dt, a, B, C, the mask and the initial
+    state (where one is passed, zero or not) read once, y and the final
+    state written once, against :func:`ssd_flops` at f32's 67 TFLOP/s;
+    the larger of the two."""
+    nbytes = (4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                   + (1 + (init is not None)) * b * h * p * n)
+              + masked * b * s)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ssd_flops(b, s, h, p, g, n, chunk, init == "random") \
+        / F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_kernel_phase(dev):
+    """Phase 3d: ssd_scan against its plain version (``_ssd_chunked`` on
+    the card, true f32) at mamba2's widths, each case's error within
+    ``KERNEL_TOL`` of the output's scale."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.ssm import _ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(b, s, h, p, g, n, valid, init):
+        args = (torch.randn((b, s, h, p), generator=gen, device=dev),
+                0.01 + 0.19 * torch.rand((b, s, h), generator=gen,
+                                         device=dev),
+                -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev)),
+                torch.randn((b, s, g, n), generator=gen, device=dev),
+                torch.randn((b, s, g, n), generator=gen, device=dev))
+        state = None
+        if init == "random":
+            state = torch.randn((b, h, p, n), generator=gen, device=dev)
+        elif init == "zero":
+            state = torch.zeros((b, h, p, n), device=dev)
+        kw = {"initial_state": state,
+              "mask": (None if valid is None else
+                       (torch.arange(s, device=dev) < valid)[None]
+                       .expand(b, s).contiguous())}
+        return args, kw
+
+    def compare(args, kw, chunk):
+        y, fs = sk.ssd_scan(*args, chunk=chunk, **kw)
+        y0, fs0 = _ssd_chunked(*args, chunk, **kw)
+        err = max(sk.scaled_err(y, y0), sk.scaled_err(fs, fs0))
+        abs_err = max((y - y0).abs().max().item(),
+                      (fs - fs0).abs().max().item())
+        return err, abs_err
+
+    # small: G = 2, ragged S, Q = 48, P off the 32-column tiles, masked
+    args, kw = inputs(2, 77, 4, 40, 2, 16, 70, "random")
+    err, _ = compare(args, kw, 48)
+    check(err <= sk.KERNEL_TOL, f"ssd_scan G=2 small case: error {err}")
+    per_shape, max_err, max_abs = [], err, 0.0
+    w = SSD_WIDTHS
+    for b, s, valid, init in SSD_CASES:
+        chunk = min(256, s)
+        args, kw = inputs(b, s, w["h"], w["p"], w["g"], w["n"], valid, init)
+        err, abs_err = compare(args, kw, chunk)
+        check(err <= sk.KERNEL_TOL,
+              f"ssd_scan ({b}, {s}) valid={valid} init={init}: scaled "
+              f"error {err} > {sk.KERNEL_TOL}")
+        max_err, max_abs = max(max_err, err), max(max_abs, abs_err)
+        ms = cuda_ms(lambda i: sk.ssd_scan(*args, chunk=chunk, **kw), 20)
+        plain_ms = cuda_ms(lambda i: _ssd_chunked(*args, chunk, **kw), 5)
+        b_ms, b_by = ssd_bound_ms(b, s, w["h"], w["p"], w["g"], w["n"],
+                                  chunk, valid is not None, init)
+        per_shape.append({"b": b, "s": s, "chunk": chunk, "valid": valid,
+                          "initial_state": init, "scaled_err": err,
+                          "max_abs_err": abs_err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by,
+                          "gflop": ssd_flops(b, s, w["h"], w["p"], w["g"],
+                                             w["n"], chunk,
+                                             init == "random") / 1e9})
+        del args, kw
+    emit({"kernel_check": "ssd_scan", "passed": True,
+          "max_scaled_err": max_err, "max_abs_err": max_abs,
+          "tol": sk.KERNEL_TOL,
+          "tol_rule": "max|kernel - plain| <= tol * max(1, max|plain|)",
+          "per_shape": per_shape})
+    head = next(r for r in per_shape if r["s"] == 448)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ssd_scan": {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:81",
+        "launches": None, "max_abs_err": max_abs, "max_scaled_err": max_err,
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "timed_as": "one mamba2-1.3b layer's scan of the main path's "
+                    "largest prefill call: B=1, S=448 (valid 438, masked), "
+                    "the carried zero initial state read, H=64, P=64, "
+                    "N=128, G=1, chunk 256, f32; no single PyTorch call "
+                    "computes it",
+        "per_shape": per_shape}}
+
+
 def quant_matmul_phase(dev):
     """Phase 5: the card's quant_matmul against the CPU's, every mode."""
     import torch
@@ -385,6 +543,15 @@ def quant_matmul_phase(dev):
           "max_abs_err": errs, "rtol": 1e-5, "atol": 1e-5})
 
 
+def tree_to(node, device):
+    """A parameter tree (dicts, lists, tensors) copied to ``device``."""
+    if isinstance(node, dict):
+        return {k: tree_to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [tree_to(v, device) for v in node]
+    return node.to(device)
+
+
 def small_reference_phase(dev):
     """Phase 4: reduced f32 yi-9b, card against CPU."""
     import torch
@@ -396,14 +563,6 @@ def small_reference_phase(dev):
     cfg = get_config("yi-9b").reduced(dtype="float32", attn_impl="full")
     cpu = get_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(1))
-
-    def tree_to(node, device):
-        if isinstance(node, dict):
-            return {k: tree_to(v, device) for k, v in node.items()}
-        if isinstance(node, list):
-            return [tree_to(v, device) for v in node]
-        return node.to(device)
-
     gpu = TransformerLM.from_params(cfg, tree_to(cpu.params_tree(), dev),
                                     device=dev)
     toks = torch.randint(1, cfg.vocab_size, (4, 12),
@@ -453,6 +612,63 @@ def small_reference_phase(dev):
           "max_abs_err": out, "rtol": 1e-4, "atol": 1e-4})
 
 
+def small_ssm_reference_phase(dev):
+    """Phase 4, mamba2: a reduced f32 mamba2, card against CPU.  Prefill
+    of right-padded rows with ``last_pos`` (the card's SSD scan on the
+    kernel), then one decode step under lut4 and nf4p (w_in/w_out on the
+    D&C kernels); the frozen codes of w_in/w_out bitwise equal."""
+    import torch
+
+    from repro_torch.core.quant import quantize_decode_params
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.models.ssm_lm import SSMLM
+
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    gpu = SSMLM.from_params(cfg, tree_to(cpu.params_tree(), dev), device=dev)
+    lens = torch.tensor([48, 30, 17, 5])
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(1, cfg.vocab_size, (4, 48), generator=gen)
+    toks[torch.arange(48)[None, :] >= lens[:, None]] = 0
+    nxt = torch.randint(1, cfg.vocab_size, (4, 1), generator=gen)
+    out = {}
+    with torch.inference_mode():
+        runs = []
+        for model, device in ((cpu, "cpu"), (gpu, dev)):
+            lg, caches = model.prefill(toks.to(device),
+                                       model.init_cache(4, 48),
+                                       last_pos=(lens - 1).to(device))
+            runs.append((lg.float().cpu(), caches))
+        torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4,
+                                   atol=1e-4)
+        out["prefill"] = (runs[1][0] - runs[0][0]).abs().max().item()
+        for quant in ("lut4", "nf4p"):
+            qc = quantize_decode_params(cpu.params_tree(), quant)
+            qg = quantize_decode_params(gpu.params_tree(), quant)
+            for a, b in zip(qc["blocks"], qg["blocks"]):
+                for name in ("w_in", "w_out"):
+                    qa, qb = a["m"][name], b["m"][name]
+                    check(all(torch.equal(getattr(qa, f).cpu(),
+                                          getattr(qb, f).cpu())
+                              for f in ("codes", "scale", "zero_point")),
+                          f"mamba2 {quant} {name}: card quantization "
+                          "differs from the CPU's")
+            logits = []
+            for (_, caches), tree, device in ((runs[0], qc, "cpu"),
+                                              (runs[1], qg, dev)):
+                m = SSMLM.from_params(cfg, tree, device=device)
+                lg, _ = m.decode_step(nxt.to(device), caches,
+                                      lens.to(device))
+                logits.append(lg.float().cpu())
+            torch.testing.assert_close(logits[1], logits[0], rtol=1e-4,
+                                       atol=1e-4)
+            out[f"{quant} decode"] = (logits[1] - logits[0]).abs().max().item()
+    emit({"small_reference": "reduced mamba2 f32, logits card vs cpu "
+                             "(right-padded prefill through ssd_scan, one "
+                             "decode step)", "codes_bitwise": True,
+          "max_abs_err": out, "rtol": 1e-4, "atol": 1e-4})
+
+
 def profile_decode(eng, prompts, ticks: int = 4) -> dict:
     """Device time by kernel over ``ticks`` steady decode ticks of a fresh
     batch (torch.profiler; admission and drain run outside the window)."""
@@ -486,7 +702,7 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
     device_ms = sum(r[1] for r in rows)
     ours_ms = sum(r[1] for r in rows
                   if any(t in r[0] for t in ("lut_gemm", "luna_mm",
-                                             "splitk_reduce")))
+                                             "splitk_reduce", "ssd_")))
     return {"profile": "decode ticks", "ticks": ticks, "wall_ms": wall_ms,
             "device_ms": device_ms if rows else "not measured",
             "port_kernels_ms": ours_ms if rows else "not measured",
@@ -501,8 +717,18 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.luna_mm.luna_mm import luna_mm
     from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
                                                        lut_gemm_dc_res)
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     return {f.__name__: f for f in (lut_gemm_dc, lut_gemm_dc_res, luna_mm,
-                                    lut_gemm)}
+                                    lut_gemm, ssd_scan)}
+
+
+def request_mix(vocab: int) -> list:
+    """8 prompts of 16-512 tokens from seed 0 (lengths 438, 332, 270, 150,
+    168, 36, 53, 24), ids in [1, vocab)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 513, size=8)
+    return [rng.integers(1, vocab, int(n)).tolist() for n in lens]
 
 
 def build_model(dev, layers: int):
@@ -510,7 +736,6 @@ def build_model(dev, layers: int):
     from seed 0; and the request mix (8 prompts of 16-512 tokens)."""
     from dataclasses import replace
 
-    import numpy as np
     import torch
 
     from repro_torch.models.registry import get_config, get_model
@@ -524,40 +749,94 @@ def build_model(dev, layers: int):
           "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
           "init_s": time.perf_counter() - t0})
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 513, size=8)
-    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
-    return cfg, model, prompts
+    return cfg, model, request_mix(cfg.vocab_size)
 
 
-def serve_once(dev, cfg, model, prompts, quant, kern: str
-               ) -> tuple[dict, list]:
+def build_ssm_model(dev):
+    """mamba2-1.3b at its published widths, all 48 layers, bf16, random
+    weights from seed 0; the same request-length mix as yi-9b's."""
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "ssm": vars(cfg.ssm),
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    return cfg, model, request_mix(cfg.vocab_size)
+
+
+def profile_prefill(eng, prompt) -> dict:
+    """Device time by kernel over one prefill call of ``prompt`` alone
+    (torch.profiler; the request is admitted, then drained outside the
+    window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+
+    req = Request(rid=200, prompt=prompt, max_new=1)   # done at admission
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.serve([req])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, getattr(e, "self_device_time_total", 0) / 1e3,
+                    e.count) for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA
+                   and getattr(e, "self_device_time_total", 0) > 0),
+                  key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"profile": f"one prefill call, {len(prompt)} tokens",
+            "wall_ms": wall_ms,
+            "device_ms": device_ms if rows else "not measured",
+            "ssd_scan_ms": (sum(r[1] for r in rows if "ssd_" in r[0])
+                            if rows else "not measured"),
+            "device_idle_share": (1 - device_ms / wall_ms) if rows
+            else "not measured",
+            "top": [{"kernel": k[:90], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:10]]}
+
+
+def serve_once(dev, cfg, model, prompts, quant: str | None,
+               kern: str | None) -> tuple[dict, list]:
     """One main-path run: the engine serves the request mix; every kernel
-    counter is set to 0 just before and read just after.  ``quant``: an
-    engine-level mode (EngineConfig.quant: frozen decode projections,
-    prefill full precision) or a model-level one (cfg.quant, every
-    projection of prefill and decode; the model shares ``model``'s
-    tensors).  ``kern`` must have launched once per projection (7 a layer)
-    of each decode tick, and of each prefill call under a model-level
-    mode, and no other kernel at all.  Profiles 4 decode ticks after."""
+    counter is set to 0 just before and read just after.  ``quant``: None
+    (full precision), an engine-level mode (EngineConfig.quant: frozen
+    decode projections, prefill full precision) or a model-level one
+    (cfg.quant, every projection of prefill and decode; the model shares
+    ``model``'s tensors).  ``kern`` must have launched once per projection
+    (7 a layer for yi-9b, 2 for mamba2) of each decode tick, and of each
+    prefill call under a model-level mode; for mamba2 ``ssd_scan`` once
+    per layer of each prefill call; no other kernel at all.  Profiles 4
+    decode ticks after (and, for mamba2, one prefill call)."""
     from dataclasses import replace
 
     import torch
 
     from repro_torch.core.layers import QuantConfig
-    from repro_torch.models.transformer import TransformerLM
     from repro_torch.serve.config import ENGINE_QUANT_MODES, EngineConfig
     from repro_torch.serve.engine import Engine, Request
 
     t0 = time.perf_counter()
-    if quant in ENGINE_QUANT_MODES:
-        eng = Engine(cfg, model, EngineConfig(quant=quant, max_batch=8,
-                                              max_seq=1024), device=dev)
-    else:
+    model_level = quant is not None and quant not in ENGINE_QUANT_MODES
+    if model_level:
         qcfg = replace(cfg, quant=QuantConfig(mode=quant))
-        eng = Engine(qcfg, TransformerLM.from_params(
+        eng = Engine(qcfg, type(model).from_params(
             qcfg, model.params_tree(), device=dev),
             EngineConfig(max_batch=8, max_seq=1024), device=dev)
+    else:
+        eng = Engine(cfg, model, EngineConfig(quant=quant, max_batch=8,
+                                              max_seq=1024), device=dev)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     finite = []
@@ -592,17 +871,23 @@ def serve_once(dev, cfg, model, prompts, quant, kern: str
         del m.logits
     layers = cfg.num_layers
     ticks = eng.metrics.ticks
-    model_level = quant not in ENGINE_QUANT_MODES
-    want = (ticks + model_level * stats["prefill_calls"]) * layers * 7
+    want = dict.fromkeys(wrappers, 0)
+    if kern is not None:
+        want[kern] = ((ticks + model_level * stats["prefill_calls"])
+                      * layers * PROJECTIONS[cfg.family])
+    if cfg.family == "ssm":
+        want["ssd_scan"] = stats["prefill_calls"] * layers
     check(stats["done"] and all(len(r.out) == 32 for r in reqs),
-          f"{quant}: not every request finished")
+          f"{cfg.name} {quant}: not every request finished")
     check(finite and bool(torch.stack(finite).all()),
-          f"{quant}: non-finite logits")
-    check(counts[kern] == want and all(
-        n == 0 for name, n in counts.items() if name != kern),
-        f"{quant}: launches {counts}, want {kern} = {want} and no other")
+          f"{cfg.name} {quant}: non-finite logits")
+    check(counts == want,
+          f"{cfg.name} {quant}: launches {counts}, want {want}")
     prof = profile_decode(eng, prompts)    # after the counts are read
-    emit({"main_path": quant, "requests": len(reqs),
+    if cfg.family == "ssm":
+        prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
+    emit({"main_path": quant or "bf16", "model": cfg.name,
+          "requests": len(reqs),
           "prompt_lens": [len(p) for p in prompts], "max_new": 32,
           "layers": layers, "decode_ticks": ticks,
           "prefill_calls": stats["prefill_calls"], "launches": counts,
@@ -619,6 +904,13 @@ def serve_once(dev, cfg, model, prompts, quant, kern: str
     return counts, out
 
 
+def add_launches(total: dict, counts: dict) -> None:
+    """Sum a run's counts into ``total``, for the kernels it launched."""
+    for name, n in counts.items():
+        if n:
+            total[name] = total.get(name, 0) + n
+
+
 def main_path_phase(dev, cfg, model, prompts) -> dict:
     """Phase 6: the engine at yi-9b's full width; returns launches by
     kernel.  6a: engine-level lut4 / nf4p (decode projections on the D&C
@@ -630,17 +922,35 @@ def main_path_phase(dev, cfg, model, prompts) -> dict:
                         ("lut_nf4", "lut_gemm")):
         counts, outs[quant] = serve_once(dev, cfg, model, prompts, quant,
                                          kern)
-        launches[kern] = launches.get(kern, 0) + counts[kern]
+        add_launches(launches, counts)
     # prefill runs the same full-precision model under lut4 and nf4p
     check([o[0] for o in outs["lut4"]] == [o[0] for o in outs["nf4p"]],
           "first (prefill) tokens differ between the lut4 and nf4p runs")
     return launches
 
 
+def ssm_main_path_phase(dev, cfg, model, prompts) -> dict:
+    """Phase 7: the engine at mamba2-1.3b's full width (48 layers, bf16);
+    returns launches by kernel.  Prefill (full precision in every run) on
+    ssd_scan, decode full precision, then w_in/w_out frozen to lut4 (on
+    lut_gemm_dc) and nf4p (on lut_gemm_dc_res)."""
+    launches, outs = {}, {}
+    for quant, kern in ((None, None), ("lut4", "lut_gemm_dc"),
+                        ("nf4p", "lut_gemm_dc_res")):
+        counts, outs[quant] = serve_once(dev, cfg, model, prompts, quant,
+                                         kern)
+        add_launches(launches, counts)
+    firsts = {q: [o[0] for o in out] for q, out in outs.items()}
+    check(firsts[None] == firsts["lut4"] == firsts["nf4p"],
+          f"mamba2 first (prefill) tokens differ between runs: {firsts}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
-                    help="depth of the full-width model (yi-9b has 48)")
+                    help="depth of the full-width yi-9b (it has 48); "
+                         "mamba2-1.3b always runs all 48 of its layers")
     args = ap.parse_args()
 
     import torch
@@ -677,9 +987,12 @@ def main() -> int:
     kernels = kernel_phase(dev)
     kernels.update(luna_kernel_phase(dev))
     kernels.update(lut_full_kernel_phase(dev))
+    kernels.update(ssd_kernel_phase(dev))
     small_reference_phase(dev)
+    small_ssm_reference_phase(dev)
     quant_matmul_phase(dev)
     launches = main_path_phase(dev, *build_model(dev, args.layers))
+    add_launches(launches, ssm_main_path_phase(dev, *build_ssm_model(dev)))
     check(set(launches) == set(kernels),
           f"kernels launched on the main path {sorted(launches)} are not "
           f"the kernels checked {sorted(kernels)}")

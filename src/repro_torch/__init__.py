@@ -7,9 +7,10 @@ path (``repro_torch.core.quant`` <-> ``repro.core.quant``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (see :mod:`repro_torch.device`).  On the card the decode
-projections of the frozen 4-bit LUT path and every projection under the
-model-level LUNA / NF4 modes run on hand-written Hopper kernels
-(:mod:`repro_torch.kernels.lut_gemm`, :mod:`repro_torch.kernels.luna_mm`).
+projections of the frozen 4-bit LUT path, every projection under the
+model-level LUNA / NF4 modes and mamba2's SSD prefill scan run on
+hand-written Hopper kernels (:mod:`repro_torch.kernels.lut_gemm`,
+:mod:`repro_torch.kernels.luna_mm`, :mod:`repro_torch.kernels.ssd_scan`).
 """
 from repro_torch.device import resolve_device
 

@@ -57,14 +57,15 @@ def _split_layers(node, n: int) -> list:
 
 
 def params_from_numpy(tree: dict, cfg, device=None):
-    """Build the port's :class:`TransformerLM` over a numpy copy of the JAX
-    dense-family tree (``model.init`` output or its frozen decode tree)."""
-    from repro_torch.models.transformer import TransformerLM
+    """Build the port's LM of ``cfg``'s family (``TransformerLM`` for
+    dense, ``SSMLM`` for ssm) over a numpy copy of the JAX tree
+    (``model.init`` output or its frozen decode tree)."""
+    from repro_torch.models.registry import model_class
     device = resolve_device(device)
     params = {k: _leaf(v, device) for k, v in tree.items() if k != "blocks"}
     params["blocks"] = _split_layers(_leaf(tree["blocks"], device),
                                      cfg.num_layers)
-    return TransformerLM.from_params(cfg, params, device=device)
+    return model_class(cfg).from_params(cfg, params, device=device)
 
 
 def params_to_numpy(model) -> dict:

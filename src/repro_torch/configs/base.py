@@ -1,9 +1,10 @@
 """Config dataclasses for the port's model zoo (mirrors
 ``repro.configs.base``).
 
-Only the dense family is ported, so :class:`ModelConfig` carries the
-fields the dense GQA path reads; the MoE/MLA/SSM/hybrid/encdec/VLM
-sub-configs arrive with their families (ROADMAP queue 1 item 7).
+The dense and SSM families are ported, so :class:`ModelConfig` carries
+the fields the dense GQA and mamba2 paths read; the MoE/MLA/hybrid/
+encdec/VLM sub-configs arrive with their families (ROADMAP queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -13,9 +14,19 @@ from repro_torch.core.layers import QuantConfig
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    num_groups: int = 1
+    conv_dim: int = 4
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # only "dense" is ported
+    family: str                  # "dense" | "ssm"
     num_layers: int
     d_model: int
     num_heads: int
@@ -28,6 +39,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
+    ssm: SSMConfig | None = None
     quant: QuantConfig = field(default_factory=QuantConfig)  # model-level
     attn_impl: str = "chunked"   # full | chunked
     attn_chunk: int = 512
@@ -48,5 +60,8 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
         )
+        if self.ssm:
+            small["ssm"] = replace(self.ssm, state_dim=16, head_dim=16,
+                                   chunk_size=32)
         small.update(overrides)
         return replace(self, **small)

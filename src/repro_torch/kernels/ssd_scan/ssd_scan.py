@@ -1,0 +1,139 @@
+"""Wrapper of the hand-written Hopper SSD chunk-scan kernel.
+
+:func:`ssd_scan` — the mamba2 prefill's state-space scan over (B, S, H, P)
+streams, resumable (``initial_state``) and maskable (``mask``).  Replaces
+the Pallas ``repro/kernels/ssd_scan/ssd_scan.py:81 ssd_scan``.
+
+A CUDA tensor launches the kernel (``csrc/ssd_scan.cu``, built on first
+use) on ``torch.cuda.current_stream()``, or the call raises; a CPU tensor
+takes the plain version, ``repro_torch.models.ssm._ssd_chunked`` (JAX's
+jnp scan).  Nothing falls back.  The wrapper counts its kernel launches in
+a plain integer attribute, ``launches``.
+
+Tolerance of kernel against plain version on the card: ``KERNEL_TOL``
+= 1e-4 of the output's scale, ``max|kernel - plain| <= KERNEL_TOL *
+max(1, max|plain|)`` (:func:`scaled_err`), for y and the final state
+alike; 1e-4 is the bound JAX holds its Pallas kernel to against the jnp
+scan (``tests/test_ssd_kernel.py``).  Both sum the same f32 products in
+different orders (the kernel: a parallel cumsum and FMA chains over
+32-wide tiles; the plain version: ``torch.cumsum`` and the library's
+einsum tiling); at mamba2's widths an output sums ~N + Q = 384 products
+of magnitude up to ~10, which moves results by ~1e-6 of their scale.  The
+scale, not each element, is the reference because outputs near zero are
+sums of cancelling terms of that scale.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+KERNEL_TOL = 1e-4
+
+#: the kernel's limits (mirrors the constants in csrc/ssd_scan.cu)
+QMAX = 256
+NMAX = 128
+
+
+def scaled_err(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """``max|out - plain| / max(1, max|plain|)``: the error
+    ``KERNEL_TOL`` bounds."""
+    scale = max(1.0, plain.abs().max().item())
+    return (out - plain).abs().max().item() / scale
+
+
+def _lib():
+    """The built library, its entry point typed on first use."""
+    from repro_torch.kernels._build import load_library
+    lib = load_library("ssd_scan")
+    if lib.ssd_scan_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_scan_launch.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.ssd_scan_launch.restype = ctypes.c_int
+        limits = (lib.ssd_scan_qmax(), lib.ssd_scan_nmax())
+        if limits != (QMAX, NMAX):
+            raise RuntimeError(f"ssd_scan.cu limits {limits} differ from "
+                               "the wrapper's")
+    return lib
+
+
+def _check(x, dt, a, b, c, chunk, initial_state, mask):
+    if x.ndim != 4 or b.ndim != 4 or c.shape != b.shape:
+        raise ValueError(f"shapes x {tuple(x.shape)}, b {tuple(b.shape)}, "
+                         f"c {tuple(c.shape)}: want (B,S,H,P) and (B,S,G,N)")
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    want = {"dt": (dt, (bb, s, h)), "a": (a, (h,)), "b": (b, (bb, s, g, n))}
+    if initial_state is not None:
+        want["initial_state"] = (initial_state, (bb, h, p, n))
+    for name, (t, shape) in {"x": (x, x.shape), **want}.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be float32 of shape "
+                             f"{tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (bb, s)):
+        raise ValueError(f"mask must be bool of shape {(bb, s)}, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    if h % g:
+        raise ValueError(f"{g} groups do not divide {h} heads")
+    if not 1 <= chunk <= QMAX or n > NMAX:
+        raise ValueError(f"chunk {chunk} must be in [1, {QMAX}] and state "
+                         f"dim {n} at most {NMAX}")
+    ops = [t for t in (x, dt, a, b, c, initial_state, mask) if t is not None]
+    devs = {t.device for t in ops}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+
+
+def _launch(x, dt, a, b, c, chunk, initial_state, mask):
+    ops = (x, dt, a, b, c, initial_state, mask)
+    if not all(t.is_contiguous() for t in ops if t is not None):
+        raise ValueError("ssd_scan takes contiguous operands")
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = -(-s // chunk)
+    cb = torch.empty((bb, g, nc, chunk, chunk), dtype=torch.float32,
+                     device=x.device)
+    y = torch.empty_like(x)
+    final = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _lib().ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), None if mask is None else mask.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            cb.data_ptr(), y.data_ptr(), final.data_ptr(), bb, s, h, p, g,
+            n, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t "
+                           f"{err}")
+    return y, final
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+             initial_state: torch.Tensor | None = None,
+             mask: torch.Tensor | None = None):
+    """SSD over (B, S, H, P) streams in chunks of ``chunk`` positions.
+
+    x: (B,S,H,P) f32; dt: (B,S,H) f32; a: (H,) f32 negative decay rates;
+    b/c: (B,S,G,N) f32 with G | H (head h reads group h // (H/G));
+    ``initial_state``: optional (B,H,P,N) f32 carried state (zeros when
+    None); ``mask``: optional (B,S) bool validity mask (invalid positions
+    are inert: dt is zeroed).  S need not be a multiple of ``chunk``.
+    Returns (y (B,S,H,P) f32, final_state (B,H,P,N) f32).
+    """
+    _check(x, dt, a, b, c, chunk, initial_state, mask)
+    if x.device.type == "cpu":
+        from repro_torch.models.ssm import _ssd_chunked
+        return _ssd_chunked(x, dt, a, b, c, chunk,
+                            initial_state=initial_state, mask=mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    out = _launch(x, dt, a, b, c, chunk, initial_state, mask)
+    ssd_scan.launches += 1
+    return out
+
+
+ssd_scan.launches = 0

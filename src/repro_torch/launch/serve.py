@@ -9,11 +9,16 @@
   # on the CPU (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --quant nf4p
 
+  # mamba2-1.3b (ssm family; prefill on the ssd_scan kernel on the card):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      --no-reduced --quant lut4
+
   # the paper's LUNA multiplier on every projection (model-level):
   PYTHONPATH=src python -m repro_torch.launch.serve --quant luna_approx2
 
-Weights are random, drawn from ``--seed``.  ``--quant lut4|int4|nf4|nf4p``
-freezes the decode projections to 4 bits (lut4 and nf4/nf4p run the
+``--arch`` is ``yi-9b`` or ``mamba2-1.3b``.  Weights are random, drawn
+from ``--seed``.  ``--quant lut4|int4|nf4|nf4p`` freezes the decode
+projections (mamba2: ``w_in``/``w_out``) to 4 bits (lut4 and nf4/nf4p run the
 hand-written LUT GEMM kernels on the card); prefill stays full precision.
 Any other spelling but bf16 (``luna_*``, ``lut_nf4``, ``int8``,
 ``int4_dequant``) is a model-level mode that quantizes every projection

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> config, model.
 
-Only ``yi-9b`` (the dense GQA family) is ported.  Every other arch of the
-JAX registry raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+Ported: ``yi-9b`` (the dense GQA family) and ``mamba2-1.3b`` (ssm).  Every
+other arch of the JAX registry raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 
 ARCH_MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
 }
 
 #: archs of the JAX registry still to be ported -> the ROADMAP item
@@ -24,7 +25,6 @@ UNPORTED_ARCHS = {
     "deepseek-v2-236b": "queue 1 item 7 (MoE + MLA)",
     "whisper-base": "queue 1 item 7 (encdec)",
     "zamba2-1.2b": "queue 1 item 7 (hybrid)",
-    "mamba2-1.3b": "queue 1 item 7 (ssm)",
     "llava-next-mistral-7b": "queue 1 item 7 (vlm)",
     "luna-mlp": "queue 1 item 8 (training: examples/fig13_nn_accuracy.py)",
 }
@@ -42,13 +42,21 @@ def get_config(arch: str, **overrides) -> ModelConfig:
     return replace(cfg, **overrides) if overrides else cfg
 
 
+def model_class(cfg: ModelConfig):
+    """The port's LM class for ``cfg.family``."""
+    if cfg.family == "dense":
+        from repro_torch.models.transformer import TransformerLM
+        return TransformerLM
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm_lm import SSMLM
+        return SSMLM
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 7")
+
+
 def get_model(cfg: ModelConfig, device=None):
-    """An uninitialised :class:`TransformerLM` on ``device`` (the card
-    unless ``device="cpu"``); call ``.init(generator)`` or load weights
-    through :mod:`repro_torch.bridge`."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 "
-            "item 7")
-    from repro_torch.models.transformer import TransformerLM
-    return TransformerLM(cfg, device=device)
+    """An uninitialised LM of ``cfg``'s family (:class:`TransformerLM` or
+    :class:`SSMLM`) on ``device`` (the card unless ``device="cpu"``); call
+    ``.init(generator)`` or load weights through
+    :mod:`repro_torch.bridge`."""
+    return model_class(cfg)(cfg, device=device)

@@ -1,11 +1,12 @@
 """EngineConfig: the serving knobs in one validated dataclass (mirrors
 ``repro.serve.config``), with the shared argparse binding.
 
-The port serves the synchronous path over a dense slab.  The switches of
-the JAX engine's other paths (``paged``, ``prefix_cache``,
-``prefill_chunk``, ``spec``, ``trace``) are accepted so a caller gets a
-clear error: :meth:`EngineConfig.validate` raises ``NotImplementedError``
-naming ROADMAP queue 1 item 6, which ports them.
+The port serves the synchronous path over a dense slab (dense family) or
+dense recurrent state (ssm).  The switches of the JAX engine's other
+paths (``paged``, ``prefix_cache``, ``prefill_chunk``, ``spec``,
+``trace``) are accepted so a caller gets a clear error:
+:meth:`EngineConfig.validate` raises ``NotImplementedError`` naming
+ROADMAP queue 1 item 6, which ports them.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ def model_quant(quant: str | None):
 
 
 #: families the port's engine serves
-SERVED_FAMILIES = ("dense",)
+SERVED_FAMILIES = ("dense", "ssm")
 
 _UNPORTED = ("paged", "prefix_cache", "prefill_chunk", "spec", "trace")
 

@@ -1,9 +1,10 @@
 """Continuous-batching serving engine, synchronous path (mirrors
 ``repro.serve.engine``).
 
-A fixed set of ``max_batch`` slots over a dense KV slab.  New requests are
-bucketed by padded prompt length and prefilled in one call per bucket,
-their rows copied into the slab; every decode tick then advances ALL
+A fixed set of ``max_batch`` slots over a dense slab: KV rows (dense
+family) or recurrent state (ssm).  New requests are bucketed by padded
+prompt length and prefilled in one call per bucket, their rows copied into
+the slab; every decode tick then advances ALL
 ``max_batch`` rows one token at their own positions (a ``(max_batch,)``
 position tensor).  Under ``EngineConfig(quant=...)`` prefill runs full
 precision and the decode model carries frozen 4-bit projections evaluated
@@ -141,9 +142,9 @@ class EngineMetrics:
 class Engine:
     def __init__(self, cfg, params, config: EngineConfig | None = None, *,
                  device=None):
-        """``params``: the :class:`~repro_torch.models.transformer.
-        TransformerLM` holding the full-precision weights.  ``device``: the
-        card unless ``"cpu"`` (the model must already live there)."""
+        """``params``: the model (``TransformerLM`` or ``SSMLM``) holding
+        the full-precision weights.  ``device``: the card unless ``"cpu"``
+        (the model must already live there)."""
         if config is None:
             config = EngineConfig()
         config.validate(cfg.family)

@@ -10,7 +10,12 @@ machine with the card and no JAX:
 * ``luna_mm`` against its plain version, bitwise, every mode;
 * ``quant_matmul`` on CUDA tensors against the CPU's on identical f32
   inputs, every model-level mode (1e-5), the LUNA int32 accumulators
-  bitwise.
+  bitwise;
+* ``ssd_scan`` against its plain version (``models.ssm._ssd_chunked`` on
+  the card) at the tolerance stated in ``kernels/ssd_scan/ssd_scan.py``:
+  ragged S, chunks that are not powers of two, a mask off the chunk grid,
+  a carried initial state, G = 2, P not a multiple of 32; and a reduced
+  f32 mamba2 prefill (through the kernel) against the CPU's (1e-4).
 """
 import numpy as np
 import pytest
@@ -26,6 +31,9 @@ from repro_torch.kernels.luna_mm.ref import luna_mm_ref
 from repro_torch.kernels.lut_gemm import lut_gemm as tkern
 from repro_torch.kernels.lut_gemm import ops as tops
 from repro_torch.kernels.lut_gemm import ref as tref
+from repro_torch.kernels.ssd_scan import ssd_scan as skern
+from repro_torch.models.registry import get_config, get_model
+from repro_torch.models.ssm import _ssd_chunked
 
 pytestmark = pytest.mark.cuda
 MODES = [m.value for m in tl.LunaMode]
@@ -102,3 +110,62 @@ def test_quant_matmul_card_matches_cpu(dev):
     for mode in MODES:
         assert torch.equal(luna_mm_codes(qx.to(dev), qw.to(dev), mode=mode)
                            .cpu(), tl.luna_matmul(qx, qw, mode=mode))
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,valid,init", [
+    (1, 77, 4, 16, 2, 8, 32, None, False),     # ragged S, G = 2
+    (2, 48, 4, 64, 1, 128, 48, None, False),   # Q = 48, mamba2's P and N
+    (2, 130, 2, 40, 2, 16, 64, 70, True),      # mask, initial state, P = 40
+    (1, 300, 2, 64, 1, 128, 256, 211, True),   # two chunks of 256, masked
+    (1, 1, 2, 8, 1, 8, 1, None, True),         # one position
+])
+def test_ssd_scan_matches_plain_on_card(dev, B, S, H, P, G, N, chunk, valid,
+                                        init):
+    gen = torch.Generator(device=dev).manual_seed(S)
+    x = torch.randn((B, S, H, P), generator=gen, device=dev)
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    b = torch.randn((B, S, G, N), generator=gen, device=dev)
+    c = torch.randn((B, S, G, N), generator=gen, device=dev)
+    s0 = (torch.randn((B, H, P, N), generator=gen, device=dev) if init
+          else None)
+    mask = (None if valid is None
+            else (torch.arange(S, device=dev) < valid)[None].expand(B, S)
+            .contiguous())
+    before = skern.ssd_scan.launches
+    y, fs = skern.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=s0,
+                           mask=mask)
+    assert skern.ssd_scan.launches == before + 1
+    y0, fs0 = _ssd_chunked(x, dt, a, b, c, chunk, initial_state=s0,
+                           mask=mask)
+    torch.cuda.synchronize()
+    assert skern.scaled_err(y, y0) <= skern.KERNEL_TOL
+    assert skern.scaled_err(fs, fs0) <= skern.KERNEL_TOL
+
+
+def test_mamba2_prefill_card_matches_cpu(dev):
+    """Right-padded rows with ``last_pos``: the card's prefill (masked SSD
+    scan on the kernel) against the CPU's plain path, logits and states."""
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    gpu = type(cpu).from_params(cfg, _tree_to(cpu.params_tree(), dev),
+                                device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (3, 48),
+                         generator=torch.Generator().manual_seed(2))
+    last = torch.tensor([47, 20, 3])
+    with torch.inference_mode():
+        lc, cc = cpu.prefill(toks, cpu.init_cache(3, 48), last_pos=last)
+        lg, cg = gpu.prefill(toks.to(dev), gpu.init_cache(3, 48),
+                             last_pos=last.to(dev))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for a, b in zip(cg, cc):
+        torch.testing.assert_close(a.state.cpu(), b.state, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _tree_to(node, device):
+    if isinstance(node, dict):
+        return {k: _tree_to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to(v, device) for v in node]
+    return node.to(device)

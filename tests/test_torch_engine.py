@@ -9,6 +9,10 @@
   lut4 == int4 tokens, nf4 == the direct NF4 dequant oracle.
 * Sampled modes: a request's tokens depend on (seed, rid) only — the same
   in a mixed batch and alone, reproducible, and changed by the seed.
+* mamba2 (the ssm family, on the dense slab of ``SSMCache`` rows): greedy
+  tokens equal the JAX engine's under ``quant=None``, ``lut4``, ``nf4``,
+  ``nf4p`` and the model-level ``luna_dc``; a mixed-length batch equals
+  the sequential reference; bucketed prefill equals ``prefill_bucket=1``.
 """
 import argparse
 from dataclasses import replace
@@ -27,12 +31,22 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.core.layers import QuantConfig
 from repro_torch.core.quant import quantize_decode_params
 from repro_torch.models.registry import get_config
+from repro_torch.models.ssm import SSMCache
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.config import ENGINE_QUANT_MODES, EngineConfig, model_quant
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.sampling import SamplingConfig
 
 MIXED_LENS = (3, 9, 5)
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    jcfg = jax_config("mamba2-1.3b").reduced(dtype="float32")
+    jparams = jax_model(jcfg).init(jax.random.PRNGKey(1))
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, jparams, cfg, model
 
 
 @pytest.fixture(scope="module")
@@ -249,3 +263,60 @@ def test_cli_serves_on_cpu(capsys):
                   "--max-new", "3"])
     assert stats["done"] and stats["decode_tokens"] == 4
     assert "rid 1:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("quant", [None, "lut4", "nf4", "nf4p", "luna_dc"])
+def test_ssm_greedy_tokens_equal_jax_engine(ssm_setup, quant):
+    """mamba2: bucketed right-padded prefill (masked SSD scan), the O(1)
+    decode recurrence with frozen ``w_in``/``w_out`` (engine-level) or
+    every projection on the LUNA path (``luna_dc``)."""
+    jcfg, jparams, cfg, model = ssm_setup
+    engine_quant = quant if quant in ENGINE_QUANT_MODES else None
+    if quant is not None and engine_quant is None:
+        jcfg = replace(jcfg, quant=JaxQuantConfig(mode=quant))
+        cfg = replace(cfg, quant=QuantConfig(mode=quant))
+        model = type(model).from_params(cfg, model.params_tree(),
+                                        device="cpu")
+    prompts = _prompts(cfg, lens=(3, 9, 20))
+    jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(
+        max_batch=len(prompts), max_seq=48, quant=engine_quant))
+    jreqs = [JaxRequest(rid=i, prompt=p, max_new=8)
+             for i, p in enumerate(prompts)]
+    assert jeng.serve(jreqs)["done"]
+    port, eng = _serve(cfg, model, prompts, quant=engine_quant)
+    assert all(isinstance(c, SSMCache) for c in eng.backend.caches)
+    assert port == [r.out for r in jreqs]
+
+
+def test_ssm_mixed_length_batch_matches_sequential(ssm_setup):
+    """The port of ``test_engine.test_mixed_length_batch_recurrent_families``
+    for mamba2, with slot reuse: 5 requests on a 2-slot slab == each
+    served alone."""
+    _, _, cfg, model = ssm_setup
+    prompts = _prompts(cfg, lens=(4, 7, 4, 17, 2))
+    batched, _ = _serve(cfg, model, prompts, max_new=4, max_batch=2)
+    for i, p in enumerate(prompts):
+        alone, _ = _serve(cfg, model, [p], max_new=4)
+        assert batched[i] == alone[0], (i, len(p))
+
+
+def test_ssm_bucketed_prefill_matches_exact_length(ssm_setup):
+    """From ``test_engine.test_recurrent_chunked_prefill_matches_whole_
+    prompt``: padded 16-token buckets (pad columns masked out of the
+    recurrent state) == exact-length prefill (``prefill_bucket=1``)."""
+    _, _, cfg, model = ssm_setup
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (31, 4, 12)]
+    exact, _ = _serve(cfg, model, prompts, max_new=5, max_batch=2,
+                      prefill_bucket=1)
+    bucketed, _ = _serve(cfg, model, prompts, max_new=5, max_batch=2)
+    assert bucketed == exact
+
+
+def test_cli_serves_mamba2_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+    stats = main(["--arch", "mamba2-1.3b", "--device", "cpu", "--quant",
+                  "lut4", "--requests", "3", "--max-new", "3"])
+    assert stats["done"] and stats["decode_tokens"] == 6
+    assert "mamba2-1.3b x2 layers on cpu" in capsys.readouterr().out

@@ -18,6 +18,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models.attention import sdpa
 from repro_torch.models.common import CacheSpec
 from repro_torch.models.registry import get_config, get_model
+from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.engine import Engine
@@ -73,11 +74,43 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         main(["--requests", "1"])
 
 
+def test_ssm_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SSMLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(cfg)
+    model = get_model(cfg, device="cpu")
+    assert isinstance(model, SSMLM)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model, EngineConfig(max_batch=1, max_seq=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from repro_torch.launch.serve import main
+        main(["--arch", "mamba2-1.3b", "--requests", "1"])
+    Engine(cfg, model, EngineConfig(max_batch=1, max_seq=16), device="cpu")
+
+
+def test_ssm_unported_parts_name_their_roadmap_item():
+    model = get_model(get_config("mamba2-1.3b").reduced(dtype="float32"),
+                      device="cpu")
+    caches = model.init_cache(1, 8)
+    for call in (lambda: model.state_snapshot(caches),
+                 lambda: model.seed_from_snapshot(caches, caches),
+                 lambda: model.decode_window(torch.zeros(1, 2), caches, 0)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            call()
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        Engine(model.cfg, model, EngineConfig(max_batch=1, max_seq=16,
+                                              paged=True), device="cpu")
+
+
 def test_unported_parts_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         get_config("starcoder2-15b")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        get_config("mamba2-1.3b")
+        get_config("zamba2-1.2b")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         get_config("luna-mlp")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
