@@ -27,11 +27,21 @@ result line):
       (1, 272) with a carried initial state, (1, 448) masked at 438 (off
       the chunk grid), (8, 512)}, and a small G = 2 case, within the
       tolerance stated in ``kernels/ssd_scan/ssd_scan.py``;
+   e. flash attention (``flash_attention``) against ``attention_ref`` at
+      JAX's test shapes (causal and not, f32, 2e-5) and yi-9b's heads (H
+      32, Hkv 4, D 128) at (B, S) in {(1, 512), (2, 4096)}, causal, f32
+      (2e-5) and bf16 (against the same bf16 values in f32, half an
+      output ulp past 2e-5; and JAX's 2e-2 against the unrounded f32
+      inputs); times at (2, 4096) beside the bound and
+      ``F.scaled_dot_product_attention`` (timed only);
 4. reduced f32 models, card against CPU: yi-9b (quantization on the card
    equals the CPU's bitwise; decode logits through the kernels under
    lut4, nf4p; lut_nf4 prefill) and mamba2 (right-padded prefill with
    ``last_pos`` through ``ssd_scan``; w_in/w_out codes bitwise; one
-   decode step under lut4 and nf4p), logits at 1e-4;
+   decode step under lut4 and nf4p), logits at 1e-4; yi-9b training:
+   the cacheless forward under attn_impl="flash", the loss and every
+   gradient under chunked attention and under luna_approx (the STE on
+   luna_mm), one train step;
 5. ``quant_matmul`` on the card against the CPU's on identical f32 inputs
    under every model-level mode: codes and LUNA int32 accumulators
    bitwise, outputs 1e-5;
@@ -47,6 +57,19 @@ result line):
    ``ssd_scan`` (once per layer per call), decode the O(1) recurrence
    with w_in/w_out on the D&C kernels; the first (prefill) tokens agree
    across the three runs;
+8. training at yi-9b's full width, depth cut 48 -> 8 (bf16, random
+   weights from seed 0, SyntheticLM seed 0): the trainer's step
+   (``make_train_step``, AdamW + cosine, remat) for 6 steps of B = 2, S =
+   4096 under chunked attention (per-step wall, tokens/s, loss,
+   grad_norm, peak memory, a torch.profiler window over the last step),
+   2 QAT steps under luna_approx at S = 1024 (luna_mm: 7 x 8 x 2 launches
+   a step), then the eval loss and final hidden states of a held-out
+   batch under attn_impl="flash" (one launch per layer per call) against
+   the chunked ones, a check that two wrong attentions put in the
+   kernel's place (output zeroed; last KV tile dropped for the last
+   query tile) must fail;
+   8b. the Trainer on luna-mlp: 12 steps with checkpoints every 5, then
+   a rerun to 20 resumes from step 12;
 each run of 6 and 7 asserting every request finished, every logit is
 finite and each kernel's launch counter (all set to 0 just before the
 run, read just after) equals the launches the run made through it; then
@@ -508,6 +531,127 @@ def ssd_kernel_phase(dev):
         "per_shape": per_shape}}
 
 
+#: phase 3e: JAX's test_flash_vs_ref shapes (B, S, H, Hkv, D), causal and
+#: not, f32; then yi-9b's heads at the main path's (B, S), causal
+FLASH_JAX_CASES = [(1, 128, 2, 2, 16), (2, 256, 4, 2, 32),
+                   (1, 512, 8, 1, 64)]
+FLASH_YI_CASES = [(1, 512, 32, 4, 128), (2, 4096, 32, 4, 128)]
+
+
+def flash_bound_ms(b, s, h, hkv, d, itemsize, causal,
+                   peak) -> tuple[float, str]:
+    """Least time of one call: q, k, v read once and o written once, against
+    the operations the mask leaves (4 B H S^2 D, halved when causal) at the
+    input type's peak; the larger of the two."""
+    nbytes = itemsize * (2 * b * s * h * d + 2 * b * s * hkv * d)
+    flops = 4 * b * h * s * s * d * (0.5 if causal else 1.0)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of want (2^(e - 7) for 2^e <= |want|
+    < 2^(e + 1)) over the elements with |want| >= 1/64, where f32's own
+    error (~1e-6 absolute) is far below half an ulp; rounding to nearest
+    stays within 0.5, a truncating store reaches 1."""
+    import torch
+    big = want.abs() >= 2.0 ** -6
+    e = torch.floor(torch.log2(want[big].abs()))
+    return ((got.float()[big] - want[big]).abs()
+            / torch.exp2(e - 7)).max().item()
+
+
+def flash_kernel_phase(dev):
+    """Phase 3e: flash_attention against attention_ref on the same input
+    values in f32, each case within the tolerance stated in
+    ``kernels/flash_attention/flash_attention.py`` (2e-5 f32; bf16 half an
+    output ulp past that), bf16 also within JAX's 2e-2 of the f32
+    reference on the unrounded inputs; times at (2, 4096) beside the bound
+    and SDPA (timed only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = ([(c, causal, torch.float32) for c in FLASH_JAX_CASES
+              for causal in (True, False)]
+             + [(c, True, dt) for c in FLASH_YI_CASES
+                for dt in (torch.float32, torch.bfloat16)])
+    per_shape, max_err = [], {}
+    for (b, s, h, hkv, d), causal, dt in cases:
+        q = torch.randn((b * h, s, d), generator=gen, device=dev)
+        k = torch.randn((b * hkv, s, d), generator=gen, device=dev)
+        v = torch.randn((b * hkv, s, d), generator=gen, device=dev)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, num_q_heads=h,
+                  num_kv_heads=hkv)
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        got = fk.flash_attention(qd, kd, vd, **kw)
+        want = attention_ref(qd.float(), kd.float(), vd.float(), **kw)
+        torch.cuda.synchronize()
+        tol = fk.tolerance(dt)
+        err = (got.float() - want).abs().max().item()
+        torch.testing.assert_close(got.float(), want, **tol)
+        name = str(dt).split(".")[1]
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        row = {"b": b, "s": s, "h": h, "hkv": hkv, "d": d,
+               "causal": causal, "dtype": name, "max_abs_err": err,
+               "tol": tol}
+        if dt == torch.bfloat16:
+            row["max_err_bf16_ulps"] = bf16_ulps(got, want)
+            del want
+            want = attention_ref(q, k, v, **kw)
+            torch.testing.assert_close(got.float(), want, rtol=fk.BF16_TOL,
+                                       atol=fk.BF16_TOL)
+            row["max_abs_err_vs_f32_inputs"] = (
+                got.float() - want).abs().max().item()
+            row["tol_vs_f32_inputs"] = fk.BF16_TOL
+        if s == 4096:
+            itemsize = 2 if dt == torch.bfloat16 else 4
+            peak = BF16_FLOP_S if dt == torch.bfloat16 else F32_FLOP_S
+            row["ms"] = cuda_ms(lambda i: fk.flash_attention(qd, kd, vd,
+                                                             **kw), 5)
+            row["plain_ms"] = cuda_ms(lambda i: attention_ref(qd, kd, vd,
+                                                              **kw), 3)
+            row["bound_ms"], row["bound_by"] = flash_bound_ms(
+                b, s, h, hkv, d, itemsize, causal, peak)
+            q4 = qd.reshape(b, h, s, d)
+            k4, v4 = kd.reshape(b, hkv, s, d), vd.reshape(b, hkv, s, d)
+            row["library_ms"] = cuda_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=True), 10)
+            row["gflop"] = 4 * b * h * s * s * d * 0.5 / 1e9
+        per_shape.append(row)
+        del q, k, v, want, got, qd, kd, vd
+    tols = {"float32": fk.tolerance(torch.float32),
+            "bfloat16": fk.tolerance(torch.bfloat16),
+            "bfloat16_vs_f32_inputs": fk.BF16_TOL}
+    emit({"kernel_check": "flash_attention", "passed": True,
+          "max_abs_err": max_err, "tol": tols, "per_shape": per_shape})
+    head = next(r for r in per_shape
+                if r["s"] == 4096 and r["dtype"] == "bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:70",
+        "launches": None, "max_abs_err": max_err["bfloat16"],
+        "max_abs_err_f32": max_err["float32"],
+        "tolerance": tols,
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timed_as": "one yi-9b layer's causal attention of the training "
+                    "phase's eval loss: B=2, S=4096, H=32, Hkv=4, D=128, "
+                    "bf16; library: F.scaled_dot_product_attention("
+                    "is_causal=True, enable_gqa=True) on the same inputs",
+        "per_shape": per_shape}}
+
+
 def quant_matmul_phase(dev):
     """Phase 5: the card's quant_matmul against the CPU's, every mode."""
     import torch
@@ -669,6 +813,56 @@ def small_ssm_reference_phase(dev):
           "max_abs_err": out, "rtol": 1e-4, "atol": 1e-4})
 
 
+def small_training_phase(dev):
+    """Phase 4, training: reduced f32 yi-9b, card against CPU, through
+    ``repro_torch.train.card_vs_cpu`` (the checks and tolerances the card
+    tests use): the cacheless forward under attn_impl="flash", the STE on
+    identical inputs, the loss and every gradient under chunked attention
+    and under luna_approx through the STE on luna_mm, one train step's
+    params.  Beside them, the reason luna_approx's gradients have a
+    tolerance of their own: the same effect on the CPU alone under 1e-7
+    relative weight noise."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.train import card_vs_cpu as cc
+    from repro_torch.tree import tree_map
+
+    out = cc.training_card_vs_cpu(dev)
+    out["ste on identical inputs (scaled)"] = cc.ste_card_vs_cpu(dev)
+    cfg, cpu, batch = cc.reduced_setup()
+    noise = torch.Generator().manual_seed(9)
+    for name, c in (("chunked", cfg), ("luna_approx", replace(
+            cfg, quant=QuantConfig(mode="luna_approx")))):
+        a = type(cpu).from_params(c, cpu.params_tree(), device="cpu")
+        b = type(cpu).from_params(c, tree_map(
+            lambda t: t * (1 + 1e-7 * torch.randn(t.shape, generator=noise)),
+            cpu.params_tree()), device="cpu")
+        for m in (a.requires_grad_(True), b.requires_grad_(True)):
+            m.loss(batch)[0].backward()
+        out[f"{name} grads, cpu vs cpu with 1e-7 weight noise (scaled)"] = \
+            cc.scaled_grad_err(a, b)
+    emit({"small_reference": "reduced yi-9b f32 training, card vs cpu "
+                             "(B=2, S=256)", "max_err": out,
+          "rtol": cc.TOL, "atol": cc.TOL, "ste_rel": cc.STE_REL,
+          "grad_tol": {"chunked": cc.GRAD_REL,
+                       "luna_approx": cc.LUNA_GRAD_REL,
+                       "of": "each leaf's max |cpu grad|"}})
+
+
+def kernel_rows(prof) -> list:
+    """(name, device ms, calls) of every CUDA kernel in a profile, by
+    device time (an ATen op's row would repeat its kernels' time)."""
+    import torch
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0) > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def profile_decode(eng, prompts, ticks: int = 4) -> dict:
     """Device time by kernel over ``ticks`` steady decode ticks of a fresh
     batch (torch.profiler; admission and drain run outside the window)."""
@@ -689,16 +883,7 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.serve([])                          # drain
-    rows = []
-    for e in prof.key_averages():
-        # kernel rows only: an ATen op's row repeats its kernels' time
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((e.key, dev_us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = kernel_rows(prof)
     device_ms = sum(r[1] for r in rows)
     ours_ms = sum(r[1] for r in rows
                   if any(t in r[0] for t in ("lut_gemm", "luna_mm",
@@ -714,12 +899,14 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention)
     from repro_torch.kernels.luna_mm.luna_mm import luna_mm
     from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
                                                        lut_gemm_dc_res)
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     return {f.__name__: f for f in (lut_gemm_dc, lut_gemm_dc_res, luna_mm,
-                                    lut_gemm, ssd_scan)}
+                                    lut_gemm, ssd_scan, flash_attention)}
 
 
 def request_mix(vocab: int) -> list:
@@ -789,12 +976,7 @@ def profile_prefill(eng, prompt) -> dict:
         eng.serve([req])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, getattr(e, "self_device_time_total", 0) / 1e3,
-                    e.count) for e in prof.key_averages()
-                   if getattr(e, "device_type", None)
-                   == torch.autograd.DeviceType.CUDA
-                   and getattr(e, "self_device_time_total", 0) > 0),
-                  key=lambda r: -r[1])
+    rows = kernel_rows(prof)
     device_ms = sum(r[1] for r in rows)
     return {"profile": f"one prefill call, {len(prompt)} tokens",
             "wall_ms": wall_ms,
@@ -946,6 +1128,312 @@ def ssm_main_path_phase(dev, cfg, model, prompts) -> dict:
     return launches
 
 
+def profile_train_step(step_fn, model, opt_state, batch) -> tuple:
+    """One train step under torch.profiler: (its metrics, device time by
+    kernel and the idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    device_ms = sum(r[1] for r in rows)
+
+    def share(*keys):
+        return sum(r[1] for r in rows if any(k in r[0].lower() for k in keys))
+
+    return metrics, {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms if rows else "not measured",
+        "device_idle_share": (1 - device_ms / wall_ms) if rows
+        else "not measured",
+        "gemm_ms": share("gemm", "cutlass", "sm90_xmma", "nvjet")
+        if rows else "not measured",
+        "kernels": len(rows),
+        "launches": sum(r[2] for r in rows),
+        "top": [{"kernel": k[:90], "ms": ms, "calls": n}
+                for k, ms, n in rows[:14]]}
+
+
+#: phase 8: yi-9b at its published widths, depth cut 48 -> 8 (the f32
+#: moments of 48 layers alone are ~33 GB beside ~16 GB of bf16 weights
+#: and grads, ~105 GB in all); TRAIN_4K's sequence length with its
+#: 256-sequence batch cut to 2
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2, 4096, 6
+QAT_S, QAT_STEPS = 1024, 2
+#: |flash eval loss - chunked eval loss| on the same params, set from
+#: readings: 1.25e-4 sound, 7.7e-2 with the output zeroed
+FLASH_LOSS_TOL = 1e-3
+
+
+def train_phase(dev) -> dict:
+    """Phase 8: the trainer's step (``make_train_step``) at yi-9b's full
+    width, returns launches by kernel.  6 steps under chunked attention
+    (no kernel of the port runs: the counts must stay 0), bf16, remat on,
+    AdamW + cosine; 2 QAT steps under luna_approx (every projection
+    through the STE on luna_mm: 7 x layers x 2 launches a step, forward
+    and remat recompute); then ``flash_eval`` on the trained params."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS,
+                  attn_impl="chunked")
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)).requires_grad_(True)
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(2, TRAIN_STEPS + QAT_STEPS))
+    state = opt.init(model.params_tree())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"train_model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params_b": n_params / 1e9, "remat": cfg.remat,
+          "init_s": time.perf_counter() - t0})
+    watch = {"embed": model.embed, "wq0": model.blocks[0].attn.wq,
+             "w_down_last": model.blocks[-1].mlp.w_down}
+    before = {k: v.detach()[:8, :8].float().clone() for k, v in watch.items()}
+    wrappers = kernel_wrappers()
+    launches = {}
+
+    def run(what, n, step_fn, m, data, want, profile_last=False):
+        """n steps with every count set to 0 just before, read after."""
+        batches = [data.batch(i, dev) for i in range(n)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in wrappers.values():
+            f.launches = 0
+        steps, prof = [], None
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            if profile_last and i == n - 1:
+                metrics, prof = profile_train_step(step_fn, m, state, batch)
+            else:
+                metrics = step_fn(m, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+            check(math.isfinite(loss) and math.isfinite(gn),
+                  f"{what} step {i}: loss {loss}, grad_norm {gn}")
+            tokens = batch["tokens"].numel()
+            steps.append({"step": int(state.step), "wall_s": wall,
+                          "tok_s": tokens / wall, "loss": loss,
+                          "grad_norm": gn, "profiled": prof is not None
+                          and i == n - 1})
+        counts = {name: f.launches for name, f in wrappers.items()}
+        check(counts == want, f"{what}: launches {counts}, want {want}")
+        add_launches(launches, counts)
+        steady = [r["wall_s"] for r in steps[1:] if not r["profiled"]]
+        emit({"train": what, "batch": list(batches[0]["tokens"].shape),
+              "steps": steps, "launches": counts,
+              "steady_step_s": min(steady) if steady else None,
+              "steady_tok_s": (batches[0]["tokens"].numel() / min(steady)
+                               if steady else None),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **({"profile": prof} if prof else {})})
+
+    zero = dict.fromkeys(wrappers, 0)
+    run("bf16, chunked attention", TRAIN_STEPS, make_train_step(cfg, opt),
+        model, SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0), zero,
+        profile_last=True)
+    qcfg = replace(cfg, quant=QuantConfig(mode="luna_approx"))
+    qmodel = type(model).from_params(qcfg, model.params_tree(),
+                                     device=dev).requires_grad_(True)
+    run("QAT luna_approx (STE on luna_mm)", QAT_STEPS,
+        make_train_step(qcfg, opt), qmodel,
+        SyntheticLM(cfg.vocab_size, QAT_S, TRAIN_B, seed=0),
+        zero | {"luna_mm": QAT_STEPS * PROJECTIONS["dense"]
+                * cfg.num_layers * 2})
+    del qmodel
+    changed = {k: not torch.equal(before[k], v.detach()[:8, :8].float())
+               for k, v in watch.items()}
+    check(all(changed.values()), f"params did not change: {changed}")
+
+    launches_eval = flash_eval(dev, cfg, model, wrappers)
+    add_launches(launches, launches_eval)
+    emit({"train_params_changed": changed})
+    del model, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_controls(kernel) -> dict:
+    """Wrong attention put in the flash kernel's place, to show what
+    ``flash_eval``'s check can tell: the output zeroed, and the kernel's
+    output with its last 64 query rows recomputed without the last 64-row
+    KV tile (a fault only late rows see)."""
+    import torch
+
+    def zeros(q, k, v, **kw):
+        return torch.zeros_like(q)
+
+    def drop_last_kv_tile(q, k, v, *, sm_scale, causal, num_q_heads,
+                          num_kv_heads):
+        out = kernel(q, k, v, sm_scale=sm_scale, causal=causal,
+                     num_q_heads=num_q_heads, num_kv_heads=num_kv_heads)
+        t = q.shape[1] - 64
+        g = num_q_heads // num_kv_heads
+        kk = k[:, :t].repeat_interleave(g, 0).float()
+        vv = v[:, :t].repeat_interleave(g, 0).float()
+        p = torch.softmax(q[:, t:].float() @ kk.transpose(1, 2) * sm_scale,
+                          dim=-1)
+        out[:, t:] = (p @ vv).to(out.dtype)
+        return out
+
+    return {"zeros": zeros, "last KV tile dropped": drop_last_kv_tile}
+
+
+def flash_eval(dev, cfg, model, wrappers) -> dict:
+    """The eval loss of a held-out batch under attn_impl="flash" (one
+    flash launch per layer per call, counted) against the chunked loss of
+    the same params (FLASH_LOSS_TOL); then every attention call of the
+    same eval (loss and forward, each layer) on its own inputs against
+    ``attention_ref`` on them, at the kernel's stated tolerance.  Each of
+    ``flash_controls`` in the kernel's place must fail one of the two.
+    Returns the flash run's launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    held = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=1).batch(0, dev)
+    fmodel = type(model).from_params(replace(cfg, attn_impl="flash"),
+                                     model.params_tree(), device=dev)
+
+    def evaluate(m):
+        with torch.no_grad():
+            loss, _ = m.loss(held)
+            hidden, _ = m.forward(held["tokens"])
+        return float(loss), hidden.float()
+
+    runs, evals = {}, {}
+    for name, m in (("chunked", model), ("flash", fmodel)):
+        evaluate(m)                                    # warm-up
+        torch.cuda.synchronize()
+        for f in wrappers.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        runs[name] = evaluate(m)
+        torch.cuda.synchronize()
+        evals[name] = {"loss": runs[name][0],
+                       "wall_s": time.perf_counter() - t0,
+                       "launches": {k: f.launches
+                                    for k, f in wrappers.items()}}
+    zero = dict.fromkeys(wrappers, 0)
+    want = zero | {"flash_attention": 2 * cfg.num_layers}
+    check(evals["flash"]["launches"] == want,
+          f"flash eval launches {evals['flash']['launches']}, want {want}")
+    check(evals["chunked"]["launches"] == zero,
+          f"chunked eval launched {evals['chunked']['launches']}")
+
+    def held_to_plain(fn, shares):
+        """``fn`` in the kernel's place; each call's worst |out - plain| /
+        (atol + rtol |plain|) at the kernel's tolerance into ``shares``
+        (above 1 fails it)."""
+        def call(q, k, v, **kw):
+            out = fn(q, k, v, **kw)
+            plain = attention_ref(q.float(), k.float(), v.float(), **kw)
+            tol = fk.tolerance(q.dtype)
+            shares.append(((out.float() - plain).abs()
+                           / (tol["atol"] + tol["rtol"] * plain.abs()))
+                          .max().item())
+            return out
+        return call
+
+    kernel = fops.flash_attention
+    controls = flash_controls(kernel)
+    loss_c, h_c = runs.pop("chunked")
+    readings = {}
+    for name, fn in {"flash": kernel, **controls}.items():
+        shares = []
+        fops.flash_attention = held_to_plain(fn, shares)
+        try:
+            loss, h = evaluate(fmodel)
+        finally:
+            fops.flash_attention = kernel
+        readings[name] = {
+            "loss": loss, "loss_vs_chunked": abs(loss - loss_c),
+            "calls": len(shares), "worst_call_tol_share": max(shares),
+            "hidden_vs_chunked": ((h - h_c).abs().max()
+                                  / h_c.abs().max()).item()}
+    check(readings["flash"]["loss"] == evals["flash"]["loss"],
+          "the flash eval's loss differs between two runs")
+    emit({"train_eval": "held-out batch (seed 1), no grad; each attention "
+                        "call against attention_ref on its inputs, as a "
+                        "share of the kernel's tolerance; hidden errors as "
+                        "a share of max |chunked hidden|", "evals": evals,
+          "readings": readings, "loss_tol": FLASH_LOSS_TOL})
+
+    def passes(r):
+        return (math.isfinite(r["loss"])
+                and r["loss_vs_chunked"] <= FLASH_LOSS_TOL
+                and r["worst_call_tol_share"] <= 1.0)
+    check(passes(readings["flash"]), f"flash eval: {readings['flash']}")
+    for name in controls:
+        check(not passes(readings[name]),
+              f"control {name!r} in the kernel's place passes the eval "
+              f"check: {readings[name]}")
+    del fmodel
+    return evals["flash"]["launches"]
+
+
+def trainer_phase(dev) -> None:
+    """Phase 8b: the Trainer on luna-mlp (bf16, its config as is) on the
+    card: 12 steps with checkpoints every 5 into a temporary directory,
+    then a rerun to 20 resumes from step 12 and trains 8 more."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("luna-mlp")
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as ckpt:
+        for total in (12, 20):
+            tcfg = TrainerConfig(total_steps=total, ckpt_every=5,
+                                 log_every=5, ckpt_dir=ckpt, lr=3e-3,
+                                 warmup=2)
+            trainer = Trainer(cfg, tcfg, device=dev)
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                _, hist = trainer.run(SyntheticLM(cfg.vocab_size, 32, 8,
+                                                  seed=0))
+            out[total] = {"steps": len(hist), "loss": hist,
+                          "wall_s": time.perf_counter() - t0,
+                          "checkpoints": trainer.ckpt.steps(),
+                          "resumed": "resumed from step 12" in log.getvalue()}
+    check(out[12]["steps"] == 12 and not out[12]["resumed"]
+          and out[12]["checkpoints"] == [5, 10, 12],
+          f"first trainer run: {out[12]}")
+    check(out[20]["steps"] == 8 and out[20]["resumed"]
+          and out[20]["checkpoints"] == [12, 15, 20],
+          f"resumed trainer run: {out[20]}")
+    check(all(math.isfinite(x) for r in out.values() for x in r["loss"]),
+          "non-finite trainer loss")
+    emit({"trainer": cfg.name, "dtype": cfg.dtype, "runs": out})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
@@ -988,11 +1476,17 @@ def main() -> int:
     kernels.update(luna_kernel_phase(dev))
     kernels.update(lut_full_kernel_phase(dev))
     kernels.update(ssd_kernel_phase(dev))
+    kernels.update(flash_kernel_phase(dev))
     small_reference_phase(dev)
     small_ssm_reference_phase(dev)
+    small_training_phase(dev)
     quant_matmul_phase(dev)
     launches = main_path_phase(dev, *build_model(dev, args.layers))
     add_launches(launches, ssm_main_path_phase(dev, *build_ssm_model(dev)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_launches(launches, train_phase(dev))
+    trainer_phase(dev)
     check(set(launches) == set(kernels),
           f"kernels launched on the main path {sorted(launches)} are not "
           f"the kernels checked {sorted(kernels)}")

@@ -4,6 +4,9 @@ numpy by the caller, into the port's modules.  Imports no jax.
 * Stacked ``(L, ...)`` block leaves are split per layer.
 * A ``QuantizedWeight`` arrives as a dict of its numpy children plus its
   ``kernel`` string and becomes the port's ``QuantizedWeight``.
+* Every dense config crosses, ``luna-mlp`` (GELU, MHA 4/4) included;
+  trained (grad-requiring) parameters go back through
+  :func:`params_to_numpy`.
 * Float leaves cross with their dtype unchanged; a bfloat16 array
   (numpy's ``ml_dtypes`` bfloat16) crosses through float32, which is
   exact.
@@ -59,7 +62,8 @@ def _split_layers(node, n: int) -> list:
 def params_from_numpy(tree: dict, cfg, device=None):
     """Build the port's LM of ``cfg``'s family (``TransformerLM`` for
     dense, ``SSMLM`` for ssm) over a numpy copy of the JAX tree
-    (``model.init`` output or its frozen decode tree)."""
+    (``model.init`` output or its frozen decode tree).  Its float leaves
+    are frozen; ``.requires_grad_()`` makes them trainable."""
     from repro_torch.models.registry import model_class
     device = resolve_device(device)
     params = {k: _leaf(v, device) for k, v in tree.items() if k != "blocks"}

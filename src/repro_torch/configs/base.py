@@ -41,8 +41,12 @@ class ModelConfig:
     tie_embeddings: bool = False
     ssm: SSMConfig | None = None
     quant: QuantConfig = field(default_factory=QuantConfig)  # model-level
-    attn_impl: str = "chunked"   # full | chunked
+    attn_impl: str = "chunked"   # full | chunked | flash (forward-only)
     attn_chunk: int = 512
+    remat: bool = True           # recompute each block in the backward
+    # "nothing" (full recompute, min memory); "dots" (save matmul outputs)
+    # is ROADMAP queue 1 item 8
+    remat_policy: str = "nothing"
 
     @property
     def resolved_head_dim(self) -> int:

@@ -21,8 +21,14 @@ which the port drops): on CUDA tensors the ``luna_*`` modes run the
 hand-written LUNA GEMM (``kernels.luna_mm``) and ``lut_nf4`` the full-table
 LUT GEMM (``kernels.lut_gemm``, scale applied after the product as in the
 Pallas kernel); on CPU tensors every mode is JAX's library path, operation
-for operation, so the CPU port emits the JAX engine's tokens.  The STE
-wrapper for training (``ste_luna_matmul``) is ROADMAP queue 1 item 8.
+for operation, so the CPU port emits the JAX engine's tokens.
+
+Training: the ``luna_*`` modes run through ``ste_luna_matmul`` (JAX's
+route when ``use_pallas`` is off), whose forward is the same kernel or
+library path and whose backward is the plain product's.  Under autograd
+``int8``, ``int4_dequant`` and ``lut_nf4`` raise: their integer casts
+would cut the graph and drop the weights' gradients silently (ROADMAP
+queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch
 from repro_torch.core import lut
 from repro_torch.core.luna import LunaMode
 from repro_torch.core.quant import (QuantizedWeight, calibrate, dequantize,
-                                    luna_matmul_f32, nf4_encode, quantize)
+                                    nf4_encode, quantize, ste_luna_matmul)
 
 LUNA_MODE_OF = {
     "luna_conventional": LunaMode.CONVENTIONAL,
@@ -118,22 +124,24 @@ def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
         return lut_ops.quantized_matmul(x, w)
     if cfg is None or not cfg.applies(group):
         return x @ w
-    cuda = x.device.type == "cuda"
+    if cfg.mode in LUNA_MODE_OF:
+        # without autograd this is the plain forward: the kernel on CUDA
+        # tensors, the library path on CPU ones
+        return ste_luna_matmul(x.float(), w.float(),
+                               LUNA_MODE_OF[cfg.mode].value,
+                               cfg.bits).to(x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            f"quant mode {cfg.mode!r} has no gradient in the port yet (only "
+            "the luna_* modes train, through ste_luna_matmul): ROADMAP "
+            "queue 1 item 8")
     if cfg.mode == "int8":
         return _int8_matmul(x, w).to(x.dtype)
     if cfg.mode == "int4_dequant":
         return _int4_dequant_matmul(x, w)
-    if cfg.mode == "lut_nf4":
-        if cuda:
-            from repro_torch.kernels.lut_gemm import ops as lut_ops
-            out = lut_ops.nf4_matmul_kernel(
-                x.reshape(-1, x.shape[-1]).contiguous(), w)
-            return out.reshape(*x.shape[:-1], -1).to(x.dtype)
-        return _nf4_matmul(x, w)
-    mode = LUNA_MODE_OF[cfg.mode]
-    if cuda:
-        from repro_torch.kernels.luna_mm import ops as luna_ops
-        return luna_ops.luna_matmul_f32_kernel(
-            x.float(), w.float(), mode=mode.value, bits=cfg.bits).to(x.dtype)
-    return luna_matmul_f32(x.float(), w.float(), mode.value,
-                           cfg.bits).to(x.dtype)
+    if x.device.type == "cuda":                      # lut_nf4
+        from repro_torch.kernels.lut_gemm import ops as lut_ops
+        out = lut_ops.nf4_matmul_kernel(
+            x.reshape(-1, x.shape[-1]).contiguous(), w)
+        return out.reshape(*x.shape[:-1], -1).to(x.dtype)
+    return _nf4_matmul(x, w)

@@ -1,6 +1,6 @@
-"""Affine quantizers, the real-valued LUNA matmul and the frozen 4-bit
-decode weights (mirrors ``repro.core.quant``; the STE wrapper for training
-is ROADMAP queue 1 item 8).
+"""Affine quantizers, the real-valued LUNA matmul, its straight-through
+estimator for training and the frozen 4-bit decode weights (mirrors
+``repro.core.quant``).
 
 Real tensors map to unsigned codes with asymmetric affine quantization,
 ``x ~= s * (q - z)``, ``q in [0, 2**bits)``, and the integer-GEMM identity
@@ -107,6 +107,36 @@ def luna_matmul_f32(x: torch.Tensor, w: torch.Tensor, mode: LunaMode | str,
     qw = quantize(w, w_qp)
     acc = luna_matmul(qx, qw, bits=bits, mode=mode)
     return luna_epilogue(acc, qx, qw, x_qp, w_qp)
+
+
+class _SteLunaMatmul(torch.autograd.Function):
+    """Forward: the exact LUNA integer path; backward: the plain product's
+    gradients (JAX's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mode, bits):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cuda":
+            from repro_torch.kernels.luna_mm import ops as luna_ops
+            return luna_ops.luna_matmul_f32_kernel(
+                x, w, mode=LunaMode(mode).value, bits=bits)
+        return luna_matmul_f32(x, w, mode, bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = torch.einsum("...n,kn->...k", g, w)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx.to(x.dtype), gw.to(w.dtype), None, None
+
+
+def ste_luna_matmul(x: torch.Tensor, w: torch.Tensor, mode: LunaMode | str,
+                    bits: int = 4) -> torch.Tensor:
+    """QAT matmul: the forward is :func:`luna_matmul_f32` (on CUDA tensors
+    the ``luna_mm`` kernel's route), the backward pretends it was
+    ``x @ w``: ``gx = g wᵀ``, ``gw = xᵀ g``.  ``x``: (..., K) f32, ``w``:
+    (K, N) f32."""
+    return _SteLunaMatmul.apply(x, w, mode, bits)
 
 
 #: evaluation strategies for a frozen 4-bit weight: "lut_dc" sums the two

@@ -1,0 +1,80 @@
+"""Training CLI of the port (mirrors ``repro.launch.train``).
+
+  # reduced yi-9b (the default), on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
+
+  # the paper's QAT path: every projection through ste_luna_matmul
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 5 --quant luna_approx
+
+  # on the card (the default device):
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 100
+
+``--reduced`` (the default) trains the smoke-test widths; ``--no-reduced``
+the published ones.  ``--arch`` is ``yi-9b`` or ``luna-mlp`` (the paper's
+Fig 13 network).  ``--quant`` takes the model-level modes that train:
+``bf16`` and ``luna_*``.  Checkpoints go to ``--ckpt-dir`` and a rerun
+resumes from the latest.  The mesh flags of the JAX CLI
+(``--model-parallel``, ``--host-devices``, ``--distributed``) and
+``--grad-compression`` raise: ROADMAP queue 1 item 9.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True, help="smoke-test widths (--no-reduced: "
+                                       "the published widths)")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU (default: the card)")
+    ap.add_argument("--quant", default="bf16")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="default: TrainerConfig's, $TMPDIR/repro_torch_ckpt")
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--host-devices", type=int, default=0)
+    ap.add_argument("--distributed", action="store_true")
+    args = ap.parse_args(argv)
+
+    if (args.model_parallel > 1 or args.host_devices or args.distributed
+            or args.grad_compression):
+        raise NotImplementedError(
+            "meshes, multi-host runs and gradient compression are not "
+            "ported yet: ROADMAP queue 1 item 9")
+
+    from dataclasses import replace
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.device import resolve_device
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.quant != "bf16":
+        cfg = replace(cfg, quant=QuantConfig(mode=args.quant))
+    tcfg = TrainerConfig(total_steps=args.steps, microbatch=args.microbatch)
+    if args.ckpt_dir:
+        tcfg.ckpt_dir = args.ckpt_dir
+    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
+    _, history = Trainer(cfg, tcfg, device=device).run(data)
+    if history:
+        print(f"{cfg.name} x{cfg.num_layers} layers on {device}, quant "
+              f"{args.quant}: {len(history)} steps, loss {history[0]:.4f} "
+              f"-> {history[-1]:.4f}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

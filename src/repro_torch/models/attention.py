@@ -6,9 +6,11 @@ functional updates, the cache writes here are IN PLACE (``index_put_`` /
 slice assignment) and the returned cache holds the same tensors.
 
 Ported: the ``full`` and ``chunked`` SDPA impls with f32 operands (JAX's
-default ``attn_f32=True``), the scalar-index and per-row cache writes.
+default ``attn_f32=True``), ``flash`` (the hand-written kernel of
+``kernels.flash_attention``, taken under JAX's condition: a cacheless
+full-sequence forward), the scalar-index and per-row cache writes.
 Paged tables, sharded decode and ``n_valid`` verify windows are ROADMAP
-queue 1 item 6 (and the flash kernel queue 2 kernel 3).
+queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.layers import quant_matmul
+from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.common import apply_rope, set_leaf
 
 
@@ -69,14 +72,15 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) -> (B, Sq, H, Dh).
 
     KV heads are repeated up to H (head h reads kv head h // group), and
-    scores, softmax and the P@V product run on f32 copies.
+    scores, softmax and the P@V product run on f32 copies.  ``impl="flash"``
+    takes the flash kernel (forward-only) for a cacheless forward of more
+    than one token, as JAX does; with a cache it runs the full path.
     """
     b, sq, h, dh = q.shape
     g = h // k.shape[2]
     if impl == "flash" and sq > 1 and kv_len is None:
-        raise NotImplementedError(
-            "the flash-attention kernel is not ported yet: ROADMAP queue 2 "
-            "kernel 3")
+        return mha(q, k, v, sm_scale=float(1.0 / dh ** 0.5), causal=causal,
+                   use_flash=True)
     if impl not in ("full", "chunked", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))

@@ -5,6 +5,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -31,12 +32,31 @@ TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def set_leaf(module: nn.Module, name: str, value) -> None:
     """A float tensor becomes a (frozen) parameter sharing its storage; a
-    ``QuantizedWeight`` stays a plain attribute."""
+    ``QuantizedWeight`` stays a plain attribute.  ``model.requires_grad_()``
+    makes every float leaf trainable."""
     if isinstance(value, torch.Tensor):
         module.register_parameter(name, nn.Parameter(value,
                                                      requires_grad=False))
     else:
         setattr(module, name, value)
+
+
+def remat_of(cfg, fn):
+    """``fn`` recomputed in the backward instead of saving its activations
+    (JAX wraps each block in ``jax.checkpoint`` under ``remat_policy_of``):
+    ``torch.utils.checkpoint`` without reentrancy; only the block's inputs
+    stay alive between forward and backward.  Policy ``"nothing"`` saves
+    nothing inside the block; ``"dots"`` (save the matmul outputs) is
+    ROADMAP queue 1 item 8."""
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' is not ported yet: ROADMAP queue 1 item 8")
+    if cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+
+    def recomputed(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return recomputed
 
 
 def dtype_of(cfg) -> torch.dtype:

@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` -> config, model.
 
-Ported: ``yi-9b`` (the dense GQA family) and ``mamba2-1.3b`` (ssm).  Every
-other arch of the JAX registry raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+Ported: ``yi-9b`` (the dense GQA family), ``mamba2-1.3b`` (ssm) and
+``luna-mlp`` (the paper's Fig 13 network, dense; trained, not served, and
+left out of ``ARCH_IDS`` as in JAX).  Every other arch of the JAX
+registry raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 ARCH_MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
+    "luna-mlp": "repro_torch.configs.luna_mlp",
 }
 
 #: archs of the JAX registry still to be ported -> the ROADMAP item
@@ -26,10 +29,9 @@ UNPORTED_ARCHS = {
     "whisper-base": "queue 1 item 7 (encdec)",
     "zamba2-1.2b": "queue 1 item 7 (hybrid)",
     "llava-next-mistral-7b": "queue 1 item 7 (vlm)",
-    "luna-mlp": "queue 1 item 8 (training: examples/fig13_nn_accuracy.py)",
 }
 
-ARCH_IDS = list(ARCH_MODULES)
+ARCH_IDS = [a for a in ARCH_MODULES if a != "luna-mlp"]
 
 
 def get_config(arch: str, **overrides) -> ModelConfig:

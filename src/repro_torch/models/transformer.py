@@ -10,19 +10,26 @@ stacked axis (``{"embed", "ln_f", "lm_head", "blocks": [{"ln1", "ln2",
 from_params` builds a model over such a tree without copying, which is how
 the engine's frozen 4-bit decode model shares every other tensor with the
 full-precision one.
+
+Training: ``forward(..., training=True)`` recomputes each block in the
+backward (``cfg.remat``, JAX's ``jax.checkpoint``), and :meth:`loss` is
+JAX's sequence-chunked cross entropy (:func:`chunked_xent`), which never
+holds (S, V) logits for S > 256.  ``model.requires_grad_()`` makes the
+float leaves trainable (they are frozen parameters by default).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layers import quant_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import GQAAttention, KVCache, gqa_shapes
 from repro_torch.models.common import (CacheSpec, dense_init, dtype_of,
-                                       embed_init, gather_last, rms_norm,
-                                       set_leaf, token_positions)
+                                       embed_init, gather_last, remat_of,
+                                       rms_norm, set_leaf, token_positions)
 from repro_torch.models.mlp import MLP, mlp_shapes
 
 
@@ -118,13 +125,17 @@ class TransformerLM(nn.Module):
         return self
 
     # ---------------- forward ----------------
-    def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0):
-        """Returns (hidden (B, S, D), caches)."""
+    def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
+                training: bool = False):
+        """Returns (hidden (B, S, D), caches).  ``training`` with
+        ``cfg.remat`` recomputes each block in the backward."""
         x = F.embedding(tokens, self.embed)
         positions = token_positions(tokens.shape[1], cache_index, x.device)
         new_caches = [] if caches is not None else None
+        remat = training and self.cfg.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x, c = blk(x, positions=positions,
+            run = remat_of(self.cfg, blk) if remat else blk
+            x, c = run(x, positions=positions,
                        cache=caches[i] if caches is not None else None,
                        cache_index=cache_index)
             if caches is not None:
@@ -132,8 +143,21 @@ class TransformerLM(nn.Module):
         return rms_norm(x, self.ln_f, self.cfg.norm_eps), new_caches
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return quant_matmul(hidden, head, None)
+        return quant_matmul(hidden, self._head(), None)
+
+    def _head(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    # ---------------- training ----------------
+    def loss(self, batch: dict):
+        """batch: tokens (B, S), labels (B, S)[, loss_mask (B, S)].
+        Returns (xent + aux, {"xent", "aux"}); aux is 0 for the dense
+        family."""
+        hidden, _ = self.forward(batch["tokens"], training=True)
+        xent = chunked_xent(hidden, self._head(), batch["labels"],
+                            batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+        return xent + aux, {"xent": xent, "aux": aux}
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, s_max: int, *,
@@ -163,3 +187,49 @@ class TransformerLM(nn.Module):
         projection runs the LUT GEMM of its ``QuantizedWeight``."""
         hidden, caches = self.forward(token, caches=state, cache_index=index)
         return self.logits(hidden), caches
+
+
+def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor | None = None,
+                 chunk: int = 256) -> torch.Tensor:
+    """Sequence-chunked cross entropy (JAX's ``chunked_xent``): the
+    logits of one ``chunk`` of positions at a time, summed in order.
+    Under autograd each chunk is recomputed in the backward, so (S, V)
+    logits are never held for S > ``chunk``."""
+    b, s, _ = hidden.shape
+    if s <= chunk:
+        return _xent((hidden @ head).float(), labels, mask)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+
+    def piece(h, lab, m):
+        logits = (h @ head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return ((logz - gold) * m).sum(), m.sum()
+
+    run = piece
+    if torch.is_grad_enabled() and (hidden.requires_grad
+                                    or head.requires_grad):
+        def run(*xs):
+            return checkpoint(piece, *xs, use_reentrant=False)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        t, c = run(hidden[:, i:i + chunk], labels[:, i:i + chunk],
+                   mask[:, i:i + chunk])
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          mask: torch.Tensor | None = None) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -1,0 +1,128 @@
+"""Reduced f32 yi-9b training on the card against the same on the CPU.
+
+``chip_smoke.py`` (phase 4) and ``tests/test_torch_cuda.py`` both run
+these checks.  Each raises ``AssertionError`` past its tolerance and
+returns what it measured.  Nothing here is bitwise: the embedding's
+backward sums with atomics on the card, and cuBLAS and the CPU sum f32
+products in other orders.
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+
+import torch
+
+from repro_torch.core.layers import QuantConfig
+from repro_torch.core.quant import ste_luna_matmul
+from repro_torch.models.registry import get_config, get_model
+from repro_torch.optim.adamw import AdamW
+from repro_torch.train.train_step import make_train_step
+from repro_torch.tree import leaves, tree_map
+
+#: rtol = atol of hidden states, losses and one train step's params
+TOL = 1e-4
+#: gradients under chunked attention, as a share of each leaf's max |grad|
+GRAD_REL = 1e-4
+#: the same under luna_approx.  The STE's forward is piecewise constant:
+#: an activation within f32 rounding of a code boundary takes the next
+#: code on one device and not on the other, moving that row's output by a
+#: quantization step.  ``chip_smoke.py`` phase 4 prints the effect beside
+#: the same effect of 1e-7 relative weight noise on the CPU alone.
+LUNA_GRAD_REL = 1e-3
+#: the STE alone on identical inputs, forward and gradients, as a share of
+#: each tensor's max |cpu value| (at least 1): f32 sums of 128-512
+#: products in another order
+STE_REL = 1e-5
+
+
+def reduced_setup():
+    """(cfg, f32 model on the CPU from seed 1, batch of B = 2, S = 256)."""
+    cfg = get_config("yi-9b").reduced(dtype="float32", attn_chunk=128)
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 257),
+                         generator=torch.Generator().manual_seed(2))
+    return cfg, cpu, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def model_pair(cpu, cfg, dev):
+    """``cpu``'s weights under ``cfg`` on the CPU and on ``dev``, both
+    trainable."""
+    a = type(cpu).from_params(cfg, cpu.params_tree(), device="cpu")
+    b = type(cpu).from_params(
+        cfg, tree_map(lambda t: t.to(dev), cpu.params_tree()), device=dev)
+    return a.requires_grad_(True), b.requires_grad_(True)
+
+
+def scaled_grad_err(a, b) -> float:
+    """max over leaves of max|b's grad - a's grad| / max|a's grad|."""
+    worst = 0.0
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        scale = max(pa.grad.abs().max().item(), 1e-30)
+        worst = max(worst, (pb.grad.cpu() - pa.grad).abs().max().item()
+                    / scale)
+    return worst
+
+
+def ste_card_vs_cpu(dev) -> float:
+    """``ste_luna_matmul`` (approx_dc) on identical f32 inputs, forward
+    (the luna_mm kernel's route on the card) and the straight-through
+    gradients; returns the largest error as a share of its tensor's
+    scale, held to ``STE_REL``."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 256, 128), generator=gen)
+    w = torch.randn((128, 384), generator=gen) / 12
+    g = torch.randn((2, 256, 384), generator=gen)
+    outs = []
+    for d in ("cpu", dev):
+        xd = x.to(d, copy=True).requires_grad_()
+        wd = w.to(d, copy=True).requires_grad_()
+        y = ste_luna_matmul(xd, wd, "approx_dc")
+        y.backward(g.to(d))
+        outs.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    err = max((tb - ta).abs().max().item() / max(1.0, ta.abs().max().item())
+              for ta, tb in zip(*outs))
+    assert err <= STE_REL, f"ste_luna_matmul card vs cpu: {err} of scale"
+    return err
+
+
+def training_card_vs_cpu(dev) -> dict:
+    """The cacheless forward under attn_impl="flash" (hidden states), the
+    loss and every gradient under chunked attention (``GRAD_REL``) and
+    under luna_approx through the STE on luna_mm (``LUNA_GRAD_REL``), and
+    one train step's params; returns each check's largest error."""
+    cfg, cpu, batch = reduced_setup()
+    gbatch = {k: t.to(dev) for k, t in batch.items()}
+    out = {}
+    a, b = model_pair(cpu, replace(cfg, attn_impl="flash"), dev)
+    with torch.no_grad():
+        ha, _ = a.forward(batch["tokens"])
+        hb, _ = b.forward(gbatch["tokens"])
+    torch.testing.assert_close(hb.cpu(), ha, rtol=TOL, atol=TOL)
+    out["flash forward hidden"] = (hb.cpu() - ha).abs().max().item()
+    for name, c, rel in (
+            ("chunked", cfg, GRAD_REL),
+            ("luna_approx", replace(cfg, quant=QuantConfig(
+                mode="luna_approx")), LUNA_GRAD_REL)):
+        a, b = model_pair(cpu, c, dev)
+        la, _ = a.loss(batch)
+        lb, _ = b.loss(gbatch)
+        la.backward()
+        lb.backward()
+        torch.testing.assert_close(lb.detach().cpu(), la.detach(),
+                                   rtol=TOL, atol=TOL)
+        err = scaled_grad_err(a, b)
+        assert err <= rel, (f"{name}: gradients differ by {err} of their "
+                            f"leaf's scale (> {rel})")
+        out[f"{name} loss"] = abs(lb.item() - la.item())
+        out[f"{name} grads (scaled)"] = err
+    a, b = model_pair(cpu, cfg, dev)
+    for m, batch_d in ((a, batch), (b, gbatch)):
+        opt = AdamW(lr=1e-3)
+        make_train_step(cfg, opt)(m, opt.init(m.params_tree()), batch_d)
+    err = 0.0
+    for pa, pb in zip(leaves(a.params_tree()), leaves(b.params_tree())):
+        torch.testing.assert_close(pb.detach().cpu(), pa.detach(),
+                                   rtol=TOL, atol=TOL)
+        err = max(err, (pb.detach().cpu() - pa.detach()).abs().max().item())
+    out["train_step params"] = err
+    return out

@@ -1,0 +1,133 @@
+"""Fault-tolerant training loop (mirrors ``repro.train.trainer``):
+checkpoint/restart, preemption handling, straggler detection.
+
+* resume from the latest complete checkpoint on (re)start, printing
+  ``[trainer] resumed from step N``;
+* SIGTERM/SIGINT -> finish the step, checkpoint synchronously, exit the
+  loop (the previous handlers come back when ``run`` returns);
+* a per-step wall-time watchdog with an EMA outlier test (the straggler
+  signal; here it logs and counts events);
+* a deterministic data stream keyed by step, so a restart replays nothing.
+
+``Trainer(cfg, tcfg, device=None)`` takes the place of JAX's ``mesh``:
+one device, the card unless ``device="cpu"``.  Weights start random from
+``torch.Generator(device).manual_seed(tcfg.seed)``; JAX's PRNG stream is
+not reproduced (parity with JAX goes through ``repro_torch.bridge``).
+"""
+from __future__ import annotations
+
+import os
+import signal
+import tempfile
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.checkpoint.ckpt import Checkpointer
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.models.registry import get_model
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.train.train_step import make_train_step
+
+
+def default_ckpt_dir() -> str:
+    """``$TMPDIR/repro_torch_ckpt`` (``/tmp`` without ``$TMPDIR``): the
+    port's own, so that it never resumes from a JAX run's checkpoints."""
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+@dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: str = field(default_factory=default_ckpt_dir)
+    log_every: int = 10
+    lr: float = 3e-4
+    warmup: int = 10
+    straggler_factor: float = 3.0   # step > factor * EMA -> straggler event
+    microbatch: int = 0
+    grad_compression: bool = False
+    seed: int = 0
+
+
+class Trainer:
+    def __init__(self, cfg, tcfg: TrainerConfig, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {cfg.family!r} family is not ported yet: "
+                "ROADMAP queue 1 item 8")
+        self.cfg, self.tcfg = cfg, tcfg
+        self.device = resolve_device(device)
+        self.opt = AdamW(lr=tcfg.lr,
+                         schedule=cosine_schedule(tcfg.warmup,
+                                                  tcfg.total_steps))
+        self.ckpt = Checkpointer(tcfg.ckpt_dir)
+        self._stop = False
+        self.straggler_events: list[int] = []
+
+    def _install_signals(self) -> dict:
+        def handler(signum, frame):
+            self._stop = True      # finish current step, checkpoint, exit
+        return {sig: signal.signal(sig, handler)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    def run(self, data: SyntheticLM, *, install_signals: bool = True):
+        """Train to ``tcfg.total_steps``; returns (model, loss history of
+        the steps this run took)."""
+        previous = self._install_signals() if install_signals else {}
+        try:
+            return self._run(data)
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, h)
+
+    def _run(self, data: SyntheticLM):
+        tcfg = self.tcfg
+        step_fn = make_train_step(self.cfg, self.opt,
+                                  microbatch=tcfg.microbatch,
+                                  grad_compression=tcfg.grad_compression)
+        model = get_model(self.cfg, device=self.device)
+        model.requires_grad_(True)
+        opt_state = self.opt.init(model.params_tree())
+        start = self.ckpt.latest_step()
+        if start is None:
+            model.init(torch.Generator(device=self.device)
+                       .manual_seed(tcfg.seed))
+            start = 0
+        else:
+            self.ckpt.restore(start, {"params": model.params_tree(),
+                                      "opt": opt_state})
+            print(f"[trainer] resumed from step {start}", flush=True)
+
+        ema = None
+        history = []
+        for step in range(start, tcfg.total_steps):
+            t0 = time.time()
+            batch = data.batch(step, self.device)
+            metrics = step_fn(model, opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            if ema is not None and dt > tcfg.straggler_factor * ema:
+                self.straggler_events.append(step)
+                print(f"[watchdog] step {step} took {dt:.2f}s "
+                      f"(EMA {ema:.2f}s) — straggler/retry signal",
+                      flush=True)
+            ema = dt if ema is None else 0.9 * ema + 0.1 * dt
+            history.append(loss)
+            if step % tcfg.log_every == 0:
+                print(f"[trainer] step {step} loss {loss:.4f} "
+                      f"({dt*1e3:.0f} ms)", flush=True)
+            done = step + 1
+            if (done % tcfg.ckpt_every == 0 or self._stop
+                    or done == tcfg.total_steps):
+                self.ckpt.save(done, {"params": model.params_tree(),
+                                      "opt": opt_state},
+                               blocking=self._stop)
+            if self._stop:
+                print(f"[trainer] preemption: checkpointed at {done}",
+                      flush=True)
+                break
+        self.ckpt.wait()
+        return model, history

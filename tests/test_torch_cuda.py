@@ -15,7 +15,13 @@ machine with the card and no JAX:
   the card) at the tolerance stated in ``kernels/ssd_scan/ssd_scan.py``:
   ragged S, chunks that are not powers of two, a mask off the chunk grid,
   a carried initial state, G = 2, P not a multiple of 32; and a reduced
-  f32 mamba2 prefill (through the kernel) against the CPU's (1e-4).
+  f32 mamba2 prefill (through the kernel) against the CPU's (1e-4);
+* ``flash_attention`` against ``attention_ref`` on the same input values
+  (2e-5 f32; bf16 half an output ulp past that; and JAX's 2e-2 against
+  the unrounded inputs) at JAX's test shapes, S off the 64-row tile and yi-9b's heads, causal and
+  not; and reduced f32 yi-9b training on the card against the CPU: the
+  flash forward, the loss and gradients (chunked, and luna_approx through
+  the STE on luna_mm) and one train step.
 """
 import numpy as np
 import pytest
@@ -25,6 +31,8 @@ from repro_torch.core import luna as tl
 from repro_torch.core import quant as tq
 from repro_torch.core.layers import QUANT_MODES, QuantConfig, quant_matmul
 from repro_torch.core.lut import NF4_CODEBOOK
+from repro_torch.kernels.flash_attention import flash_attention as fkern
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.luna_mm import luna_mm as lkern
 from repro_torch.kernels.luna_mm.ops import luna_mm_codes
 from repro_torch.kernels.luna_mm.ref import luna_mm_ref
@@ -169,3 +177,67 @@ def _tree_to(node, device):
     if isinstance(node, list):
         return [_tree_to(v, device) for v in node]
     return node.to(device)
+
+
+#: JAX's test_flash_vs_ref shapes, two off the 64-row tile, yi-9b's heads
+FLASH_CASES = [(1, 128, 2, 2, 16), (2, 256, 4, 2, 32), (1, 512, 8, 1, 64),
+               (1, 100, 2, 1, 32), (2, 200, 4, 4, 128), (1, 512, 32, 4, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hkv,d", FLASH_CASES)
+def test_flash_attention_matches_plain_on_card(dev, b, s, h, hkv, d,
+                                               causal):
+    """The kernel against ``attention_ref`` on the same input values in
+    f32, at the tolerance stated in
+    ``kernels/flash_attention/flash_attention.py`` (2e-5 for f32; for bf16
+    half an output ulp past that), bf16 also within JAX's 2e-2 of the
+    reference on the unrounded f32 inputs; one launch per call."""
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    q = torch.randn((b * h, s, d), generator=gen, device=dev)
+    k = torch.randn((b * hkv, s, d), generator=gen, device=dev)
+    v = torch.randn((b * hkv, s, d), generator=gen, device=dev)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, num_q_heads=h,
+              num_kv_heads=hkv)
+    want = attention_ref(q, k, v, **kw)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = fkern.flash_attention.launches
+        got = fkern.flash_attention(qd, kd, vd, **kw)
+        torch.cuda.synchronize()
+        assert fkern.flash_attention.launches == before + 1
+        assert got.dtype == dtype
+        plain = attention_ref(qd.float(), kd.float(), vd.float(), **kw)
+        torch.testing.assert_close(got.float(), plain,
+                                   **fkern.tolerance(dtype))
+        torch.testing.assert_close(got.float(), want,
+                                   rtol=fkern.BF16_TOL, atol=fkern.BF16_TOL)
+
+
+def test_flash_attention_refuses_on_card(dev):
+    q = torch.zeros((2, 128, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fkern.flash_attention(q, q, q, sm_scale=0.1, num_q_heads=2,
+                              num_kv_heads=2)
+    q = torch.zeros((2, 128, 32), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fkern.flash_attention(q, q.transpose(0, 1).contiguous()
+                              .transpose(0, 1), q, sm_scale=0.1,
+                              num_q_heads=2, num_kv_heads=2)
+
+
+def test_ste_card_matches_cpu(dev):
+    """ste_luna_matmul on identical f32 inputs: forward (the luna_mm
+    kernel's route) and the straight-through gradients within
+    ``card_vs_cpu.STE_REL`` of each tensor's max |cpu value|."""
+    from repro_torch.train.card_vs_cpu import ste_card_vs_cpu
+    ste_card_vs_cpu(dev)
+
+
+def test_training_card_matches_cpu(dev):
+    """Reduced f32 yi-9b (``repro_torch.train.card_vs_cpu``): the
+    cacheless forward under flash, the loss and every gradient under
+    chunked attention and under luna_approx through the STE on luna_mm,
+    and one train step's params, each at the tolerance stated there."""
+    from repro_torch.train.card_vs_cpu import training_card_vs_cpu
+    training_card_vs_cpu(dev)

@@ -2,7 +2,9 @@
 
 * With ``jax`` blocked, every ``repro_torch`` module (and ``chip_smoke``)
   imports, and no module of the JAX package ``repro`` gets loaded.
-* Without a GPU, every entry point raises unless given ``device="cpu"``.
+* Without a GPU, every entry point raises unless given ``device="cpu"``
+  (the training ones too: ``Trainer``, ``launch.train``, the data
+  stream's ``batch``).
 * What the slice does not port raises ``NotImplementedError`` naming the
   ROADMAP item that ports it.
 """
@@ -22,6 +24,7 @@ from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.engine import Engine
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,14 +42,22 @@ def test_every_module_imports_without_jax_or_repro():
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20      # the whole package walked
+    names = set(out.stdout.split())
+    assert len(names) >= 20                   # the whole package walked
+    assert {f"repro_torch.{m}" for m in (
+        "tree", "optim.adamw", "data.synthetic", "checkpoint.ckpt",
+        "train.train_step", "train.trainer", "train.card_vs_cpu",
+        "launch.train",
+        "configs.luna_mlp", "kernels.flash_attention.ref",
+        "kernels.flash_attention.flash_attention",
+        "kernels.flash_attention.ops")} <= names
 
 
 def _small_cfg():
@@ -72,6 +83,24 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     from repro_torch.launch.serve import main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--requests", "1"])
+
+
+def test_training_entry_points_refuse_the_cpu_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import main
+    cfg = get_config("luna-mlp")
+    tcfg = TrainerConfig(total_steps=1, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLM(cfg.vocab_size, 8, 2).batch(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, tcfg, device="cuda")
+    Trainer(cfg, tcfg, device="cpu")
 
 
 def test_ssm_entry_points_refuse_the_cpu_unless_asked():
@@ -112,12 +141,16 @@ def test_unported_parts_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         get_config("zamba2-1.2b")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        get_config("luna-mlp")
+        Trainer(get_config("mamba2-1.3b").reduced(), TrainerConfig(),
+                device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         CacheSpec(block_size=16, num_blocks=8)
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="queue 2 kernel 3"):
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
         sdpa(q, q, q, impl="flash")
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        train_main(["--device", "cpu", "--model-parallel", "2"])
     from dataclasses import replace
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         TransformerLM(replace(_small_cfg(), family="moe"), device="cpu")
