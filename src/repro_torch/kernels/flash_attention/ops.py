@@ -4,9 +4,10 @@ oracle.
 
 ``mha`` takes JAX's (B, S, H, D) layout, transposes and flattens to
 (B*H, S, D) as JAX does, and returns (B, S, H, D).  ``use_flash=True``
-sends CUDA tensors to the hand-written kernel and CPU tensors to
-``attention_ref`` (as JAX runs its Pallas kernel in interpret mode on the
-CPU); ``use_flash=False`` always takes ``attention_ref``.
+sends CUDA tensors to the hand-written kernels and CPU tensors to their
+plain version (as JAX runs its Pallas kernel in interpret mode on the
+CPU; see ``flash_attention.flash_attention``); ``use_flash=False`` always
+takes ``attention_ref``, JAX's oracle.
 """
 from __future__ import annotations
 

@@ -16,12 +16,15 @@ machine with the card and no JAX:
   ragged S, chunks that are not powers of two, a mask off the chunk grid,
   a carried initial state, G = 2, P not a multiple of 32; and a reduced
   f32 mamba2 prefill (through the kernel) against the CPU's (1e-4);
-* ``flash_attention`` against ``attention_ref`` on the same input values
-  (2e-5 f32; bf16 half an output ulp past that; and JAX's 2e-2 against
-  the unrounded inputs) at JAX's test shapes, S off the 64-row tile and yi-9b's heads, causal and
-  not; and reduced f32 yi-9b training on the card against the CPU: the
-  flash forward, the loss and gradients (chunked, and luna_approx through
-  the STE on luna_mm) and one train step.
+* ``flash_attention`` against its plain version on the same input values
+  (``flash_attention.reference``: the SIMT kernel, f32 and bf16 at D < 64,
+  against ``attention_ref``; the tensor-core kernel, bf16 at D in {64,
+  128}, against ``attention_ref_tiled``; and JAX's 2e-2 against the
+  unrounded inputs) at JAX's test shapes, S off the 64- and 128-row tiles
+  and yi-9b's heads, causal and not, with the launch counters; and
+  reduced f32 yi-9b training on the card against the CPU: the flash
+  forward, the loss and gradients (chunked, and luna_approx through the
+  STE on luna_mm) and one train step.
 """
 import numpy as np
 import pytest
@@ -188,11 +191,14 @@ FLASH_CASES = [(1, 128, 2, 2, 16), (2, 256, 4, 2, 32), (1, 512, 8, 1, 64),
 @pytest.mark.parametrize("b,s,h,hkv,d", FLASH_CASES)
 def test_flash_attention_matches_plain_on_card(dev, b, s, h, hkv, d,
                                                causal):
-    """The kernel against ``attention_ref`` on the same input values in
-    f32, at the tolerance stated in
-    ``kernels/flash_attention/flash_attention.py`` (2e-5 for f32; for bf16
-    half an output ulp past that), bf16 also within JAX's 2e-2 of the
-    reference on the unrounded f32 inputs; one launch per call."""
+    """Each kernel against its plain version on the same input values in
+    f32 (``flash_attention.reference``), at the tolerance stated in
+    ``kernels/flash_attention/flash_attention.py``: f32 and bf16 at D in
+    {16, 32} on the SIMT kernel against ``attention_ref`` (2e-5; bf16 half
+    an output ulp past that), bf16 at D in {64, 128} on the tensor-core
+    kernel against ``attention_ref_tiled`` (that, plus its p flips); bf16
+    also within JAX's 2e-2 of the reference on the unrounded f32 inputs.
+    One launch per call, on the tensor-core kernel iff bf16 at D >= 64."""
     gen = torch.Generator(device=dev).manual_seed(s + d)
     q = torch.randn((b * h, s, d), generator=gen, device=dev)
     k = torch.randn((b * hkv, s, d), generator=gen, device=dev)
@@ -203,15 +209,37 @@ def test_flash_attention_matches_plain_on_card(dev, b, s, h, hkv, d,
     for dtype in (torch.float32, torch.bfloat16):
         qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
         before = fkern.flash_attention.launches
+        before_tc = fkern.flash_attention.launches_tc
         got = fkern.flash_attention(qd, kd, vd, **kw)
         torch.cuda.synchronize()
         assert fkern.flash_attention.launches == before + 1
+        tc = dtype == torch.bfloat16 and d in fkern.TC_HEAD_DIMS
+        assert fkern.flash_attention.launches_tc == before_tc + tc
         assert got.dtype == dtype
-        plain = attention_ref(qd.float(), kd.float(), vd.float(), **kw)
-        torch.testing.assert_close(got.float(), plain,
-                                   **fkern.tolerance(dtype))
+        plain, bound = fkern.reference(qd, kd, vd, **kw)
+        assert fkern.tolerance_share(got, plain, bound) <= 1.0
         torch.testing.assert_close(got.float(), want,
                                    rtol=fkern.BF16_TOL, atol=fkern.BF16_TOL)
+
+
+def test_flash_attention_ragged_s_on_card(dev):
+    """S = 1000, off the 128-row tile: the tensor-core kernel's tile past S
+    reads zeros through its 3-D tensor maps and masks the columns past S
+    (never the next head's rows): causal and not, against its plain
+    version at the stated tolerance; rows past S are not stored."""
+    b, s, h, hkv, d = 2, 1000, 8, 2, 128
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((b * n, s, d), generator=gen, device=dev)
+               .bfloat16() for n in (h, hkv, hkv))
+    for causal in (True, False):
+        kw = dict(sm_scale=d ** -0.5, causal=causal, num_q_heads=h,
+                  num_kv_heads=hkv)
+        before_tc = fkern.flash_attention.launches_tc
+        got = fkern.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fkern.flash_attention.launches_tc == before_tc + 1
+        plain, bound = fkern.reference(q, k, v, **kw)
+        assert fkern.tolerance_share(got, plain, bound) <= 1.0
 
 
 def test_flash_attention_refuses_on_card(dev):

@@ -16,6 +16,7 @@ cacheless forward under ``attn_impl="flash"`` against the JAX package.
   the port raises ValueError) and the flash route under autograd (JAX's
   kernel has no backward; the port raises NotImplementedError).
 """
+import math
 from dataclasses import replace
 
 import jax
@@ -111,6 +112,104 @@ def test_bf16_tolerance_catches_a_truncating_store():
     assert torch.equal(truncated.bfloat16().float(), truncated)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(truncated, want, **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hkv,d", CASES)
+def test_rounded_p_variant_within_bound_of_jax(b, s, h, hkv, d, causal):
+    """The tensor-core kernel's plain version (p rounded to nearest bf16
+    against the running max of 128-key tiles, l from the f32 p) against
+    JAX's ``attention_ref`` at JAX's ``test_flash_vs_ref`` shapes: rounding
+    moves each term p v by at most 2^-8 of |p v|, so |delta o| <= 2^-8 *
+    attention_ref(q, k, |v|) + F32_TOL."""
+    rng = np.random.default_rng(hash((b, s, h, hkv, d, causal)) % 2**32)
+    q, k, v = (rng.normal(size=(b * n, s, d)).astype(np.float32)
+               for n in (h, hkv, hkv))
+    kw = dict(sm_scale=d ** -0.5, causal=causal, num_q_heads=h,
+              num_kv_heads=hkv)
+    want = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), **kw))
+    scale = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(np.abs(v)), **kw))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = attention_ref(tq, tk, tv, p_dtype=torch.bfloat16,
+                        block_k=fk.BLOCK_K, **kw).numpy()
+    assert np.all(np.abs(got - want) <= 2.0 ** -8 * scale + fk.F32_TOL)
+    # the bound is not loose by orders: rounding p does move the output
+    assert np.abs(got - want).max() > 0.05 * (2.0 ** -8 * scale).max()
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_tc_kernel(q, k, v, *, sm_scale, num_q_heads, num_kv_heads,
+                       fault=None):
+    """The tensor-core kernel's arithmetic on the CPU, causal, written as
+    the kernel computes it, not as the plain version does: raw f32 scores
+    (the bf16 products summed in f64, then rounded: another order than
+    the plain version's), the mask at -1e30 / sm_scale, the running max
+    over 128-key tiles, p = exp2(s c - m c) with c = sm_scale log2(e),
+    l from the f32 p, p rounded to nearest bf16 for P V, o = acc /
+    max(l, 1e-30) stored to nearest bf16.  ``fault``: "truncating store",
+    "p truncated" (toward zero, not to nearest) or "last KV tile dropped"
+    (for the last 64 query rows)."""
+    group = num_q_heads // num_kv_heads
+    kk = k.float().repeat_interleave(group, 0)
+    vv = v.float().repeat_interleave(group, 0)
+    qf = q.float()
+    bh, s, d = q.shape
+    raw = (qf.double() @ kk.double().transpose(1, 2)).float()
+    rows = torch.arange(s)[:, None]
+    c = torch.tensor(sm_scale * LOG2E, dtype=torch.float32)
+    m = torch.full((bh, s, 1), -math.inf)
+    l = torch.zeros(bh, s, 1)
+    acc = torch.zeros(bh, s, d)
+    last = (s - 1) // fk.BLOCK_K * fk.BLOCK_K
+    for k0 in range(0, s, fk.BLOCK_K):
+        cols = torch.arange(k0, min(s, k0 + fk.BLOCK_K))
+        st = torch.where(cols[None, :] <= rows, raw[:, :, cols],
+                         torch.tensor(-1e30 / sm_scale))
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        mc = m_new * c
+        corr = torch.exp2(m * c - mc)
+        p = torch.exp2(torch.addcmul(-mc, st, c))
+        if fault == "last KV tile dropped" and k0 == last:
+            late = rows >= s - 64
+            p = torch.where(late, 0.0, p)
+            corr = torch.where(late, 1.0, corr)
+            m_new = torch.where(late, m, m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if fault == "p truncated":
+            pr = (p.view(torch.int32) & ~0xFFFF).view(torch.float32)
+        else:
+            pr = p.bfloat16().float()
+        acc = acc * corr + pr @ vv[:, cols]
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    if fault == "truncating store":
+        return (o.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    return o.bfloat16().float()
+
+
+@pytest.mark.parametrize("fault", [None, "truncating store",
+                                   "last KV tile dropped", "p truncated"])
+def test_tc_tolerance_tells_faults(fault):
+    """The tensor-core kernel's stated tolerance against its plain version
+    (``flash_attention.reference``) passes an emulation of the kernel's
+    sound arithmetic and fails each faulty one, at yi-9b's head width, a
+    GQA group of 4 and S = 512 (four KV tiles), causal."""
+    gen = torch.Generator().manual_seed(13)
+    h, hkv, s, d = 8, 2, 512, 128
+    q, k, v = (torch.randn((n, s, d), generator=gen).bfloat16()
+               for n in (h, hkv, hkv))
+    kw = dict(sm_scale=d ** -0.5, num_q_heads=h, num_kv_heads=hkv)
+    got = _emulate_tc_kernel(q, k, v, fault=fault, **kw)
+    plain, bound = fk.reference(q, k, v, causal=True, **kw)
+    share = fk.tolerance_share(got, plain, bound)
+    if fault is None:
+        assert share <= 1.0
+    else:
+        assert share > 1.0, f"{fault}: {share}"
 
 
 @pytest.fixture(scope="module")
