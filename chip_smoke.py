@@ -17,11 +17,19 @@ result line):
       2048 x 8512 leaves a ragged 320-column block), M in {1, 8}, bf16 x,
       codes cold in L2, at the tolerance stated in
       ``kernels/lut_gemm/lut_gemm.py``; x = I bitwise; a ragged shape;
-   b. the LUNA GEMM (``luna_mm``) in all five modes, M in {8, 512}, int32
-      bitwise; a ragged shape; ``torch._int_mm`` as the library yardstick
-      for the exact modes at M = 512;
+      each checked call synchronised and named on a fault; at M = 8 also
+      device-only times (``graph_ms``: CUDA-graph replays);
+   b. the LUNA GEMM (``luna_mm``) in all five modes, int32 bitwise, both
+      its kernels (the int8 tensor-core ``luna_mm_tc.cu`` and the __dp4a
+      ``luna_mm.cu``) and the public call on a row-major and a K-major W,
+      the kernel each call ran read from ``launches_tc``: a ragged shape,
+      the tensor-core kernel's tile edges, M in {8, 16, 32, 64, 128}
+      (device-only times of both kernels: the route's threshold) and
+      {8, 512, 2048} at yi-9b's four projection shapes (times by events
+      and device-only; ``torch._int_mm`` on a row-major and on a K-major
+      W as the library yardstick for the exact modes, M > 16);
    c. the full-table LUT GEMM (``lut_gemm``), NF4 codes, M in {8, 512},
-      1e-4; x = I bitwise; a ragged shape;
+      1e-4; x = I bitwise; a ragged shape; device-only times at M = 8;
    d. the SSD chunk scan (``ssd_scan``) at mamba2's widths (H = 64, P =
       64, N = 128, G = 1, chunk min(256, S)) for (B, S) in {(1, 48),
       (1, 272) with a carried initial state, (1, 448) masked at 438 (off
@@ -55,7 +63,9 @@ result line):
    a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
       decode projections on the D&C kernels);
    b. under the model-level modes luna_approx2, luna_dc (every projection
-      of prefill and decode on luna_mm) and lut_nf4 (on lut_gemm);
+      of prefill and decode on luna_mm: prefill calls at M >= 32 on its
+      tensor-core kernel, decode's M = 8 on the __dp4a kernel, each count
+      checked) and lut_nf4 (on lut_gemm);
 7. the main path at mamba2-1.3b's full width (always all 48 layers, bf16,
    random weights from seed 0): the same 8 request lengths under
    full precision, lut4 and nf4p; every prefill runs the SSD scan on
@@ -68,12 +78,13 @@ result line):
    4096 under chunked attention (per-step wall, tokens/s, loss,
    grad_norm, peak memory, a torch.profiler window over the last step),
    2 QAT steps under luna_approx at S = 1024 (luna_mm: 7 x 8 x 2 launches
-   a step), then the eval loss and final hidden states of a held-out
-   batch under attn_impl="flash" (one launch per layer per call, each on
-   the tensor-core kernel) against the chunked ones, every attention call
-   held to its plain version, and a check that two wrong attentions put
-   in the kernel's place (output zeroed; the last 64 keys dropped for the
-   last 64 queries) must fail;
+   a step, all on its tensor-core kernel; the last step profiled, with
+   luna_mm's device time), then the eval loss and final hidden states of
+   a held-out batch under attn_impl="flash" (one launch per layer per
+   call, each on the tensor-core kernel) against the chunked ones, every
+   attention call held to its plain version, and a check that two wrong
+   attentions put in the kernel's place (output zeroed; the last 64 keys
+   dropped for the last 64 queries) must fail;
    8b. the Trainer on luna-mlp: 12 steps with checkpoints every 5, then
    a rerun to 20 resumes from step 12;
 each run of 6 and 7 asserting every request finished, every logit is
@@ -92,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+from collections import Counter
 import json
 import math
 import os
@@ -148,6 +160,50 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device-only ms per call of ``fn(i)``: ``calls`` calls (i = 0 ..
+    calls - 1) captured in one CUDA graph, their workspaces from the
+    graph's pool, the graph replayed ``replays`` times between CUDA
+    events.  No host time is between the launches, unlike
+    :func:`cuda_ms`, which at decode sizes times the host wrapper."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def synced(what: str, fn):
+    """``fn()``, then ``torch.cuda.synchronize()``: a fault during the
+    launch surfaces here, named by ``what``."""
+    import torch
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        raise RuntimeError(f"chip_smoke: {what} failed: {e}") from e
+    return out
+
+
 def bound_ms(m: int, k: int, n: int, x_bytes: int, table_bytes: int,
              vec_bytes: int = 8, ops: float | None = None,
              peak: float = BF16_FLOP_S) -> tuple[float, str]:
@@ -164,18 +220,19 @@ def layer_summary(name: str, rows: list, m: int, shapes=LAYER_SHAPES,
                   **kw) -> dict:
     """The kernels-line entry: one layer's projections (default yi-9b's
     7) at ``m`` rows, summed from the per-shape ``rows`` of one kernel
-    (and mode)."""
+    (and mode): every time (``ms`` and each ``*_ms`` key), None where a
+    shape has none."""
     at = {(s["k"], s["n"]): s for s in rows if s["m"] == m}
     layer = [at[kn] for kn in shapes]
-    lib = [s.get("library_ms") for s in layer]
+    times = {"library_ms": None}
+    for key in layer[0]:
+        if key == "ms" or key.endswith("_ms"):
+            vals = [s.get(key) for s in layer]
+            times[key] = None if None in vals else sum(vals)
     return {
-        "name": name, "route": "cuda", "launches": None,
-        "ms": sum(s["ms"] for s in layer),
-        "plain_ms": sum(s["plain_ms"] for s in layer),
-        "bound_ms": sum(s["bound_ms"] for s in layer),
+        "name": name, "route": "cuda", "launches": None, **times,
         "bound_by": "bytes" if all(s["bound_by"] == "bytes"
-                                   for s in layer) else "operations",
-        "library_ms": None if None in lib else sum(lib), **kw}
+                                   for s in layer) else "operations", **kw}
 
 
 def cold_copies(t, nbytes: int) -> list:
@@ -183,8 +240,12 @@ def cold_copies(t, nbytes: int) -> list:
     return [t] + [t.clone() for _ in range(max(1, COLD_BYTES // nbytes) - 1)]
 
 
-def kernel_phase(dev):
-    """Phase 3a: both D&C kernels against their plain versions."""
+def kernel_phase(dev, device_times: bool = True):
+    """Phase 3a: both D&C kernels against their plain versions, each
+    checked call synchronised and named (spec, shape, call) on a fault.
+    ``device_times=False`` leaves out the CUDA-graph timings (for a run
+    under ``CUDA_LAUNCH_BLOCKING=1``, which graph capture does not
+    take)."""
     from dataclasses import replace
 
     import torch
@@ -216,19 +277,26 @@ def kernel_phase(dev):
     for name, sp in specs.items():
         def qweight(k, n):
             w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
-            return quantize_weight(w, *sp["quant"])
+            return synced(f"phase 3a {name}: quantize_weight ({k}, {n})",
+                          lambda: quantize_weight(w, *sp["quant"]))
 
         # exact: x = I reads the dequantized weight back, bitwise
         q = qweight(256, 4096)
         eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
-        want = ref.dc_dequant(q.codes, q.hi_tab, q.lo_tab, q.zero_point,
-                              q.residual) * q.scale[None, :]
-        check(torch.equal(sp["fn"](eye, q), want),
+        want = synced(f"phase 3a {name}: dc_dequant (256, 4096), the plain "
+                      "x = I reference", lambda: ref.dc_dequant(
+                          q.codes, q.hi_tab, q.lo_tab, q.zero_point,
+                          q.residual) * q.scale[None, :])
+        got = synced(f"phase 3a {name} (256, 256, 4096): kernel, x = I",
+                     lambda: sp["fn"](eye, q))
+        check(torch.equal(got, want),
               f"{name}: x = I output is not bitwise the dequantized weight")
         # ragged M, K, N (the unvectorised, masked path)
         q = qweight(72, 40)
         x = torch.randn((3, 72), generator=gen, device=dev)
-        torch.testing.assert_close(sp["fn"](x, q), sp["plain"](x, q),
+        got = synced(f"phase 3a {name} (3, 72, 40): kernel, ragged",
+                     lambda: sp["fn"](x, q))
+        torch.testing.assert_close(got, sp["plain"](x, q),
                                    rtol=lg.KERNEL_RTOL, atol=lg.KERNEL_ATOL)
 
         per_shape, max_err = [], 0.0
@@ -239,7 +307,10 @@ def kernel_phase(dev):
             for m in (1, 8):
                 x = torch.randn((m, k), generator=gen, device=dev,
                                 dtype=torch.bfloat16)
-                out, plain = sp["fn"](x, q), sp["plain"](x, q)
+                out = synced(f"phase 3a {name} ({m}, {k}, {n}): kernel",
+                             lambda: sp["fn"](x, q))
+                plain = synced(f"phase 3a {name} ({m}, {k}, {n}): plain "
+                               "version", lambda: sp["plain"](x, q))
                 torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
                                            atol=lg.KERNEL_ATOL)
                 max_err = max(max_err, (out - plain).abs().max().item())
@@ -248,9 +319,14 @@ def kernel_phase(dev):
                 plain_ms = cuda_ms(
                     lambda i: sp["plain"](x, copies[i % len(copies)]), 10)
                 b_ms, b_by = bound_ms(m, k, n, 2, sp["table_bytes"])
-                per_shape.append({"m": m, "k": k, "n": n, "ms": ms,
-                                  "plain_ms": plain_ms, "bound_ms": b_ms,
-                                  "bound_by": b_by})
+                row = {"m": m, "k": k, "n": n, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+                if m == 8 and device_times:
+                    row["device_ms"] = graph_ms(
+                        lambda i: sp["fn"](x, copies[i % len(copies)]),
+                        max(20, len(copies)))
+                per_shape.append(row)
             del copies
         emit({"kernel_check": name, "passed": True, "max_abs_err": max_err,
               "rtol": lg.KERNEL_RTOL, "atol": lg.KERNEL_ATOL,
@@ -262,11 +338,14 @@ def kernel_phase(dev):
             source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
             replaces=sp["replaces"], max_abs_err=max_err,
             timed_as="one yi-9b layer's 7 decode projections, M=8, bf16 x, "
-                     "codes cold in L2",
+                     "codes cold in L2; ms by CUDA events around eager "
+                     "calls (the host wrapper included), device_ms by "
+                     "CUDA-graph replays (graph_ms)",
             mamba2_layer={
                 k: v for k, v in layer_summary(
                     name, per_shape, 8, MAMBA2_SHAPES).items()
-                if k in ("ms", "plain_ms", "bound_ms", "bound_by")} | {
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by")} | {
                 "timed_as": "one mamba2-1.3b layer's w_in (2048 x 8512, "
                             "ragged 320-column block) and w_out (4096 x "
                             "2048), M=8"},
@@ -282,61 +361,232 @@ LUNA_PLANES = {"conventional": 1, "dc": 2, "opt_dc": 2, "approx_dc": 1,
                "approx_dc2": 1}
 
 
+#: phase 3b's tile edges of the tensor-core kernel (M, K, N): M at and
+#: past its 64-row warpgroups and 128-row blocks, K inside one 128-byte K
+#: tile, at it and past it (K % 16 == 0, TMA's rule), N at 16, at the
+#: 128-column tile and past it; one-tile outputs split K the most
+LUNA_EDGE_SHAPES = [(64, 128, 16), (65, 144, 128), (127, 4112, 144),
+                    (128, 256, 256), (129, 4096, 520), (200, 11008, 48)]
+#: M of phase 3b's device-only route timings (the threshold's readings)
+LUNA_ROUTE_M = (8, 16, 32, 64, 128)
+#: M of phase 3b's timed shapes: decode, prefill, phase 8's QAT (B * S)
+LUNA_M = (8, 512, 2048)
+
+
+def luna_bound_ms(m: int, k: int, n: int, mode: str) -> tuple[float, str]:
+    """Least time of one luna_mm call: y and w read once and the int32
+    output written once, against 2MKN int8 operations per digit plane the
+    mode runs (plus K N adds of approx_dc2's colsum) at 1,979 TOP/s."""
+    ops = (2 * m * k * n * LUNA_PLANES[mode]
+           + (k * n if mode == "approx_dc2" else 0))
+    return bound_ms(m, k, n, 1, 0, 0, ops, INT8_OP_S)
+
+
 def luna_kernel_phase(dev):
-    """Phase 3b: luna_mm against its plain version, every mode, bitwise."""
+    """Phase 3b: both luna_mm kernels against the plain version, every
+    mode, bitwise, each checked call synchronised: the public call on a
+    row-major and on a K-major W (which kernel ran read from
+    ``launches_tc`` and held to ``takes_tc``), the __dp4a kernel and,
+    where it takes the shape, the tensor-core kernel on both layouts, at
+    the ragged 3 x 72 x 40, the tensor-core kernel's tile edges, the route
+    timings' shapes and yi-9b's four projection shapes at M in
+    ``LUNA_M``.  Times, codes cold in L2: device-only (CUDA graphs) of
+    both kernels at ``LUNA_ROUTE_M``; at ``LUNA_M`` by CUDA events the
+    public call on each layout, each kernel alone, the plain version and
+    ``torch._int_mm`` on a row-major and on a K-major W (the exact modes,
+    M > 16), and device-only the public call and the __dp4a kernel; and
+    the main path's cast of int32 weight codes to int8."""
     import torch
 
+    from repro_torch.core.luna import LunaMode
     from repro_torch.kernels.luna_mm import luna_mm as lm
     from repro_torch.kernels.luna_mm.ref import luna_mm_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    wrap = lm.luna_mm
 
     def codes(*shape):
         return torch.randint(0, 16, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
-    for mode in LUNA_MODES:                 # ragged M, K, N: masked path
-        y, w = codes(3, 72), codes(72, 40)
-        check(torch.equal(lm.luna_mm(y, w, mode), luna_mm_ref(y, w, mode)),
-              f"luna_mm {mode}: ragged 3x72x40 differs from the plain "
-              "version")
-    per_shape = []
+    def kmajor(w):
+        return w.t().contiguous().t()
+
+    def hold(y, w, wk, mode):
+        """Every route of one call against the plain version, bitwise."""
+        (m, k), n = y.shape, w.shape[1]
+        what = f"phase 3b luna_mm {mode} ({m}, {k}, {n})"
+        want = synced(f"{what}: plain version",
+                      lambda: luna_mm_ref(y, w, mode))
+        runs = {}
+        for layout, ww in (("row", w), ("k", wk)):
+            tc0 = wrap.launches_tc
+            runs[f"luna_mm on a {layout}-major W"] = synced(
+                f"{what}: luna_mm on a {layout}-major W",
+                lambda: wrap(y, ww, mode))
+            tc = wrap.launches_tc - tc0
+            check(tc == lm.takes_tc(m, k, n, layout, True),
+                  f"{what}, {layout}-major W: {tc} tensor-core launches, "
+                  f"takes_tc says {lm.takes_tc(m, k, n, layout, True)}")
+        runs["the dp4a kernel"] = synced(
+            f"{what}: the dp4a kernel",
+            lambda: lm._launch(y, w, LunaMode(mode)))
+        if k % lm.TC_ALIGN == 0 and n % lm.TC_ALIGN == 0:
+            for layout, ww in (("row", w), ("k", wk)):
+                runs[f"the tensor-core kernel, {layout}-major W"] = synced(
+                    f"{what}: the tensor-core kernel, {layout}-major W",
+                    lambda: lm._launch_tc(y, ww, layout, LunaMode(mode)))
+        for name, got in runs.items():
+            check(torch.equal(got, want),
+                  f"{what}: {name} is not bitwise equal to the plain "
+                  "version")
+        return len(runs)
+
+    checked = 0
+    for m, k, n in [(3, 72, 40)] + LUNA_EDGE_SHAPES:
+        y, w = codes(m, k), codes(k, n)
+        wk = kmajor(w)
+        for mode in LUNA_MODES:
+            checked += hold(y, w, wk, mode)
+
+    # device-only times of both kernels around the route's threshold
+    route = []
     for k, n in sorted(set(LAYER_SHAPES)):
-        copies = cold_copies(codes(k, n), k * n)
-        for m in (8, 512):
+        rows = cold_copies(codes(k, n), k * n)
+        ks = [kmajor(w) for w in rows]
+        calls = max(20, len(rows))
+        for m in LUNA_ROUTE_M:
             y = codes(m, k)
-            lib_ms = (cuda_ms(lambda i: torch._int_mm(
-                y, copies[i % len(copies)]), 50) if m > 16 else None)
+            for mode in ("approx_dc2", "dc"):
+                checked += hold(y, rows[0], ks[0], mode)
+                lmode = LunaMode(mode)
+                route.append({
+                    "mode": mode, "m": m, "k": k, "n": n,
+                    "dp4a_ms": graph_ms(lambda i: lm._launch(
+                        y, rows[i % len(rows)], lmode), calls),
+                    "tc_row_ms": graph_ms(lambda i: lm._launch_tc(
+                        y, rows[i % len(rows)], "row", lmode), calls),
+                    "tc_k_ms": graph_ms(lambda i: lm._launch_tc(
+                        y, ks[i % len(ks)], "k", lmode), calls)})
+        del rows, ks
+    layer = {}
+    for r in route:
+        key = (r["mode"], r["m"])
+        acc = layer.setdefault(key, {"mode": r["mode"], "m": r["m"],
+                                     "dp4a_ms": 0.0, "tc_row_ms": 0.0,
+                                     "tc_k_ms": 0.0})
+        for t in ("dp4a_ms", "tc_row_ms", "tc_k_ms"):
+            acc[t] += r[t] * LAYER_SHAPES.count((r["k"], r["n"]))
+    faster_from = {}
+    for layout in ("row", "k"):
+        wins = [m for m in LUNA_ROUTE_M
+                if all(layer[(mode, mm)][f"tc_{layout}_ms"]
+                       < layer[(mode, mm)]["dp4a_ms"]
+                       for mode in ("approx_dc2", "dc")
+                       for mm in LUNA_ROUTE_M if mm >= m)]
+        faster_from[layout] = min(wins) if wins else None
+    emit({"luna_route": "device-only ms (CUDA-graph replays), codes cold "
+                        "in L2; layer = yi-9b's 7 projections",
+          "tc_min_m": lm.TC_MIN_M, "tc_faster_from_m": faster_from,
+          "layer": list(layer.values()), "per_shape": route})
+
+    per_shape = []
+    iters = {8: 50, 512: 30, 2048: 10}
+    for k, n in sorted(set(LAYER_SHAPES)):
+        rows = cold_copies(codes(k, n), k * n)
+        ks = [kmajor(w) for w in rows]
+        for m in LUNA_M:
+            y = codes(m, k)
+            it = iters[m]
+            lib = {}
+            if m > 16:
+                lib = {"library_ms": cuda_ms(lambda i: torch._int_mm(
+                           y, rows[i % len(rows)]), it),
+                       "library_kmajor_ms": cuda_ms(lambda i: torch._int_mm(
+                           y, ks[i % len(ks)]), it)}
             for mode in LUNA_MODES:
-                out = lm.luna_mm(y, copies[0], mode)
-                check(torch.equal(out, luna_mm_ref(y, copies[0], mode)),
-                      f"luna_mm {mode} ({m}, {k}, {n}): not bitwise equal "
-                      "to the plain version")
-                ms = cuda_ms(lambda i: lm.luna_mm(y, copies[i % len(copies)],
-                                                  mode), 50)
-                plain_ms = cuda_ms(lambda i: luna_mm_ref(
-                    y, copies[i % len(copies)], mode), 5)
-                ops = (2 * m * k * n * LUNA_PLANES[mode]
-                       + (k * n if mode == "approx_dc2" else 0))
-                b_ms, b_by = bound_ms(m, k, n, 1, 0, 0, ops, INT8_OP_S)
+                checked += hold(y, rows[0], ks[0], mode)
+                lmode = LunaMode(mode)
+                row = {"mode": mode, "m": m, "k": k, "n": n,
+                       "tc": lm.takes_tc(m, k, n, "row", True),
+                       "ms": cuda_ms(lambda i: wrap(
+                           y, rows[i % len(rows)], mode), it),
+                       "kmajor_ms": cuda_ms(lambda i: wrap(
+                           y, ks[i % len(ks)], mode), it),
+                       "dp4a_ms": cuda_ms(lambda i: lm._launch(
+                           y, rows[i % len(rows)], lmode), it),
+                       "tc_ms": cuda_ms(lambda i: lm._launch_tc(
+                           y, ks[i % len(ks)], "k", lmode), it),
+                       "plain_ms": cuda_ms(lambda i: luna_mm_ref(
+                           y, rows[i % len(rows)], mode), 3)}
+                row["device_ms"] = graph_ms(
+                    lambda i: wrap(y, rows[i % len(rows)], mode),
+                    max(5 if m > 8 else 20, len(rows)), 3)
+                row["dp4a_device_ms"] = (row["device_ms"] if m == 8 else
+                                         graph_ms(lambda i: lm._launch(
+                                             y, rows[i % len(rows)], lmode),
+                                             max(5, len(rows)), 3))
+                row["bound_ms"], row["bound_by"] = luna_bound_ms(m, k, n,
+                                                                 mode)
                 exact = mode in ("conventional", "dc", "opt_dc")
-                per_shape.append({
-                    "mode": mode, "m": m, "k": k, "n": n, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms if exact else None})
-        del copies
+                row["library_ms"] = lib.get("library_ms") if exact else None
+                row["library_kmajor_ms"] = (lib.get("library_kmajor_ms")
+                                            if exact else None)
+                row["top_s"] = (2 * m * k * n * LUNA_PLANES[mode]
+                                / row["ms"] / 1e9)
+                per_shape.append(row)
+        del rows, ks
     emit({"kernel_check": "luna_mm", "passed": True, "max_abs_err": 0,
           "bitwise": True, "modes": list(LUNA_MODES),
+          "calls_held": checked, "edge_shapes": LUNA_EDGE_SHAPES,
           "per_shape": per_shape})
+
+    # the main path's cast of the weight codes (int32 from quantize) to
+    # int8, row-major (for the wrapper's transpose) or K-major directly
+    k, n = 4096, 11008
+    qw = torch.randint(0, 16, (k, n), generator=gen, device=dev,
+                       dtype=torch.int32)
+    w8 = qw.to(torch.int8)
+    casts = {
+        "row_major_cast_ms": cuda_ms(lambda i: qw.to(torch.int8), 20),
+        "kmajor_cast_ms": cuda_ms(lambda i: torch.empty(
+            (n, k), dtype=torch.int8, device=dev).copy_(qw.t()), 20),
+        "transpose_ms": cuda_ms(lambda i: lm._tc_lib().luna_mm_tc_transpose(
+            w8.data_ptr(), torch.empty((n, k), dtype=torch.int8,
+                                       device=dev).data_ptr(), k, n,
+            torch.cuda.current_stream().cuda_stream), 20)}
+    check(torch.equal(torch.empty((n, k), dtype=torch.int8, device=dev)
+                      .copy_(qw.t()), w8.t().contiguous()),
+          "the K-major cast differs from the row-major one transposed")
+    emit({"luna_ops_cast": f"int32 codes ({k}, {n}) -> int8", **casts})
+    del qw, w8
+
+    def summary(m, mode, timed_as):
+        return {k: v for k, v in layer_summary(
+            "luna_mm", [r for r in per_shape if r["mode"] == mode], m
+        ).items() if k not in ("name", "route", "launches")} | {
+            "timed_as": timed_as}
+
     entry = layer_summary(
-        "luna_mm", [s for s in per_shape if s["mode"] == "approx_dc2"], 8,
-        source="src/repro_torch/kernels/luna_mm/csrc/luna_mm.cu",
+        "luna_mm", [r for r in per_shape if r["mode"] == "opt_dc"], 512,
+        source="src/repro_torch/kernels/luna_mm/csrc/luna_mm_tc.cu",
+        source_dp4a="src/repro_torch/kernels/luna_mm/csrc/luna_mm.cu",
         replaces="src/repro/kernels/luna_mm/luna_mm.py:77", max_abs_err=0,
-        timed_as="one yi-9b layer's 7 projections, M=8 (decode), mode "
-                 "approx_dc2 (luna_approx2), codes cold in L2; library: "
-                 "torch._int_mm needs M > 16 and computes only the exact "
-                 "modes (per_shape, M=512)",
-        per_shape=per_shape)
+        launches_tc=None,
+        timed_as="one yi-9b layer's 7 projections at M=512 (prefill), "
+                 "mode opt_dc, codes cold in L2, by CUDA events around "
+                 "eager calls: ms the public call on a row-major W (the "
+                 "tensor-core kernel, its transpose included), kmajor_ms "
+                 "on a K-major W, dp4a_ms the __dp4a kernel, tc_ms the "
+                 "tensor-core kernel alone on a K-major W; device_ms and "
+                 "dp4a_device_ms the public call and the __dp4a kernel "
+                 "by CUDA-graph replays; library: torch._int_mm on a "
+                 "row-major W, library_kmajor_ms on a K-major W",
+        decode=summary(8, "approx_dc2",
+                       "one layer, M=8 (decode), approx_dc2: the __dp4a "
+                       "kernel"),
+        qat=summary(2048, "approx_dc",
+                    "one layer, M=2048 (phase 8's QAT), approx_dc"))
     gc.collect()
     torch.cuda.empty_cache()
     return {"luna_mm": entry}
@@ -385,9 +635,13 @@ def lut_full_kernel_phase(dev):
             plain_ms = cuda_ms(lambda i: ref.lut_gemm_ref(
                 x, copies[i % len(copies)], cb, scale), 5)
             b_ms, b_by = bound_ms(m, k, n, 2, 64, 4, peak=F32_FLOP_S)
-            per_shape.append({"m": m, "k": k, "n": n, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "library_ms": None})
+            row = {"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if m == 8:
+                row["device_ms"] = graph_ms(
+                    lambda i: lg.lut_gemm(x, copies[i % len(copies)], cb,
+                                          scale), max(20, len(copies)))
+            per_shape.append(row)
         del copies
     emit({"kernel_check": "lut_gemm", "passed": True, "max_abs_err": max_err,
           "rtol": lg.KERNEL_RTOL, "atol": lg.KERNEL_ATOL,
@@ -398,8 +652,10 @@ def lut_full_kernel_phase(dev):
         replaces="src/repro/kernels/lut_gemm/lut_gemm.py:78",
         max_abs_err=max_err,
         timed_as="one yi-9b layer's 7 projections, M=8 (decode), bf16 x, "
-                 "NF4 codes cold in L2; bound by f32 FMAs at 67 TFLOP/s "
-                 "or bytes; no single PyTorch call computes it",
+                 "NF4 codes cold in L2; ms by CUDA events around eager "
+                 "calls, device_ms by CUDA-graph replays; bound by f32 "
+                 "FMAs at 67 TFLOP/s or bytes; no single PyTorch call "
+                 "computes it",
         per_shape=per_shape)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1052,9 +1308,13 @@ def profile_prefill(eng, prompt) -> dict:
 
 
 def serve_once(dev, cfg, model, prompts, quant: str | None,
-               kern: str | None) -> tuple[dict, list]:
+               kern: str | None) -> tuple[dict, list, int]:
     """One main-path run: the engine serves the request mix; every kernel
-    counter is set to 0 just before and read just after.  ``quant``: None
+    counter is set to 0 just before and read just after.  Returns the
+    launches by kernel, each request's tokens and luna_mm's launches of
+    its tensor-core kernel (checked against ``takes_tc`` at each call's
+    M: max_batch rows a decode tick, rows x bucket length a prefill
+    call).  ``quant``: None
     (full precision), an engine-level mode (EngineConfig.quant: frozen
     decode projections, prefill full precision) or a model-level one
     (cfg.quant, every projection of prefill and decode; the model shares
@@ -1101,15 +1361,18 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     reqs = [Request(rid=i, prompt=p, max_new=32)
             for i, p in enumerate(prompts)]
     wrappers = kernel_wrappers()
+    luna = wrappers["luna_mm"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in wrappers.values():
         f.launches = 0
+    luna.launches_tc = 0
     t0 = time.perf_counter()
     stats = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: f.launches for name, f in wrappers.items()}
+    luna_tc = luna.launches_tc
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in watched:
         del m.logits
@@ -1127,6 +1390,23 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
           f"{cfg.name} {quant}: non-finite logits")
     check(counts == want,
           f"{cfg.name} {quant}: launches {counts}, want {want}")
+    # luna_mm's route: M = max_batch rows at each decode tick, M = rows x
+    # bucket length at each prefill call (one call per length bucket)
+    buckets = Counter(eng._bucket_len(len(p)) for p in prompts)
+    prefill_m = sorted(c * blen for blen, c in buckets.items())
+    want_tc = 0
+    if kern == "luna_mm":
+        from repro_torch.kernels.luna_mm.luna_mm import takes_tc
+        check(len(prefill_m) == stats["prefill_calls"],
+              f"{cfg.name} {quant}: {stats['prefill_calls']} prefill calls, "
+              f"{len(prefill_m)} length buckets")
+        per_layer = [(ticks, eng.max_batch)] + [(1, mm) for mm in prefill_m]
+        want_tc = layers * sum(c * takes_tc(mm, k, n, "row", True)
+                               for c, mm in per_layer
+                               for k, n in LAYER_SHAPES)
+    check(luna_tc == want_tc,
+          f"{cfg.name} {quant}: {luna_tc} luna_mm launches on the "
+          f"tensor-core kernel, want {want_tc}")
     prof = profile_decode(eng, prompts)    # after the counts are read
     if cfg.family == "ssm":
         prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
@@ -1135,6 +1415,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
           "prompt_lens": [len(p) for p in prompts], "max_new": 32,
           "layers": layers, "decode_ticks": ticks,
           "prefill_calls": stats["prefill_calls"], "launches": counts,
+          "luna_mm_launches_tc": luna_tc, "prefill_m": prefill_m,
           "prefill_tok_s": stats["prefill_tok_s"],
           "decode_tok_s": stats["decode_tok_s"],
           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
@@ -1145,7 +1426,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, out
+    return counts, out, luna_tc
 
 
 def add_launches(total: dict, counts: dict) -> None:
@@ -1155,22 +1436,24 @@ def add_launches(total: dict, counts: dict) -> None:
             total[name] = total.get(name, 0) + n
 
 
-def main_path_phase(dev, cfg, model, prompts) -> dict:
+def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, int]:
     """Phase 6: the engine at yi-9b's full width; returns launches by
-    kernel.  6a: engine-level lut4 / nf4p (decode projections on the D&C
-    kernels, prefill full precision).  6b: model-level luna_approx2 /
-    luna_dc (every projection on luna_mm) and lut_nf4 (on lut_gemm)."""
-    launches, outs = {}, {}
+    kernel and luna_mm's launches of its tensor-core kernel.  6a:
+    engine-level lut4 / nf4p (decode projections on the D&C kernels,
+    prefill full precision).  6b: model-level luna_approx2 / luna_dc
+    (every projection on luna_mm) and lut_nf4 (on lut_gemm)."""
+    launches, outs, luna_tc = {}, {}, 0
     for quant, kern in (("lut4", "lut_gemm_dc"), ("nf4p", "lut_gemm_dc_res"),
                         ("luna_approx2", "luna_mm"), ("luna_dc", "luna_mm"),
                         ("lut_nf4", "lut_gemm")):
-        counts, outs[quant] = serve_once(dev, cfg, model, prompts, quant,
-                                         kern)
+        counts, outs[quant], tc = serve_once(dev, cfg, model, prompts, quant,
+                                             kern)
         add_launches(launches, counts)
+        luna_tc += tc
     # prefill runs the same full-precision model under lut4 and nf4p
     check([o[0] for o in outs["lut4"]] == [o[0] for o in outs["nf4p"]],
           "first (prefill) tokens differ between the lut4 and nf4p runs")
-    return launches
+    return launches, luna_tc
 
 
 def ssm_main_path_phase(dev, cfg, model, prompts) -> dict:
@@ -1181,8 +1464,8 @@ def ssm_main_path_phase(dev, cfg, model, prompts) -> dict:
     launches, outs = {}, {}
     for quant, kern in ((None, None), ("lut4", "lut_gemm_dc"),
                         ("nf4p", "lut_gemm_dc_res")):
-        counts, outs[quant] = serve_once(dev, cfg, model, prompts, quant,
-                                         kern)
+        counts, outs[quant], _ = serve_once(dev, cfg, model, prompts, quant,
+                                            kern)
         add_launches(launches, counts)
     firsts = {q: [o[0] for o in out] for q, out in outs.items()}
     check(firsts[None] == firsts["lut4"] == firsts["nf4p"],
@@ -1216,6 +1499,7 @@ def profile_train_step(step_fn, model, opt_state, batch) -> tuple:
         else "not measured",
         "gemm_ms": share("gemm", "cutlass", "sm90_xmma", "nvjet")
         if rows else "not measured",
+        "luna_mm_ms": share("luna_mm") if rows else "not measured",
         "kernels": len(rows),
         "launches": sum(r[2] for r in rows),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n}
@@ -1233,10 +1517,10 @@ QAT_S, QAT_STEPS = 1024, 2
 FLASH_LOSS_TOL = 1e-3
 
 
-def train_phase(dev) -> tuple[dict, int]:
+def train_phase(dev) -> tuple[dict, int, int]:
     """Phase 8: the trainer's step (``make_train_step``) at yi-9b's full
-    width, returns launches by kernel and the flash eval's launches of
-    the tensor-core flash kernel.  6 steps under chunked attention
+    width, returns launches by kernel, the flash eval's launches of the
+    tensor-core flash kernel and luna_mm's of its tensor-core kernel.  6 steps under chunked attention
     (no kernel of the port runs: the counts must stay 0), bf16, remat on,
     AdamW + cosine; 2 QAT steps under luna_approx (every projection
     through the STE on luna_mm: 7 x layers x 2 launches a step, forward
@@ -1270,14 +1554,18 @@ def train_phase(dev) -> tuple[dict, int]:
     before = {k: v.detach()[:8, :8].float().clone() for k, v in watch.items()}
     wrappers = kernel_wrappers()
     launches = {}
+    luna = wrappers["luna_mm"]
+    luna_tc = []
 
-    def run(what, n, step_fn, m, data, want, profile_last=False):
-        """n steps with every count set to 0 just before, read after."""
+    def run(what, n, step_fn, m, data, want, want_tc=0, profile_last=False):
+        """n steps with every count set to 0 just before, read after;
+        ``want_tc`` of luna_mm's launches on its tensor-core kernel."""
         batches = [data.batch(i, dev) for i in range(n)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for f in wrappers.values():
             f.launches = 0
+        luna.launches_tc = 0
         steps, prof = [], None
         for i, batch in enumerate(batches):
             t0 = time.perf_counter()
@@ -1296,11 +1584,15 @@ def train_phase(dev) -> tuple[dict, int]:
                           "grad_norm": gn, "profiled": prof is not None
                           and i == n - 1})
         counts = {name: f.launches for name, f in wrappers.items()}
+        luna_tc.append(luna.launches_tc)
         check(counts == want, f"{what}: launches {counts}, want {want}")
+        check(luna_tc[-1] == want_tc, f"{what}: {luna_tc[-1]} luna_mm "
+              f"launches on the tensor-core kernel, want {want_tc}")
         add_launches(launches, counts)
         steady = [r["wall_s"] for r in steps[1:] if not r["profiled"]]
         emit({"train": what, "batch": list(batches[0]["tokens"].shape),
               "steps": steps, "launches": counts,
+              "luna_mm_launches_tc": luna_tc[-1],
               "steady_step_s": min(steady) if steady else None,
               "steady_tok_s": (batches[0]["tokens"].numel() / min(steady)
                                if steady else None),
@@ -1314,11 +1606,11 @@ def train_phase(dev) -> tuple[dict, int]:
     qcfg = replace(cfg, quant=QuantConfig(mode="luna_approx"))
     qmodel = type(model).from_params(qcfg, model.params_tree(),
                                      device=dev).requires_grad_(True)
+    qat = QAT_STEPS * PROJECTIONS["dense"] * cfg.num_layers * 2
     run("QAT luna_approx (STE on luna_mm)", QAT_STEPS,
         make_train_step(qcfg, opt), qmodel,
         SyntheticLM(cfg.vocab_size, QAT_S, TRAIN_B, seed=0),
-        zero | {"luna_mm": QAT_STEPS * PROJECTIONS["dense"]
-                * cfg.num_layers * 2})
+        zero | {"luna_mm": qat}, want_tc=qat, profile_last=True)
     del qmodel
     changed = {k: not torch.equal(before[k], v.detach()[:8, :8].float())
                for k, v in watch.items()}
@@ -1330,7 +1622,7 @@ def train_phase(dev) -> tuple[dict, int]:
     del model, state, opt
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, launches_tc
+    return launches, launches_tc, sum(luna_tc)
 
 
 def flash_controls(kernel) -> dict:
@@ -1547,11 +1839,11 @@ def main() -> int:
     small_ssm_reference_phase(dev)
     small_training_phase(dev)
     quant_matmul_phase(dev)
-    launches = main_path_phase(dev, *build_model(dev, args.layers))
+    launches, luna_tc = main_path_phase(dev, *build_model(dev, args.layers))
     add_launches(launches, ssm_main_path_phase(dev, *build_ssm_model(dev)))
     gc.collect()
     torch.cuda.empty_cache()
-    launches_train, flash_tc = train_phase(dev)
+    launches_train, flash_tc, luna_tc_train = train_phase(dev)
     add_launches(launches, launches_train)
     trainer_phase(dev)
     check(set(launches) == set(kernels),
@@ -1560,6 +1852,7 @@ def main() -> int:
     for name, n in launches.items():
         kernels[name]["launches"] = n
     kernels["flash_attention"]["launches_tc"] = flash_tc
+    kernels["luna_mm"]["launches_tc"] = luna_tc + luna_tc_train
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

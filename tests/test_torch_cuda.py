@@ -7,7 +7,9 @@ machine with the card and no JAX:
 * ``lut_gemm_dc`` / ``lut_gemm_dc_res`` / ``lut_gemm`` against their plain
   versions at the tolerance stated in ``kernels/lut_gemm/lut_gemm.py``;
   the dequantized weight (x = I) bitwise;
-* ``luna_mm`` against its plain version, bitwise, every mode;
+* ``luna_mm`` against its plain version, bitwise, every mode, on a
+  row-major and a K-major W, across the tensor-core kernel's tile edges,
+  each call's kernel (``launches_tc``) the one ``takes_tc`` names;
 * ``quant_matmul`` on CUDA tensors against the CPU's on identical f32
   inputs, every model-level mode (1e-5), the LUNA int32 accumulators
   bitwise;
@@ -93,17 +95,29 @@ def test_kernels_match_plain_on_card(dev, m, k, n):
 
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 512), (8, 11008, 4096),
                                    (512, 4096, 11008), (3, 72, 40),
-                                   (17, 70, 9)])
+                                   (17, 70, 9), (2048, 4096, 512),
+                                   (32, 11008, 4096), (64, 128, 16),
+                                   (65, 144, 128), (129, 4112, 520),
+                                   (200, 4096, 48)])
 def test_luna_mm_matches_plain_on_card(dev, m, k, n):
-    """Bitwise in every mode: the result is integer."""
+    """Bitwise in every mode (the result is integer), on a row-major and a
+    K-major W; the kernel each call ran, read from ``launches_tc``, is the
+    one ``takes_tc`` names."""
     gen = torch.Generator(device=dev).manual_seed(0)
     y = torch.randint(0, 16, (m, k), generator=gen, device=dev,
                       dtype=torch.int8)
     w = torch.randint(0, 16, (k, n), generator=gen, device=dev,
                       dtype=torch.int8)
+    wk = w.t().contiguous().t()
     for mode in MODES:
-        assert torch.equal(lkern.luna_mm(y, w, mode),
-                           luna_mm_ref(y, w, mode)), mode
+        want = luna_mm_ref(y, w, mode)
+        for layout, ww in (("row", w), ("k", wk)):
+            tc0 = lkern.luna_mm.launches_tc
+            got = lkern.luna_mm(y, ww, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (mode, layout)
+            assert (lkern.luna_mm.launches_tc - tc0
+                    == lkern.takes_tc(m, k, n, layout, True)), (mode, layout)
 
 
 def test_quant_matmul_card_matches_cpu(dev):
