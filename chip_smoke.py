@@ -9,16 +9,22 @@ result line):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> fail;
 2. build every CUDA source of the port with nvcc for sm_90a, one nvcc per
-   source, all started together (seconds);
+   source, all started together (seconds); the SASS instructions a code of
+   the D&C kernels' streaming loops (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, times by
    CUDA events, each beside its bound:
-   a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``) at every
-      yi-9b and mamba2-1.3b decode projection shape (mamba2's w_in
-      2048 x 8512 leaves a ragged 320-column block), M in {1, 8}, bf16 x,
-      codes cold in L2, at the tolerance stated in
-      ``kernels/lut_gemm/lut_gemm.py``; x = I bitwise; a ragged shape;
-      each checked call synchronised and named on a fault; at M = 8 also
-      device-only times (``graph_ms``: CUDA-graph replays);
+   a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``) on both
+      their kernels at every yi-9b and mamba2-1.3b decode projection shape
+      (mamba2's w_in 2048 x 8512 leaves a ragged 64-column tile), codes
+      cold in L2, at the tolerance stated in ``kernels/lut_gemm/lut_gemm.py``:
+      the tensor-core kernel (``lut_gemm_tc.cu``, bf16 x at M <= 32) at M
+      in {1, 8, 16, 32}, the f32-FMA kernel (``lut_gemm.cu``) at M in {1,
+      8} on bf16 x and on f32 x; the kernel each public call ran read from
+      ``launches_tc``; x = I bitwise, at once on the f32 kernel and 8 rows
+      a call on the tensor-core one; ragged shapes; each checked call
+      synchronised and named on a fault; both kernels timed at M = 8 by
+      events and device-only (``graph_ms``: CUDA-graph replays), at the
+      other M device-only (the route's edge);
    b. the LUNA GEMM (``luna_mm``) in all five modes, int32 bitwise, both
       its kernels (the int8 tensor-core ``luna_mm_tc.cu`` and the __dp4a
       ``luna_mm.cu``) and the public call on a row-major and a K-major W,
@@ -29,7 +35,7 @@ result line):
       and device-only; ``torch._int_mm`` on a row-major and on a K-major
       W as the library yardstick for the exact modes, M > 16);
    c. the full-table LUT GEMM (``lut_gemm``), NF4 codes, M in {8, 512},
-      1e-4; x = I bitwise; a ragged shape; device-only times at M = 8;
+      1e-4; x = I bitwise; a ragged shape; device-only times at both M;
    d. the SSD chunk scan (``ssd_scan``) at mamba2's widths (H = 64, P =
       64, N = 128, G = 1, chunk min(256, S)) for (B, S) in {(1, 48),
       (1, 272) with a carried initial state, (1, 448) masked at 438 (off
@@ -61,7 +67,8 @@ result line):
 6. the main path at yi-9b's full width in bf16 (random weights, seed 0):
    the engine serves 8 requests (prompts 16-512, 32 new tokens)
    a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
-      decode projections on the D&C kernels);
+      decode projections on the D&C kernels, every launch on the
+      tensor-core kernel);
    b. under the model-level modes luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm: prefill calls at M >= 32 on its
       tensor-core kernel, decode's M = 8 on the __dp4a kernel, each count
@@ -70,8 +77,8 @@ result line):
    random weights from seed 0): the same 8 request lengths under
    full precision, lut4 and nf4p; every prefill runs the SSD scan on
    ``ssd_scan`` (once per layer per call), decode the O(1) recurrence
-   with w_in/w_out on the D&C kernels; the first (prefill) tokens agree
-   across the three runs;
+   with w_in/w_out on the D&C kernels (every launch on the tensor-core
+   kernel); the first (prefill) tokens agree across the three runs;
 8. training at yi-9b's full width, depth cut 48 -> 8 (bf16, random
    weights from seed 0, SyntheticLM seed 0): the trainer's step
    (``make_train_step``, AdamW + cosine, remat) for 6 steps of B = 2, S =
@@ -128,6 +135,8 @@ MAMBA2_SHAPES = [(2048, 8512), (4096, 2048)]
 #: frozen decode projections per layer, by family
 PROJECTIONS = {"dense": 7, "ssm": 2}
 COLD_BYTES = 256 << 20       # rotate code copies past the 50 MB L2
+#: the wrappers that count their tensor-core route's launches
+TC_ROUTED = ("luna_mm", "lut_gemm_dc", "lut_gemm_dc_res")
 
 
 T0 = time.perf_counter()
@@ -240,12 +249,70 @@ def cold_copies(t, nbytes: int) -> list:
     return [t] + [t.clone() for _ in range(max(1, COLD_BYTES // nbytes) - 1)]
 
 
+def sass_loops(lib, match) -> list:
+    """The loops of every kernel in ``lib`` whose (mangled) name holds all
+    of ``match``, from ``cuobjdump -sass``: per loop (a branch back to an
+    earlier address) its SASS instructions and, by opcode, the code loads
+    (``LDG``: 4 codes a 32-bit load in lut_gemm.cu, 16 a 128-bit load in
+    lut_gemm_tc.cu), the tensor-core products (``HMMA``), the shared loads
+    and the byte permutes, so that instructions per code are read off the
+    loop that streams the codes."""
+    import re
+    import shutil
+    cuobjdump = os.path.join(os.path.dirname(
+        shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return ["not measured: no cuobjdump"]
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    found = []
+    for func in out.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if not all(m in name for m in match):
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        for end, (addr, text) in enumerate(ins):
+            tgt = re.search(r"BRA\s+(0x[0-9a-f]+)", text)
+            if not tgt or int(tgt.group(1), 16) >= addr:
+                continue
+            loop = [t.split()[1 if t.startswith("@") else 0]
+                    for _, t in ins[at[int(tgt.group(1), 16)]:end + 1]]
+
+            def ops(name):
+                return sum(1 for op in loop if op.split(".")[0] == name)
+            ldg_128 = sum(1 for op in loop if op.split(".")[0] == "LDG"
+                          and ".128" in op)
+            ldg_32 = ops("LDG") - ldg_128 - sum(
+                1 for op in loop if op.split(".")[0] == "LDG" and ".64" in op)
+            if ldg_32 + ldg_128 == 0:
+                continue            # not a loop over the codes
+            found.append({"kernel": name[-60:], "instructions": len(loop),
+                          "ldg_32": ldg_32, "ldg_128": ldg_128,
+                          "hmma": ops("HMMA"), "lds": ops("LDS"),
+                          "prmt": ops("PRMT"), "ffma": ops("FFMA")})
+    return found
+
+
+#: M of phase 3a's tensor-core checks (decode sizes up to the kernel's 32)
+DC_TC_M = (1, 8, 16, 32)
+
+
 def kernel_phase(dev, device_times: bool = True):
-    """Phase 3a: both D&C kernels against their plain versions, each
-    checked call synchronised and named (spec, shape, call) on a fault.
-    ``device_times=False`` leaves out the CUDA-graph timings (for a run
-    under ``CUDA_LAUNCH_BLOCKING=1``, which graph capture does not
-    take)."""
+    """Phase 3a: both D&C wrappers on both their kernels against the plain
+    versions, each checked call synchronised and named (spec, shape, call)
+    on a fault, the kernel each public call ran read from ``launches_tc``
+    and held to ``takes_tc``.  At every yi-9b and mamba2 shape: the
+    tensor-core kernel (``lut_gemm_tc.cu``, the route of bf16 x at M <=
+    32) at ``DC_TC_M``, the f32-FMA kernel (``lut_gemm.cu``) at M in {1, 8}
+    on bf16 x and at M = 8 on f32 x; x = I bitwise, the whole (256, 4096)
+    at once on the f32 kernel and 8 rows a call on the tensor-core one;
+    ragged shapes on each.  Times, codes cold in L2: at M = 8 both kernels
+    by CUDA events and device-only (``graph_ms``), at the other M
+    device-only (the route's edge).  ``device_times=False`` leaves out the
+    CUDA-graph timings (for a run under ``CUDA_LAUNCH_BLOCKING=1``, which
+    graph capture does not take)."""
     from dataclasses import replace
 
     import torch
@@ -255,18 +322,28 @@ def kernel_phase(dev, device_times: bool = True):
     from repro_torch.kernels.lut_gemm import ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def simt(x, q):
+        return lg._launch(x, q.codes, q.scale, q.hi_tab, q.lo_tab,
+                          q.residual, q.zero_point)
+
+    def tc(x, q):
+        return lg._launch_tc(x, q.codes, q.scale, q.hi_tab, q.lo_tab,
+                             q.residual, q.zero_point)
+
     specs = {
         "lut_gemm_dc": dict(
-            fn=lambda x, q: lg.lut_gemm_dc(x, q.codes, q.hi_tab, q.lo_tab,
-                                           q.zero_point, q.scale),
+            fn=lg.lut_gemm_dc,
+            args=lambda q: (q.codes, q.hi_tab, q.lo_tab, q.zero_point,
+                            q.scale),
             plain=lambda x, q: ref.lut_gemm_dc_ref(
                 x, q.codes, q.hi_tab, q.lo_tab, q.zero_point, q.scale),
             quant=("lut_dc", None), table_bytes=32,
             replaces="src/repro/kernels/lut_gemm/lut_gemm.py:214"),
         "lut_gemm_dc_res": dict(
-            fn=lambda x, q: lg.lut_gemm_dc_res(
-                x, q.codes, q.hi_tab, q.lo_tab, q.residual, q.zero_point,
-                q.scale),
+            fn=lg.lut_gemm_dc_res,
+            args=lambda q: (q.codes, q.hi_tab, q.lo_tab, q.residual,
+                            q.zero_point, q.scale),
             plain=lambda x, q: ref.lut_gemm_dc_res_ref(
                 x, q.codes, q.hi_tab, q.lo_tab, q.residual, q.zero_point,
                 q.scale),
@@ -275,81 +352,133 @@ def kernel_phase(dev, device_times: bool = True):
     }
     results = {}
     for name, sp in specs.items():
+        wrap = sp["fn"]
+
         def qweight(k, n):
             w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
             return synced(f"phase 3a {name}: quantize_weight ({k}, {n})",
                           lambda: quantize_weight(w, *sp["quant"]))
 
-        # exact: x = I reads the dequantized weight back, bitwise
+        def public(x, q, what):
+            """The public call, its kernel held to ``takes_tc``."""
+            m, k = x.shape
+            n = q.codes.shape[1]
+            tc0 = wrap.launches_tc
+            out = synced(f"phase 3a {name} ({m}, {k}, {n}): {what}",
+                         lambda: wrap(x, *sp["args"](q)))
+            want_tc = lg.takes_tc(m, k, n, x.dtype, True)
+            check(wrap.launches_tc - tc0 == want_tc,
+                  f"{name} ({m}, {k}, {n}) {x.dtype}: "
+                  f"{wrap.launches_tc - tc0} tensor-core launches, "
+                  f"takes_tc says {want_tc}")
+            return out
+
+        def hold(x, q, what, out=None):
+            m, k = x.shape
+            n = q.codes.shape[1]
+            out = public(x, q, what) if out is None else out
+            plain = synced(f"phase 3a {name} ({m}, {k}, {n}): plain "
+                           "version", lambda: sp["plain"](x, q))
+            torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
+                                       atol=lg.KERNEL_ATOL)
+            return (out - plain).abs().max().item()
+
+        # exact: x = I reads the dequantized weight back, bitwise: the
+        # f32-FMA kernel at M = 256, the tensor-core kernel 8 rows a call
         q = qweight(256, 4096)
         eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
         want = synced(f"phase 3a {name}: dc_dequant (256, 4096), the plain "
                       "x = I reference", lambda: ref.dc_dequant(
                           q.codes, q.hi_tab, q.lo_tab, q.zero_point,
                           q.residual) * q.scale[None, :])
-        got = synced(f"phase 3a {name} (256, 256, 4096): kernel, x = I",
-                     lambda: sp["fn"](eye, q))
-        check(torch.equal(got, want),
-              f"{name}: x = I output is not bitwise the dequantized weight")
-        # ragged M, K, N (the unvectorised, masked path)
-        q = qweight(72, 40)
-        x = torch.randn((3, 72), generator=gen, device=dev)
-        got = synced(f"phase 3a {name} (3, 72, 40): kernel, ragged",
-                     lambda: sp["fn"](x, q))
-        torch.testing.assert_close(got, sp["plain"](x, q),
-                                   rtol=lg.KERNEL_RTOL, atol=lg.KERNEL_ATOL)
+        got = public(eye, q, "f32 kernel, x = I")
+        check(torch.equal(got, want), f"{name}: x = I output of the f32 "
+              "kernel is not bitwise the dequantized weight")
+        for r in range(0, 256, 8):
+            got = public(eye[r:r + 8], q, f"tensor-core kernel, x = I rows "
+                         f"{r}..{r + 7}")
+            check(torch.equal(got, want[r:r + 8]),
+                  f"{name}: x = I rows {r}..{r + 7} on the tensor-core "
+                  "kernel are not bitwise the dequantized weight")
+        # ragged M, K, N: the f32 kernel's unvectorised path; the tensor-
+        # core kernel's zero-filled steps, columns and n-tiles
+        max_err = 0.0
+        for m, k, n, dt in ((3, 72, 40, torch.float32),
+                            (3, 72, 48, torch.bfloat16),
+                            (29, 1000, 208, torch.bfloat16)):
+            q = qweight(k, n)
+            x = torch.randn((m, k), generator=gen, device=dev, dtype=dt)
+            max_err = max(max_err, hold(x, q, "ragged"))
 
-        per_shape, max_err = [], 0.0
+        per_shape = []
         for k, n in sorted(set(LAYER_SHAPES) | set(MAMBA2_SHAPES)):
             q = qweight(k, n)
             copies = [q] + [replace(q, codes=q.codes.clone()) for _ in
                             range(max(1, COLD_BYTES // (k * n)) - 1)]
-            for m in (1, 8):
+            calls = max(20, len(copies))
+            for m in DC_TC_M:
                 x = torch.randn((m, k), generator=gen, device=dev,
                                 dtype=torch.bfloat16)
-                out = synced(f"phase 3a {name} ({m}, {k}, {n}): kernel",
-                             lambda: sp["fn"](x, q))
-                plain = synced(f"phase 3a {name} ({m}, {k}, {n}): plain "
-                               "version", lambda: sp["plain"](x, q))
-                torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
-                                           atol=lg.KERNEL_ATOL)
-                max_err = max(max_err, (out - plain).abs().max().item())
-                ms = cuda_ms(lambda i: sp["fn"](x, copies[i % len(copies)]),
-                             100)
-                plain_ms = cuda_ms(
-                    lambda i: sp["plain"](x, copies[i % len(copies)]), 10)
-                b_ms, b_by = bound_ms(m, k, n, 2, sp["table_bytes"])
-                row = {"m": m, "k": k, "n": n, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by}
-                if m == 8 and device_times:
+                max_err = max(max_err, hold(x, q, "public call"))
+                row = {"m": m, "k": k, "n": n}
+                if m in (1, 8):
+                    max_err = max(max_err, hold(x, q, "f32-FMA kernel", synced(
+                        f"phase 3a {name} ({m}, {k}, {n}): f32-FMA kernel",
+                        lambda: simt(x, q))))
+                if m == 8:
+                    xf = x.float()
+                    max_err = max(max_err, hold(xf, q, "public call, f32 x"))
+                    row["ms"] = cuda_ms(lambda i: wrap(
+                        x, *sp["args"](copies[i % len(copies)])), 100)
+                    row["simt_ms"] = cuda_ms(
+                        lambda i: simt(x, copies[i % len(copies)]), 100)
+                    row["plain_ms"] = cuda_ms(
+                        lambda i: sp["plain"](x, copies[i % len(copies)]),
+                        10)
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        m, k, n, 2, sp["table_bytes"])
+                if device_times:
                     row["device_ms"] = graph_ms(
-                        lambda i: sp["fn"](x, copies[i % len(copies)]),
-                        max(20, len(copies)))
+                        lambda i: tc(x, copies[i % len(copies)]), calls)
+                    row["simt_device_ms"] = graph_ms(
+                        lambda i: simt(x, copies[i % len(copies)]), calls)
                 per_shape.append(row)
             del copies
         emit({"kernel_check": name, "passed": True, "max_abs_err": max_err,
               "rtol": lg.KERNEL_RTOL, "atol": lg.KERNEL_ATOL,
-              "per_shape": per_shape})
+              "x_identity_tc_calls": 32, "per_shape": per_shape})
+
+        # the route's edge: one yi-9b layer's 7 projections, device-only
+        route = []
+        for m in DC_TC_M:
+            at = {(r["k"], r["n"]): r for r in per_shape if r["m"] == m}
+            if device_times:
+                route.append({"m": m, **{
+                    key: sum(at[kn][key] for kn in LAYER_SHAPES)
+                    for key in ("device_ms", "simt_device_ms")}})
+        emit({"dc_route": name, "tc_max_m": lg.TC_MAX_M,
+              "layer_device_ms": route})
 
         # one decoder layer's 7 projections at the main path's M = 8
         results[name] = layer_summary(
-            name, per_shape, 8,
-            source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
-            replaces=sp["replaces"], max_abs_err=max_err,
+            name, [r for r in per_shape if r["m"] == 8], 8,
+            source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm_tc.cu",
+            source_simt="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
+            replaces=sp["replaces"], max_abs_err=max_err, launches_tc=None,
             timed_as="one yi-9b layer's 7 decode projections, M=8, bf16 x, "
-                     "codes cold in L2; ms by CUDA events around eager "
-                     "calls (the host wrapper included), device_ms by "
+                     "codes cold in L2; ms the public call (the tensor-core "
+                     "kernel) and simt_ms the f32-FMA kernel by CUDA events "
+                     "around eager calls (the host wrapper included), "
+                     "device_ms and simt_device_ms the same kernels by "
                      "CUDA-graph replays (graph_ms)",
             mamba2_layer={
                 k: v for k, v in layer_summary(
-                    name, per_shape, 8, MAMBA2_SHAPES).items()
-                if k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                         "bound_by")} | {
-                "timed_as": "one mamba2-1.3b layer's w_in (2048 x 8512, "
-                            "ragged 320-column block) and w_out (4096 x "
-                            "2048), M=8"},
-            per_shape=per_shape)
+                    name, [r for r in per_shape if r["m"] == 8], 8,
+                    MAMBA2_SHAPES).items()
+                if k in ("ms", "simt_ms", "device_ms", "simt_device_ms",
+                         "plain_ms", "bound_ms", "bound_by")} | {
+                "timed_as": "one mamba2-1.3b layer's w_in (2048 x 8512) "
+                            "and w_out (4096 x 2048), M=8"})
         gc.collect()
         torch.cuda.empty_cache()
     return results
@@ -637,10 +766,9 @@ def lut_full_kernel_phase(dev):
             b_ms, b_by = bound_ms(m, k, n, 2, 64, 4, peak=F32_FLOP_S)
             row = {"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-            if m == 8:
-                row["device_ms"] = graph_ms(
-                    lambda i: lg.lut_gemm(x, copies[i % len(copies)], cb,
-                                          scale), max(20, len(copies)))
+            row["device_ms"] = graph_ms(
+                lambda i: lg.lut_gemm(x, copies[i % len(copies)], cb, scale),
+                max(20 if m == 8 else 5, len(copies)), 5 if m == 8 else 3)
             per_shape.append(row)
         del copies
     emit({"kernel_check": "lut_gemm", "passed": True, "max_abs_err": max_err,
@@ -656,6 +784,11 @@ def lut_full_kernel_phase(dev):
                  "calls, device_ms by CUDA-graph replays; bound by f32 "
                  "FMAs at 67 TFLOP/s or bytes; no single PyTorch call "
                  "computes it",
+        prefill={k: v for k, v in layer_summary(
+            "lut_gemm", per_shape, 512).items()
+            if k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+        | {"timed_as": "one layer's 7 projections at M=512 (a prefill "
+                       "call's rows)"},
         per_shape=per_shape)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1308,13 +1441,14 @@ def profile_prefill(eng, prompt) -> dict:
 
 
 def serve_once(dev, cfg, model, prompts, quant: str | None,
-               kern: str | None) -> tuple[dict, list, int]:
+               kern: str | None) -> tuple[dict, list, dict]:
     """One main-path run: the engine serves the request mix; every kernel
     counter is set to 0 just before and read just after.  Returns the
-    launches by kernel, each request's tokens and luna_mm's launches of
-    its tensor-core kernel (checked against ``takes_tc`` at each call's
-    M: max_batch rows a decode tick, rows x bucket length a prefill
-    call).  ``quant``: None
+    launches by kernel, each request's tokens and the launches of each
+    kernel's tensor-core route (``launches_tc``): luna_mm's checked against
+    its ``takes_tc`` at each call's M (max_batch rows a decode tick, rows x
+    bucket length a prefill call), every ``lut_gemm_dc`` / ``_res`` launch
+    (decode's M = max_batch, bf16) required on it.  ``quant``: None
     (full precision), an engine-level mode (EngineConfig.quant: frozen
     decode projections, prefill full precision) or a model-level one
     (cfg.quant, every projection of prefill and decode; the model shares
@@ -1361,18 +1495,20 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     reqs = [Request(rid=i, prompt=p, max_new=32)
             for i, p in enumerate(prompts)]
     wrappers = kernel_wrappers()
-    luna = wrappers["luna_mm"]
+    with_tc = [wrappers[n] for n in TC_ROUTED]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in wrappers.values():
         f.launches = 0
-    luna.launches_tc = 0
+    for f in with_tc:
+        f.launches_tc = 0
     t0 = time.perf_counter()
     stats = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: f.launches for name, f in wrappers.items()}
-    luna_tc = luna.launches_tc
+    tc = {f.__name__: f.launches_tc for f in with_tc}
+    luna_tc = tc["luna_mm"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in watched:
         del m.logits
@@ -1407,6 +1543,10 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     check(luna_tc == want_tc,
           f"{cfg.name} {quant}: {luna_tc} luna_mm launches on the "
           f"tensor-core kernel, want {want_tc}")
+    for n in ("lut_gemm_dc", "lut_gemm_dc_res"):
+        check(tc[n] == counts[n],
+              f"{cfg.name} {quant}: {tc[n]} of {counts[n]} {n} launches on "
+              "the tensor-core kernel")
     prof = profile_decode(eng, prompts)    # after the counts are read
     if cfg.family == "ssm":
         prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
@@ -1415,7 +1555,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
           "prompt_lens": [len(p) for p in prompts], "max_new": 32,
           "layers": layers, "decode_ticks": ticks,
           "prefill_calls": stats["prefill_calls"], "launches": counts,
-          "luna_mm_launches_tc": luna_tc, "prefill_m": prefill_m,
+          "launches_tc": tc, "prefill_m": prefill_m,
           "prefill_tok_s": stats["prefill_tok_s"],
           "decode_tok_s": stats["decode_tok_s"],
           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
@@ -1426,7 +1566,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, out, luna_tc
+    return counts, out, tc
 
 
 def add_launches(total: dict, counts: dict) -> None:
@@ -1436,41 +1576,42 @@ def add_launches(total: dict, counts: dict) -> None:
             total[name] = total.get(name, 0) + n
 
 
-def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, int]:
+def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
     """Phase 6: the engine at yi-9b's full width; returns launches by
-    kernel and luna_mm's launches of its tensor-core kernel.  6a:
+    kernel and by tensor-core route (``launches_tc``).  6a:
     engine-level lut4 / nf4p (decode projections on the D&C kernels,
     prefill full precision).  6b: model-level luna_approx2 / luna_dc
     (every projection on luna_mm) and lut_nf4 (on lut_gemm)."""
-    launches, outs, luna_tc = {}, {}, 0
+    launches, outs, tc_total = {}, {}, {}
     for quant, kern in (("lut4", "lut_gemm_dc"), ("nf4p", "lut_gemm_dc_res"),
                         ("luna_approx2", "luna_mm"), ("luna_dc", "luna_mm"),
                         ("lut_nf4", "lut_gemm")):
         counts, outs[quant], tc = serve_once(dev, cfg, model, prompts, quant,
                                              kern)
         add_launches(launches, counts)
-        luna_tc += tc
+        add_launches(tc_total, tc)
     # prefill runs the same full-precision model under lut4 and nf4p
     check([o[0] for o in outs["lut4"]] == [o[0] for o in outs["nf4p"]],
           "first (prefill) tokens differ between the lut4 and nf4p runs")
-    return launches, luna_tc
+    return launches, tc_total
 
 
-def ssm_main_path_phase(dev, cfg, model, prompts) -> dict:
+def ssm_main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
     """Phase 7: the engine at mamba2-1.3b's full width (48 layers, bf16);
-    returns launches by kernel.  Prefill (full precision in every run) on
+    returns launches by kernel and by tensor-core route.  Prefill (full precision in every run) on
     ssd_scan, decode full precision, then w_in/w_out frozen to lut4 (on
     lut_gemm_dc) and nf4p (on lut_gemm_dc_res)."""
-    launches, outs = {}, {}
+    launches, outs, tc_total = {}, {}, {}
     for quant, kern in ((None, None), ("lut4", "lut_gemm_dc"),
                         ("nf4p", "lut_gemm_dc_res")):
-        counts, outs[quant], _ = serve_once(dev, cfg, model, prompts, quant,
-                                            kern)
+        counts, outs[quant], tc = serve_once(dev, cfg, model, prompts, quant,
+                                             kern)
         add_launches(launches, counts)
+        add_launches(tc_total, tc)
     firsts = {q: [o[0] for o in out] for q, out in outs.items()}
     check(firsts[None] == firsts["lut4"] == firsts["nf4p"],
           f"mamba2 first (prefill) tokens differ between runs: {firsts}")
-    return launches
+    return launches, tc_total
 
 
 def profile_train_step(step_fn, model, opt_state, batch) -> tuple:
@@ -1822,6 +1963,19 @@ def main() -> int:
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
+    # SASS instructions a code of the D&C kernels' streaming loops (M <= 8
+    # instantiations, bf16 x: the main path's)
+    loops = {"lut_gemm.cu": sass_loops(libs["lut_gemm"], (
+                 "lut_gemm_dc_split_kernel", "ILi8E", "Lb1E", "bfloat16")),
+             "lut_gemm_tc.cu": sass_loops(libs["lut_gemm_tc"],
+                                          ("lut_gemm_tc_kernelILi1E",))}
+    for lps in loops.values():
+        for lp in lps:
+            if isinstance(lp, str):
+                continue
+            codes = 4 * lp["ldg_32"] + 16 * lp["ldg_128"]
+            lp["per_code"] = lp["instructions"] / codes if codes else None
+    emit({"sass_loops": loops})
     emit({"build_s": build_s, "libs": [p.name for p in libs.values()],
           "ptxas_max_registers": max(
               (int(ln.split("Used ")[1].split()[0]) for ln in ptxas
@@ -1839,8 +1993,10 @@ def main() -> int:
     small_ssm_reference_phase(dev)
     small_training_phase(dev)
     quant_matmul_phase(dev)
-    launches, luna_tc = main_path_phase(dev, *build_model(dev, args.layers))
-    add_launches(launches, ssm_main_path_phase(dev, *build_ssm_model(dev)))
+    launches, tc = main_path_phase(dev, *build_model(dev, args.layers))
+    ssm_launches, ssm_tc = ssm_main_path_phase(dev, *build_ssm_model(dev))
+    add_launches(launches, ssm_launches)
+    add_launches(tc, ssm_tc)
     gc.collect()
     torch.cuda.empty_cache()
     launches_train, flash_tc, luna_tc_train = train_phase(dev)
@@ -1852,7 +2008,9 @@ def main() -> int:
     for name, n in launches.items():
         kernels[name]["launches"] = n
     kernels["flash_attention"]["launches_tc"] = flash_tc
-    kernels["luna_mm"]["launches_tc"] = luna_tc + luna_tc_train
+    kernels["luna_mm"]["launches_tc"] = tc.get("luna_mm", 0) + luna_tc_train
+    for name in ("lut_gemm_dc", "lut_gemm_dc_res"):
+        kernels[name]["launches_tc"] = tc.get(name, 0)
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,21 +10,41 @@
   (non-affine NF4, ``quant="nf4"``/``"nf4p"``).  Replaces the Pallas
   ``lut_gemm.py:168 lut_gemm_dc_res``.
 
-A CUDA tensor launches the kernel (``csrc/lut_gemm.cu``, built on first
-use) on ``torch.cuda.current_stream()``, or the call raises; a CPU tensor
-takes the plain version in ``ref.py`` (for :func:`lut_gemm`, JAX's
-``lut_gemm_ref``, which folds the scale into the weight before the
-matmul; the kernel applies it after, as the Pallas kernel does).  Nothing
-falls back.  Each wrapper counts its kernel launches in a plain integer
-attribute, ``launches``.
+A CUDA tensor launches a kernel on ``torch.cuda.current_stream()``, or the
+call raises; a CPU tensor takes the plain version in ``ref.py`` (for
+:func:`lut_gemm`, JAX's ``lut_gemm_ref``, which folds the scale into the
+weight before the matmul; the kernel applies it after, as the Pallas
+kernel does).  Nothing falls back.  Which kernel the D&C wrappers launch
+is fixed by dtype, shape and alignment alone (:func:`takes_tc`):
+
+* the tensor-core kernel (``csrc/lut_gemm_tc.cu``: ``mma.sync`` bf16 on
+  exact bf16 pieces of the 16-entry table, split-K summed on chip, one
+  launch) for bf16 x, 1 <= M <= ``TC_MAX_M``, N % 16 == 0, K % 4 == 0 and
+  16-byte aligned bases: the decode projections of the main path;
+* the f32-FMA kernel (``csrc/lut_gemm.cu``, split-K through a workspace
+  and a second pass) for the rest: f32 x, larger M, unaligned shapes, and
+  every :func:`lut_gemm` call.
+
+Both build on first use.  Each wrapper counts its launches in a plain
+integer attribute, ``launches``; the D&C wrappers count those of the
+tensor-core kernel in ``launches_tc``.
 
 Tolerance of kernel against plain version on the card: rtol = atol =
 ``KERNEL_RTOL``/``KERNEL_ATOL`` (1e-4).  Both sum up to 11008 f32 products
-per output in different orders (the kernel: split-K slices of <= 1024 rows
-in k order, the slices summed in index order; the plain version: the
-library matmul's own tiling), which moves results by ~1e-6 at unit
-output scale; the bound leaves two orders of margin.  The dequantized
-weight itself (``x = I``) must match bitwise.
+per output in different orders (the f32 kernel: split-K slices of <= 1024
+rows in k order, the slices summed in index order; the tensor-core
+kernel: 16-row steps on the tensor cores, each table piece's products
+exact, warps and cluster ranks summed in a fixed order, then the zero
+point as ``fmaf(-rowsum(x), zp, acc)``; the plain version: the library
+matmul's own tiling), which moves results by ~1e-6 at unit output scale;
+the bound leaves two orders of margin.  The tensor-core kernel's zero
+point adds no cancellation beyond f32's: its two terms, ``x @ T`` and
+``rowsum(x) * zp``, are of the size of ``x @ (T - zp)`` itself (the zero
+point sits inside the table's range), so the f32 roundings of each are
+of the size of the plain version's own.  The dequantized weight itself (``x`` = rows of I) must
+match bitwise on both kernels: there ``acc = T[q]`` exactly (the three
+bf16 pieces sum back to T) and ``rowsum = 1``, so ``T[q] - zp`` is rounded
+once, as the plain version does.
 """
 from __future__ import annotations
 
@@ -46,6 +66,18 @@ M_TILE_MAX = 8
 #: blocks to aim for: four per SM of an H100 (132 SMs)
 TARGET_BLOCKS = 4 * 132
 
+#: the tensor-core kernel's geometry (mirrors csrc/lut_gemm_tc.cu): columns
+#: a block, the largest M (four n8 tiles), the largest cluster (K slices
+#: summed through distributed shared memory), K rows an MMA step
+TC_BLOCK_N = 128
+TC_MAX_M = 32
+TC_MAX_CLUSTER = 16
+TC_KSTEP = 16
+#: SMs of an H100; the kernel fits two blocks an SM at M <= 8, one above
+SMS = 132
+#: bases of x and the codes aligned to this many bytes (16-byte loads)
+TC_ALIGN = 16
+
 
 def split_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
     """(m_tile, splits, k_split) for an (M, K) x (K, N) problem: enough
@@ -57,6 +89,30 @@ def split_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
     k_split = -(-k // want)
     k_split = min(KSPLIT_MAX, -(-k_split // 32) * 32)
     return m_tile, -(-k // k_split), k_split
+
+
+def takes_tc(m: int, k: int, n: int, x_dtype: torch.dtype,
+             aligned: bool) -> bool:
+    """Whether a CUDA call of :func:`lut_gemm_dc` / :func:`lut_gemm_dc_res`
+    of this shape runs the tensor-core kernel (else the f32-FMA kernel).
+    ``aligned``: both bases ``TC_ALIGN``-byte aligned."""
+    return (x_dtype == torch.bfloat16 and 1 <= m <= TC_MAX_M
+            and n % 16 == 0 and k % 4 == 0 and aligned)
+
+
+def tc_split_plan(m: int, k: int, n: int) -> int:
+    """The tensor-core kernel's K slices (its cluster size): as many as fill
+    the card's block slots (two an SM at M <= 8, one above) beside the
+    ``TC_BLOCK_N``-column tiles, at most ``TC_MAX_CLUSTER``, and no more
+    than leave every slice some of the 16-row K steps.  The kernel takes
+    fewer where the card cannot hold that many clusters at once (it asks
+    ``cudaOccupancyMaxActiveClusters``): a second wave of a few clusters
+    would double the call's time."""
+    tiles = -(-n // TC_BLOCK_N)
+    slots = (2 if m <= 8 else 1) * SMS
+    steps = -(-k // TC_KSTEP)
+    splits = max(1, min(TC_MAX_CLUSTER, steps, slots // tiles))
+    return -(-steps // -(-steps // splits))
 
 
 def _lib():
@@ -75,6 +131,23 @@ def _lib():
                     lib.lut_gemm_m_tile_max())
         if geometry != (BLOCK_N, KSPLIT_MAX, M_TILE_MAX):
             raise RuntimeError(f"lut_gemm.cu geometry {geometry} differs "
+                               "from the wrapper's")
+    return lib
+
+
+def _tc_lib():
+    """The tensor-core kernel's library, its entry point typed on first
+    use."""
+    from repro_torch.kernels._build import load_library
+    lib = load_library("lut_gemm_tc")
+    if lib.lut_gemm_tc_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lut_gemm_tc_launch.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.lut_gemm_tc_launch.restype = ctypes.c_int
+        geometry = (lib.lut_gemm_tc_block_n(), lib.lut_gemm_tc_max_m(),
+                    lib.lut_gemm_tc_max_cluster(), lib.lut_gemm_tc_kstep())
+        if geometry != (TC_BLOCK_N, TC_MAX_M, TC_MAX_CLUSTER, TC_KSTEP):
+            raise RuntimeError(f"lut_gemm_tc.cu geometry {geometry} differs "
                                "from the wrapper's")
     return lib
 
@@ -132,6 +205,41 @@ def _launch(x, w_codes, scale, hi_tab=None, lo_tab=None, residual=None,
     return out
 
 
+def _launch_tc(x, w_codes, scale, hi_tab, lo_tab, residual, zero_point):
+    """The tensor-core kernel (``residual`` None: ``lut_gemm_dc``)."""
+    ops = (x, w_codes, scale, hi_tab, lo_tab, residual, zero_point)
+    if not all(t.is_contiguous() for t in ops if t is not None):
+        raise ValueError("lut_gemm kernels take contiguous operands")
+    m, k = x.shape
+    n = w_codes.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _tc_lib().lut_gemm_tc_launch(
+            x.data_ptr(), w_codes.data_ptr(), hi_tab.data_ptr(),
+            lo_tab.data_ptr(), None if residual is None else
+            residual.data_ptr(), zero_point.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), m, k, n, tc_split_plan(m, k, n), stream)
+    if err != 0:
+        raise RuntimeError(f"lut_gemm tensor-core kernel launch failed: "
+                           f"cudaError_t {err}")
+    return out
+
+
+def _launch_dc(x, w_codes, scale, hi_tab, lo_tab, residual, zero_point):
+    """One D&C call on the kernel :func:`takes_tc` names; returns (out,
+    whether it was the tensor-core kernel)."""
+    m, k = x.shape
+    n = w_codes.shape[1]
+    aligned = (x.data_ptr() % TC_ALIGN == 0
+               and w_codes.data_ptr() % TC_ALIGN == 0)
+    if takes_tc(m, k, n, x.dtype, aligned):
+        return _launch_tc(x, w_codes, scale, hi_tab, lo_tab, residual,
+                          zero_point), True
+    return _launch(x, w_codes, scale, hi_tab, lo_tab, residual,
+                   zero_point), False
+
+
 def lut_gemm_dc(x: torch.Tensor, w_codes: torch.Tensor, hi_tab: torch.Tensor,
                 lo_tab: torch.Tensor, zero_point: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
@@ -146,8 +254,10 @@ def lut_gemm_dc(x: torch.Tensor, w_codes: torch.Tensor, hi_tab: torch.Tensor,
         return lut_gemm_dc_ref(x, w_codes, hi_tab, lo_tab, zero_point, scale)
     if x.device.type != "cuda":
         raise ValueError(f"lut_gemm_dc runs on cuda or cpu, not {x.device}")
-    out = _launch(x, w_codes, scale, hi_tab, lo_tab, None, zero_point)
+    out, tc = _launch_dc(x, w_codes, scale, hi_tab, lo_tab, None,
+                         zero_point)
     lut_gemm_dc.launches += 1
+    lut_gemm_dc.launches_tc += tc
     return out
 
 
@@ -168,8 +278,10 @@ def lut_gemm_dc_res(x: torch.Tensor, w_codes: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"lut_gemm_dc_res runs on cuda or cpu, not "
                          f"{x.device}")
-    out = _launch(x, w_codes, scale, hi_tab, lo_tab, residual, zero_point)
+    out, tc = _launch_dc(x, w_codes, scale, hi_tab, lo_tab, residual,
+                         zero_point)
     lut_gemm_dc_res.launches += 1
+    lut_gemm_dc_res.launches_tc += tc
     return out
 
 
@@ -191,5 +303,7 @@ def lut_gemm(x: torch.Tensor, w_codes: torch.Tensor, codebook: torch.Tensor,
 
 
 lut_gemm_dc.launches = 0
+lut_gemm_dc.launches_tc = 0
 lut_gemm_dc_res.launches = 0
+lut_gemm_dc_res.launches_tc = 0
 lut_gemm.launches = 0

@@ -6,7 +6,9 @@ machine with the card and no JAX:
 
 * ``lut_gemm_dc`` / ``lut_gemm_dc_res`` / ``lut_gemm`` against their plain
   versions at the tolerance stated in ``kernels/lut_gemm/lut_gemm.py``;
-  the dequantized weight (x = I) bitwise;
+  the dequantized weight (x = I) bitwise; the D&C wrappers' tensor-core
+  kernel (bf16 x, M <= 32: ``lut_gemm_tc.cu``) the same way, x = I taken
+  8 rows a call, the kernel each call ran read from ``launches_tc``;
 * ``luna_mm`` against its plain version, bitwise, every mode, on a
   row-major and a K-major W, across the tensor-core kernel's tile edges,
   each call's kernel (``launches_tc``) the one ``takes_tc`` names;
@@ -91,6 +93,56 @@ def test_kernels_match_plain_on_card(dev, m, k, n):
     eye = torch.eye(k, device=dev, dtype=torch.bfloat16)[:min(k, 256)]
     assert torch.equal(tkern.lut_gemm(eye, codes, cb, scale),
                        (cb[codes.long()] * scale[None, :])[:eye.shape[0]])
+
+
+def _dc_weights(dev, k, n):
+    """lut4's and nf4p's frozen weights of one (K, N) matrix, with the
+    D&C wrapper, its plain version and the tables each takes."""
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+    out = []
+    for kernel, fn, ref in (
+            ("lut_dc", tkern.lut_gemm_dc, tref.lut_gemm_dc_ref),
+            ("nf4_dc", tkern.lut_gemm_dc_res, tref.lut_gemm_dc_res_ref)):
+        q = tq.quantize_weight(w, kernel, tq.NF4P_PRUNE_THRESHOLD
+                               if kernel == "nf4_dc" else None)
+        tables = ((q.hi_tab, q.lo_tab) if kernel == "lut_dc"
+                  else (q.hi_tab, q.lo_tab, q.residual))
+        out.append((fn, ref, q, (q.codes, *tables, q.zero_point, q.scale)))
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 512), (8, 4096, 4096),
+                                   (16, 4096, 11008), (32, 11008, 4096),
+                                   (8, 2048, 8512), (29, 1000, 208),
+                                   (3, 72, 48)])
+def test_lut_gemm_tc_matches_plain_on_card(dev, m, k, n):
+    """The tensor-core route of both D&C wrappers against its plain
+    version at the kernel tolerance; ``launches_tc`` counts the call."""
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn((m, k), generator=gen, device=dev, dtype=torch.bfloat16)
+    assert tkern.takes_tc(m, k, n, x.dtype, True)
+    for fn, ref, _, args in _dc_weights(dev, k, n):
+        tc0 = fn.launches_tc
+        got = fn(x, *args)
+        torch.cuda.synchronize()
+        assert fn.launches_tc - tc0 == 1
+        torch.testing.assert_close(got, ref(x, *args),
+                                   rtol=tkern.KERNEL_RTOL,
+                                   atol=tkern.KERNEL_ATOL)
+
+
+def test_lut_gemm_tc_reads_weight_back_bitwise_on_card(dev):
+    """x = rows of I, 8 a call (the tensor-core route), reads every row of
+    a (256, 4096) weight back bitwise: ``(T[q] - zp) * scale``."""
+    eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    for fn, _, q, args in _dc_weights(dev, 256, 4096):
+        want = tref.dc_dequant(q.codes, q.hi_tab, q.lo_tab, q.zero_point,
+                               q.residual) * q.scale[None, :]
+        tc0 = fn.launches_tc
+        for r in range(0, 256, 8):
+            assert torch.equal(fn(eye[r:r + 8], *args), want[r:r + 8]), r
+        assert fn.launches_tc - tc0 == 32
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 512), (8, 11008, 4096),
