@@ -10,7 +10,8 @@ result line):
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> fail;
 2. build every CUDA source of the port with nvcc for sm_90a, one nvcc per
    source, all started together (seconds); the SASS instructions a code of
-   the D&C kernels' streaming loops (``cuobjdump -sass``);
+   the LUT kernels' streaming loops (``cuobjdump -sass``), ptxas' registers
+   and spills of the LUT tensor-core libraries;
 3. each kernel against its plain PyTorch version on the card, times by
    CUDA events, each beside its bound:
    a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``) on both
@@ -34,8 +35,16 @@ result line):
       {8, 512, 2048} at yi-9b's four projection shapes (times by events
       and device-only; ``torch._int_mm`` on a row-major and on a K-major
       W as the library yardstick for the exact modes, M > 16);
-   c. the full-table LUT GEMM (``lut_gemm``), NF4 codes, M in {8, 512},
-      1e-4; x = I bitwise; a ragged shape; device-only times at both M;
+   c. the full-table LUT GEMM (``lut_gemm``), NF4 codes, on each of its
+      kernels (the tensor-core decode kernel ``lut_gemm_tc.cu``'s
+      full-table mode, bf16 x at M <= 32; the tensor-core prefill kernel
+      ``lut_gemm_wgmma.cu``, bf16 x at larger M; ``lut_gemm.cu``), 1e-4,
+      the kernel each public call ran held to ``route``; x = I bitwise on
+      each; ragged shapes on each route and shapes TMA cannot take; at
+      yi-9b's projection shapes and M in {8, 16, 32, 48, 64, 160, 176,
+      272, 336, 448, 512} (decode, the prefill calls' M and 512) every
+      kernel that takes that M, device-only and by events, beside the
+      bound at the bf16 peak and the three-piece floor;
    d. the SSD chunk scan (``ssd_scan``) at mamba2's widths (H = 64, P =
       64, N = 128, G = 1, chunk min(256, S)) for (B, S) in {(1, 48),
       (1, 272) with a carried initial state, (1, 448) masked at 438 (off
@@ -72,7 +81,9 @@ result line):
    b. under the model-level modes luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm: prefill calls at M >= 32 on its
       tensor-core kernel, decode's M = 8 on the __dp4a kernel, each count
-      checked) and lut_nf4 (on lut_gemm);
+      checked) and lut_nf4 (on lut_gemm: decode and the M = 32 prefill
+      call on the tensor-core decode kernel, the larger prefill calls on
+      the prefill kernel, each count checked against ``route``);
 7. the main path at mamba2-1.3b's full width (always all 48 layers, bf16,
    random weights from seed 0): the same 8 request lengths under
    full precision, lut4 and nf4p; every prefill runs the SSD scan on
@@ -136,7 +147,8 @@ MAMBA2_SHAPES = [(2048, 8512), (4096, 2048)]
 PROJECTIONS = {"dense": 7, "ssm": 2}
 COLD_BYTES = 256 << 20       # rotate code copies past the 50 MB L2
 #: the wrappers that count their tensor-core route's launches
-TC_ROUTED = ("luna_mm", "lut_gemm_dc", "lut_gemm_dc_res")
+#: (``launches_tc``; lut_gemm's prefill kernel's in ``launches_wgmma``)
+TC_ROUTED = ("luna_mm", "lut_gemm_dc", "lut_gemm_dc_res", "lut_gemm")
 
 
 T0 = time.perf_counter()
@@ -249,14 +261,16 @@ def cold_copies(t, nbytes: int) -> list:
     return [t] + [t.clone() for _ in range(max(1, COLD_BYTES // nbytes) - 1)]
 
 
-def sass_loops(lib, match) -> list:
+def sass_loops(lib, match, stream: str = "LDG") -> list:
     """The loops of every kernel in ``lib`` whose (mangled) name holds all
     of ``match``, from ``cuobjdump -sass``: per loop (a branch back to an
-    earlier address) its SASS instructions and, by opcode, the code loads
-    (``LDG``: 4 codes a 32-bit load in lut_gemm.cu, 16 a 128-bit load in
-    lut_gemm_tc.cu), the tensor-core products (``HMMA``), the shared loads
+    earlier address) that holds a ``stream`` instruction, its SASS
+    instructions and, by opcode, the code loads (``LDG``: 4 codes a 32-bit
+    load in lut_gemm.cu, 16 a 128-bit load in lut_gemm_tc.cu), the
+    tensor-core products (``HMMA``; ``HGMMA``, wgmma), the shared loads
     and the byte permutes, so that instructions per code are read off the
-    loop that streams the codes."""
+    loop that streams the codes (lut_gemm_wgmma.cu's codes arrive by TMA:
+    ``stream="HGMMA"`` finds its loops)."""
     import re
     import shutil
     cuobjdump = os.path.join(os.path.dirname(
@@ -286,11 +300,12 @@ def sass_loops(lib, match) -> list:
                           and ".128" in op)
             ldg_32 = ops("LDG") - ldg_128 - sum(
                 1 for op in loop if op.split(".")[0] == "LDG" and ".64" in op)
-            if ldg_32 + ldg_128 == 0:
+            if (ldg_32 + ldg_128 if stream == "LDG" else ops(stream)) == 0:
                 continue            # not a loop over the codes
             found.append({"kernel": name[-60:], "instructions": len(loop),
                           "ldg_32": ldg_32, "ldg_128": ldg_128,
-                          "hmma": ops("HMMA"), "lds": ops("LDS"),
+                          "hmma": ops("HMMA"), "hgmma": ops("HGMMA"),
+                          "lds": ops("LDS"),
                           "prmt": ops("PRMT"), "ffma": ops("FFMA")})
     return found
 
@@ -721,8 +736,28 @@ def luna_kernel_phase(dev):
     return {"luna_mm": entry}
 
 
+#: M of phase 3c: decode's 8, the tensor-core decode kernel's edge (16,
+#: 32), the engine's prefill calls (rows x bucket length: 448, 336, 272,
+#: 176, 160, 64, 48 and 32) and 512
+LUT_FULL_M = (8, 16, 32, 48, 64, 160, 176, 272, 336, 448, 512)
+#: lut_gemm's kernels by route, as timed in phase 3c
+LUT_FULL_KERNELS = {"tc": "lut_gemm_tc.cu", "wgmma": "lut_gemm_wgmma.cu",
+                    "fma": "lut_gemm.cu"}
+
+
 def lut_full_kernel_phase(dev):
-    """Phase 3c: the full-table lut_gemm against its plain version."""
+    """Phase 3c: the full-table lut_gemm on each of its kernels against its
+    plain version (1e-4), each checked call synchronised and named, the
+    kernel each public call ran read from ``launches_tc`` /
+    ``launches_wgmma`` and held to ``route``.  x = I bitwise on every
+    kernel (``lut_gemm.cu`` and the prefill kernel at once, the tensor-core
+    decode kernel 32 rows a call); ragged shapes on each route and on the
+    shapes TMA cannot take; then at yi-9b's projection shapes and every M
+    of ``LUT_FULL_M`` (codes cold in L2) the public call and every kernel
+    that can take that M (the decode kernel up to its 32, the prefill
+    kernel and ``lut_gemm.cu`` at all), each held to the plain version and
+    timed device-only (``graph_ms``) and by CUDA events; the bound at the
+    bf16 peak and the three-piece floor (three bf16 products) beside."""
     import torch
 
     from repro_torch.core.lut import NF4_CODEBOOK
@@ -732,64 +767,150 @@ def lut_full_kernel_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(2)
     cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    wrap = lg.lut_gemm
 
     def qweight(k, n):
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
         return codebook_quantize(w.bfloat16(), cb)
 
+    def kernel(x, codes, scale, name):
+        if name == "fma":
+            return lg._launch(x, codes, scale, codebook=cb)
+        return lg._launch_full(x, codes, cb, scale, name)
+
+    def public(x, codes, scale, what):
+        """The public call, its kernel held to ``route``."""
+        m, k = x.shape
+        n = codes.shape[1]
+        before = (wrap.launches_tc, wrap.launches_wgmma)
+        out = synced(f"phase 3c lut_gemm ({m}, {k}, {n}) {x.dtype}: {what}",
+                     lambda: wrap(x, codes, cb, scale))
+        ran = {(1, 0): "tc", (0, 1): "wgmma", (0, 0): "fma"}[
+            (wrap.launches_tc - before[0], wrap.launches_wgmma - before[1])]
+        want = lg.route(m, k, n, x.dtype, True)
+        check(ran == want, f"lut_gemm ({m}, {k}, {n}) {x.dtype}: ran on "
+              f"{ran}, route says {want}")
+        return out
+
+    def hold(x, codes, scale, out):
+        plain = ref.lut_gemm_ref(x, codes, cb, scale)
+        torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
+                                   atol=lg.KERNEL_ATOL)
+        return (out - plain).abs().max().item()
+
+    # exact: x = I reads CB[q] * scale back bitwise on every kernel
     codes, scale = qweight(256, 4096)
+    want = cb[codes.long()] * scale[None, :]
     eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
-    check(torch.equal(lg.lut_gemm(eye, codes, cb, scale),
-                      cb[codes.long()] * scale[None, :]),
-          "lut_gemm: x = I output is not bitwise CB[q] * scale")
-    codes, scale = qweight(72, 40)
-    x = torch.randn((3, 72), generator=gen, device=dev)
-    torch.testing.assert_close(lg.lut_gemm(x, codes, cb, scale),
-                               ref.lut_gemm_ref(x, codes, cb, scale),
-                               rtol=lg.KERNEL_RTOL, atol=lg.KERNEL_ATOL)
-    per_shape, max_err = [], 0.0
+    got = synced("phase 3c lut_gemm: lut_gemm.cu, x = I",
+                 lambda: kernel(eye, codes, scale, "fma"))
+    check(torch.equal(got, want), "lut_gemm: x = I output of lut_gemm.cu is "
+          "not bitwise CB[q] * scale")
+    check(torch.equal(public(eye, codes, scale, "x = I (prefill kernel)"),
+                      want), "lut_gemm: x = I output of the prefill kernel "
+          "is not bitwise CB[q] * scale")
+    for r in range(0, 256, lg.TC_MAX_M):
+        rows = slice(r, r + lg.TC_MAX_M)
+        check(torch.equal(public(eye[rows], codes, scale,
+                                 f"x = I rows {r}.. (decode kernel)"),
+                          want[rows]),
+              f"lut_gemm: x = I rows {r}.. on the decode kernel are not "
+              "bitwise CB[q] * scale")
+    # ragged M, K, N on each route; f32 x and shapes TMA cannot take on
+    # lut_gemm.cu
+    max_err = 0.0
+    for m, k, n, dt in ((3, 72, 40, torch.float32),
+                        (29, 1000, 208, torch.bfloat16),
+                        (100, 528, 4112, torch.bfloat16),
+                        (300, 4112, 528, torch.bfloat16),
+                        (40, 520, 4104, torch.bfloat16),
+                        (64, 4104, 520, torch.bfloat16)):
+        codes, scale = qweight(k, n)
+        x = torch.randn((m, k), generator=gen, device=dev, dtype=dt)
+        max_err = max(max_err, hold(x, codes, scale,
+                                    public(x, codes, scale, "ragged")))
+
+    per_shape = []
     for k, n in sorted(set(LAYER_SHAPES)):
         codes, scale = qweight(k, n)
         copies = cold_copies(codes, k * n)
-        for m in (8, 512):
+        calls = max(10, len(copies))
+        for m in LUT_FULL_M:
             x = torch.randn((m, k), generator=gen, device=dev,
                             dtype=torch.bfloat16)
-            out = lg.lut_gemm(x, codes, cb, scale)
-            plain = ref.lut_gemm_ref(x, codes, cb, scale)
-            torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
-                                       atol=lg.KERNEL_ATOL)
-            max_err = max(max_err, (out - plain).abs().max().item())
-            ms = cuda_ms(lambda i: lg.lut_gemm(x, copies[i % len(copies)],
-                                               cb, scale), 50)
-            plain_ms = cuda_ms(lambda i: ref.lut_gemm_ref(
+            route = lg.route(m, k, n, x.dtype, True)
+            max_err = max(max_err, hold(x, codes, scale, public(
+                x, codes, scale, "public call")))
+            row = {"m": m, "k": k, "n": n, "route": route}
+            for name in ("tc", "wgmma", "fma"):
+                if name == "tc" and m > lg.TC_MAX_M:
+                    continue
+                out = synced(f"phase 3c lut_gemm ({m}, {k}, {n}): "
+                             f"{LUT_FULL_KERNELS[name]}",
+                             lambda: kernel(x, codes, scale, name))
+                max_err = max(max_err, hold(x, codes, scale, out))
+                row[f"{name}_device_ms"] = graph_ms(
+                    lambda i: kernel(x, copies[i % len(copies)], scale, name),
+                    calls, 3)
+                row[f"{name}_ms"] = cuda_ms(
+                    lambda i: kernel(x, copies[i % len(copies)], scale, name),
+                    calls)
+            row["ms"] = cuda_ms(lambda i: wrap(x, copies[i % len(copies)],
+                                               cb, scale), calls)
+            row["device_ms"] = row[f"{route}_device_ms"]
+            row["plain_ms"] = cuda_ms(lambda i: ref.lut_gemm_ref(
                 x, copies[i % len(copies)], cb, scale), 5)
-            b_ms, b_by = bound_ms(m, k, n, 2, 64, 4, peak=F32_FLOP_S)
-            row = {"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-            row["device_ms"] = graph_ms(
-                lambda i: lg.lut_gemm(x, copies[i % len(copies)], cb, scale),
-                max(20 if m == 8 else 5, len(copies)), 5 if m == 8 else 3)
+            row["bound_ms"], row["bound_by"] = bound_ms(m, k, n, 2, 64, 4)
+            row["floor_ms"] = bound_ms(m, k, n, 2, 64, 4,
+                                       ops=3 * 2 * m * k * n)[0]
+            row["library_ms"] = None
             per_shape.append(row)
         del copies
     emit({"kernel_check": "lut_gemm", "passed": True, "max_abs_err": max_err,
           "rtol": lg.KERNEL_RTOL, "atol": lg.KERNEL_ATOL,
-          "per_shape": per_shape})
+          "x_identity_tc_calls": 256 // lg.TC_MAX_M, "per_shape": per_shape})
+
+    # the routes' edges: one yi-9b layer's 7 projections at each M,
+    # device-only and by events, on every kernel that takes that M
+    by_m = []
+    for m in LUT_FULL_M:
+        at = {(r["k"], r["n"]): r for r in per_shape if r["m"] == m}
+        layer = [at[kn] for kn in LAYER_SHAPES]
+        entry = {"m": m, "route": sorted({r["route"] for r in layer})}
+        for key in layer[0]:
+            if key.endswith("_ms") and layer[0][key] is not None:
+                entry[key] = sum(r[key] for r in layer)
+        entry["route_faster_than_fma"] = (entry["device_ms"]
+                                          <= entry["fma_device_ms"])
+        by_m.append(entry)
+    emit({"lut_route": "lut_gemm", "tc_max_m": lg.TC_MAX_M,
+          "wgmma_min_m": lg.WGMMA_MIN_M, "layer": by_m})
+
+    def summary(m, timed_as):
+        return {k: v for k, v in layer_summary("lut_gemm", per_shape,
+                                               m).items()
+                if k.endswith("_ms") or k in ("ms", "bound_by")} | {
+                    "timed_as": timed_as}
+
     entry = layer_summary(
         "lut_gemm", per_shape, 8,
-        source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
+        source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm_tc.cu",
+        source_wgmma="src/repro_torch/kernels/lut_gemm/csrc/"
+                     "lut_gemm_wgmma.cu",
+        source_simt="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
         replaces="src/repro/kernels/lut_gemm/lut_gemm.py:78",
-        max_abs_err=max_err,
-        timed_as="one yi-9b layer's 7 projections, M=8 (decode), bf16 x, "
-                 "NF4 codes cold in L2; ms by CUDA events around eager "
-                 "calls, device_ms by CUDA-graph replays; bound by f32 "
-                 "FMAs at 67 TFLOP/s or bytes; no single PyTorch call "
+        max_abs_err=max_err, launches_tc=None, launches_wgmma=None,
+        timed_as="one yi-9b layer's 7 projections, M=8 (decode: the "
+                 "tensor-core decode kernel, lut_gemm_tc.cu's full-table "
+                 "mode), bf16 x, NF4 codes cold in L2; ms the public call "
+                 "by CUDA events around eager calls (the host wrapper "
+                 "included), device_ms by CUDA-graph replays (graph_ms); "
+                 "tc_*, wgmma_* and fma_* each kernel; bound at the bf16 "
+                 "peak (989 TFLOP/s) or bytes, floor_ms the three-piece "
+                 "floor (three bf16 products); no single PyTorch call "
                  "computes it",
-        prefill={k: v for k, v in layer_summary(
-            "lut_gemm", per_shape, 512).items()
-            if k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
-        | {"timed_as": "one layer's 7 projections at M=512 (a prefill "
-                       "call's rows)"},
-        per_shape=per_shape)
+        prefill=summary(512, "one layer at M=512 (the prefill kernel)"),
+        by_m=by_m)
     gc.collect()
     torch.cuda.empty_cache()
     return {"lut_gemm": entry}
@@ -1445,10 +1566,12 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     """One main-path run: the engine serves the request mix; every kernel
     counter is set to 0 just before and read just after.  Returns the
     launches by kernel, each request's tokens and the launches of each
-    kernel's tensor-core route (``launches_tc``): luna_mm's checked against
-    its ``takes_tc`` at each call's M (max_batch rows a decode tick, rows x
-    bucket length a prefill call), every ``lut_gemm_dc`` / ``_res`` launch
-    (decode's M = max_batch, bf16) required on it.  ``quant``: None
+    kernel's tensor-core route (``launches_tc``; lut_gemm's prefill kernel
+    under ``"lut_gemm_wgmma"``): luna_mm's checked against its ``takes_tc``
+    and lut_gemm's against its ``route`` at each call's M (max_batch rows a
+    decode tick, rows x bucket length a prefill call), every
+    ``lut_gemm_dc`` / ``_res`` launch (decode's M = max_batch, bf16)
+    required on it.  ``quant``: None
     (full precision), an engine-level mode (EngineConfig.quant: frozen
     decode projections, prefill full precision) or a model-level one
     (cfg.quant, every projection of prefill and decode; the model shares
@@ -1502,12 +1625,14 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
         f.launches = 0
     for f in with_tc:
         f.launches_tc = 0
+    wrappers["lut_gemm"].launches_wgmma = 0
     t0 = time.perf_counter()
     stats = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: f.launches for name, f in wrappers.items()}
     tc = {f.__name__: f.launches_tc for f in with_tc}
+    tc["lut_gemm_wgmma"] = wrappers["lut_gemm"].launches_wgmma
     luna_tc = tc["luna_mm"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in watched:
@@ -1530,19 +1655,33 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     # bucket length at each prefill call (one call per length bucket)
     buckets = Counter(eng._bucket_len(len(p)) for p in prompts)
     prefill_m = sorted(c * blen for blen, c in buckets.items())
+    per_layer = [(ticks, eng.max_batch)] + [(1, mm) for mm in prefill_m]
     want_tc = 0
-    if kern == "luna_mm":
-        from repro_torch.kernels.luna_mm.luna_mm import takes_tc
+    if kern in ("luna_mm", "lut_gemm"):
         check(len(prefill_m) == stats["prefill_calls"],
               f"{cfg.name} {quant}: {stats['prefill_calls']} prefill calls, "
               f"{len(prefill_m)} length buckets")
-        per_layer = [(ticks, eng.max_batch)] + [(1, mm) for mm in prefill_m]
+    if kern == "luna_mm":
+        from repro_torch.kernels.luna_mm.luna_mm import takes_tc
         want_tc = layers * sum(c * takes_tc(mm, k, n, "row", True)
                                for c, mm in per_layer
                                for k, n in LAYER_SHAPES)
     check(luna_tc == want_tc,
           f"{cfg.name} {quant}: {luna_tc} luna_mm launches on the "
           f"tensor-core kernel, want {want_tc}")
+    # lut_gemm: every bf16 launch on the kernel its route names (x and the
+    # fresh codes are 16-byte aligned)
+    routes = Counter()
+    if kern == "lut_gemm":
+        from repro_torch.kernels.lut_gemm.lut_gemm import route
+        for c, mm in per_layer:
+            for k, n in LAYER_SHAPES:
+                routes[route(mm, k, n, torch.bfloat16, True)] += c * layers
+    got = {"tc": tc["lut_gemm"], "wgmma": tc["lut_gemm_wgmma"],
+           "fma": counts["lut_gemm"] - tc["lut_gemm"] - tc["lut_gemm_wgmma"]}
+    check(got == {r: routes[r] for r in got},
+          f"{cfg.name} {quant}: lut_gemm launches by kernel {got}, its "
+          f"route says {dict(routes)}")
     for n in ("lut_gemm_dc", "lut_gemm_dc_res"):
         check(tc[n] == counts[n],
               f"{cfg.name} {quant}: {tc[n]} of {counts[n]} {n} launches on "
@@ -1957,24 +2096,38 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = []
-    for lib in libs.values():
+    ptxas, by_lib = [], {}
+    for name, lib in libs.items():
         log = lib.with_suffix(".so.log")
         if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+            lines = [ln.strip() for ln in log.read_text().splitlines()
+                     if "registers" in ln or "spill" in ln
+                     or "Performance Loss" in ln]
+            ptxas += lines
+            by_lib[name] = lines
     # SASS instructions a code of the D&C kernels' streaming loops (M <= 8
     # instantiations, bf16 x: the main path's)
     loops = {"lut_gemm.cu": sass_loops(libs["lut_gemm"], (
                  "lut_gemm_dc_split_kernel", "ILi8E", "Lb1E", "bfloat16")),
              "lut_gemm_tc.cu": sass_loops(libs["lut_gemm_tc"],
-                                          ("lut_gemm_tc_kernelILi1E",))}
+                                          ("lut_gemm_tc_kernelILi1ELb0E",)),
+             "lut_gemm_tc.cu full": sass_loops(
+                 libs["lut_gemm_tc"], ("lut_gemm_tc_kernelILi1ELb1E",))}
     for lps in loops.values():
         for lp in lps:
             if isinstance(lp, str):
                 continue
             codes = 4 * lp["ldg_32"] + 16 * lp["ldg_128"]
             lp["per_code"] = lp["instructions"] / codes if codes else None
+    # the prefill kernel's loops over a stage (its 128-row tile): a consumer
+    # looks up 32 codes a stage (2 columns x 16 k rows); its wgmma per stage
+    # say the piece count (8 a piece: 4 steps x 2 chains)
+    loops["lut_gemm_wgmma.cu"] = sass_loops(
+        libs["lut_gemm_wgmma"], ("lut_gemm_wgmma_kernelILi128E",),
+        stream="HGMMA")
+    for lp in loops["lut_gemm_wgmma.cu"]:
+        if not isinstance(lp, str):
+            lp["per_code"] = lp["instructions"] / 32
     emit({"sass_loops": loops})
     emit({"build_s": build_s, "libs": [p.name for p in libs.values()],
           "ptxas_max_registers": max(
@@ -1982,7 +2135,9 @@ def main() -> int:
                if "Used " in ln), default=None),
           "ptxas_spills": sorted({
               ln for ln in ptxas if "spill" in ln
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln})})
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln}),
+          "ptxas_lut_gemm": {n: by_lib.get(n) for n in (
+              "lut_gemm_tc", "lut_gemm_wgmma")}})
 
     kernels = kernel_phase(dev)
     kernels.update(luna_kernel_phase(dev))
@@ -2009,8 +2164,9 @@ def main() -> int:
         kernels[name]["launches"] = n
     kernels["flash_attention"]["launches_tc"] = flash_tc
     kernels["luna_mm"]["launches_tc"] = tc.get("luna_mm", 0) + luna_tc_train
-    for name in ("lut_gemm_dc", "lut_gemm_dc_res"):
+    for name in ("lut_gemm_dc", "lut_gemm_dc_res", "lut_gemm"):
         kernels[name]["launches_tc"] = tc.get(name, 0)
+    kernels["lut_gemm"]["launches_wgmma"] = tc.get("lut_gemm_wgmma", 0)
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

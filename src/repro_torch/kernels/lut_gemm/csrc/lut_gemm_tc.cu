@@ -1,16 +1,21 @@
-// Decode-size D&C LUT GEMMs on Hopper's bf16 tensor cores (sm_90a).
+// Decode-size LUT GEMMs on Hopper's bf16 tensor cores (sm_90a).
 //
-// Replaces, for the calls kernels/lut_gemm/lut_gemm.py:takes_tc routes here
-// (bf16 x, M <= 32, N % 16 == 0, K % 4 == 0, 16-byte aligned bases), the
-// Pallas TPU kernels
+// Replaces, for the calls kernels/lut_gemm/lut_gemm.py routes here (bf16 x,
+// M <= 32, N % 16 == 0, K % 4 == 0, 16-byte aligned bases: takes_tc for the
+// D&C wrappers, route() == "tc" for the full table), the Pallas TPU kernels
 //   * src/repro/kernels/lut_gemm/lut_gemm.py:214 lut_gemm_dc
 //       out = (x @ (HI[q>>2] + LO[q&3] - zp)) * scale
 //   * src/repro/kernels/lut_gemm/lut_gemm.py:168 lut_gemm_dc_res
 //       out = (x @ (HI[q>>2] + LO[q&3] + RES[q] - zp)) * scale
+//   * src/repro/kernels/lut_gemm/lut_gemm.py:78 lut_gemm (full-table mode,
+//     lut_gemm_tc_full_launch)
+//       out = (x @ CB[q]) * scale
 // which lut_gemm.cu ported first on f32 FMAs; that kernel keeps f32 x,
-// M > 32, unaligned shapes and the full-table lut_gemm.
+// unaligned shapes and the D&C calls at M > 32 (the full table's larger M
+// run lut_gemm_wgmma.cu).
 // x (M, K) bf16; codes (K, N) int8 in [0, 16), one per byte, row-major;
-// hi, lo (4,) f32; res (16,) f32 or NULL; zp, scale (N,) f32; out (M, N) f32.
+// hi, lo (4,) f32; res (16,) f32 or NULL; zp, scale (N,) f32; out (M, N) f32;
+// in full-table mode cb (16,) f32 and no hi, lo, res or zp.
 //
 // What bounds it: bytes.  At decode's M = 8 a code byte feeds 16 flops; one
 // yi-9b layer's 7 projections read 173 MB of codes, 0.052 ms at 3.35 TB/s.
@@ -19,7 +24,8 @@
 // f32 FMAs a code alone take ~90% of the byte time).  So the products go
 // to the tensor cores and the per-code work is a table lookup:
 //   * exact bf16 pieces of the table.  The prologue builds the 16 f32 values
-//     T[q] = HI[q>>2] + LO[q&3] (+ RES[q]) in the plain version's order and
+//     T[q] = HI[q>>2] + LO[q&3] (+ RES[q]) in the plain version's order (in
+//     full-table mode T[q] = CB[q], read as it is) and
 //     cuts each into three bf16 pieces by truncation: p1 = T with its low 16
 //     bits cleared, p2 the same of T - p1, p3 = T - p1 - p2.  They sum back
 //     to T exactly (3 x 8 significand bits; exact for |T| >= 2^-110 and T =
@@ -29,12 +35,12 @@
 //     codes are skipped by a branch every warp takes alike (each builds the
 //     table from the same inputs; no host sync, so the launch still
 //     captures in a graph): lut4's table T[q] = q runs one product, NF4 up
-//     to three;
+//     to three (NF4's full codebook too);
 //   * mma.sync.m16n8k16 bf16 -> f32 with the weight as the 16-row A operand
 //     (output columns) and x^T as the 8-column B operand (batch rows; M <=
 //     32 is up to four n-tiles, which reuse each A fragment), plus one
 //     product with an all-ones A: rowsum(x), in the same split and order as
-//     the sums it corrects;
+//     the sums it corrects (the full table has no zero point and skips it);
 //   * the fragment order chosen for contiguous bytes: a thread's 16 A rows
 //     over eight m16 tiles are 16 consecutive columns (tile i, row g -> column
 //     16 g + 2 i, row g + 8 -> 16 g + 2 i + 1), and its four k of a step
@@ -55,7 +61,7 @@
 //     split sums and the scale.  At x = a row of I one warp holds acc =
 //     T[q] and rowsum = 1, which rounds T[q] - zp once, as the plain
 //     version does, and every other partial is zero: the dequantized
-//     weight reads back bitwise;
+//     weight reads back bitwise (full table: acc = CB[q], times the scale);
 //   * bytes in flight: each thread loads its own chunks straight into
 //     registers (16-byte non-caching loads, masked past K, N and M), each
 //     step's two steps ahead of the one it computes (a three-step register
@@ -218,15 +224,17 @@ struct Cursor {
 
 // One K step into the accumulators: rowsum(x), then per word column c the
 // A fragments of tiles 2c and 2c+1 (magic number or pair table) times x.
-template <int NT, int PATH>
+template <int NT, int PATH, bool FULL>
 __device__ __forceinline__ void compute_step(const Step<NT>& st,
                                              const uint8_t* tab,
                                              float (&acc)[MT][NT][4],
                                              float (&rs)[NT][4]) {
+  if (!FULL) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
-    mma(rs[j], BF16X2_ONES, BF16X2_ONES, BF16X2_ONES, BF16X2_ONES,
-        st.xv[j].x, st.xv[j].y);
+    for (int j = 0; j < NT; ++j)
+      mma(rs[j], BF16X2_ONES, BF16X2_ONES, BF16X2_ONES, BF16X2_ONES,
+          st.xv[j].x, st.xv[j].y);
+  }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     // word c of each row: columns 4c .. 4c+3, tiles 2c and 2c+1
@@ -273,7 +281,7 @@ __device__ __forceinline__ void compute_step(const Step<NT>& st,
 // The warp's K steps [s0, s0 + nsteps): a three-step register ring, steps
 // s0 and s0 + 1 already in flight in buf; each step's loads go out two
 // steps ahead, before the step in hand is computed.
-template <int NT, int PATH>
+template <int NT, int PATH, bool FULL>
 __device__ __forceinline__ void main_loop(Step<NT> (&buf)[RING],
                                           Cursor<NT>& cur, const uint8_t* smem,
                                           int K, int N, int nsteps,
@@ -286,19 +294,21 @@ __device__ __forceinline__ void main_loop(Step<NT> (&buf)[RING],
       if (i + b < nsteps) {
         if (i + b + RING - 1 < nsteps)
           cur.load(buf[(b + RING - 1) % RING], K, N);
-        compute_step<NT, PATH>(buf[b], tab, acc, rs);
+        compute_step<NT, PATH, FULL>(buf[b], tab, acc, rs);
       }
     }
   }
 }
 
 // One block: BN columns of out over one K slice (cluster rank along y).
-template <int NT>
+// FULL: the table is cb (hi, lo, res, zp unused), no rowsum, no zero point.
+template <int NT, bool FULL>
 __global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
 lut_gemm_tc_kernel(const uint8_t* __restrict__ x,
                    const int8_t* __restrict__ codes,
                    const float* __restrict__ hi, const float* __restrict__ lo,
                    const float* __restrict__ res,
+                   const float* __restrict__ cb,
                    const float* __restrict__ zp,
                    const float* __restrict__ scale, float* __restrict__ out,
                    int M, int K, int N) {
@@ -329,7 +339,10 @@ lut_gemm_tc_kernel(const uint8_t* __restrict__ x,
   // one zero point or scale of the block's columns a thread, kept for
   // the epilogue
   const int zc = col0 + (tid & (BN - 1));
-  const float zs = zc >= N ? 0.f : tid < BN ? zp[zc] : scale[zc];
+  const float zs = zc >= N         ? 0.f
+                   : tid >= BN      ? scale[zc]
+                   : FULL           ? 0.f
+                                    : zp[zc];
 
   // the table, its pieces and the path, by every warp (the same inputs,
   // so the same path in every warp: no barrier on the magic path)
@@ -337,8 +350,13 @@ lut_gemm_tc_kernel(const uint8_t* __restrict__ x,
   int path;
   {
     const int q = lane & 15;
-    float tq = hi[q >> 2] + lo[q & 3];
-    if (res != nullptr) tq = tq + res[q];
+    float tq;
+    if (FULL) {
+      tq = cb[q];
+    } else {
+      tq = hi[q >> 2] + lo[q & 3];
+      if (res != nullptr) tq = tq + res[q];
+    }
     const uint32_t p1 = __float_as_uint(tq) & 0xFFFF0000u;
     const float r1 = tq - __uint_as_float(p1);
     const uint32_t p2 = __float_as_uint(r1) & 0xFFFF0000u;
@@ -370,16 +388,16 @@ lut_gemm_tc_kernel(const uint8_t* __restrict__ x,
 
   switch (path) {
     case MAGIC:
-      main_loop<NT, MAGIC>(buf, cur, smem, K, N, nsteps, acc, rs);
+      main_loop<NT, MAGIC, FULL>(buf, cur, smem, K, N, nsteps, acc, rs);
       break;
     case TABLE1:
-      main_loop<NT, TABLE1>(buf, cur, smem, K, N, nsteps, acc, rs);
+      main_loop<NT, TABLE1, FULL>(buf, cur, smem, K, N, nsteps, acc, rs);
       break;
     case TABLE2:
-      main_loop<NT, TABLE2>(buf, cur, smem, K, N, nsteps, acc, rs);
+      main_loop<NT, TABLE2, FULL>(buf, cur, smem, K, N, nsteps, acc, rs);
       break;
     default:
-      main_loop<NT, TABLE3>(buf, cur, smem, K, N, nsteps, acc, rs);
+      main_loop<NT, TABLE3, FULL>(buf, cur, smem, K, N, nsteps, acc, rs);
   }
 
   // the warps' partials, slot (j * SLOTS + e) * 32 + lane: e < 4 MT
@@ -404,16 +422,17 @@ lut_gemm_tc_kernel(const uint8_t* __restrict__ x,
   (tid < BN ? s_zp : s_scale)[tid & (BN - 1)] = zs;
   __syncthreads();
   // each warp's split takes its zero point, acc - rowsum * zp by one
-  // fmaf; the splits summed in warp order
+  // fmaf (the full table has none); the splits summed in warp order
   for (int e = tid; e < NT * 4 * MT * 32; e += THREADS) {
     const int j = e / (4 * MT * 32), ic = (e >> 5) % (4 * MT), ln = e & 31;
     const float z = s_zp[16 * (ln >> 2) + 2 * (ic >> 2) + ((ic & 3) >> 1)];
     const float* a = red + (j * SLOTS + ic) * 32 + ln;
     const float* r = red + (j * SLOTS + 4 * MT + (ic & 1)) * 32 + ln;
-    float v = fmaf(-r[0], z, a[0]);
+    float v = FULL ? a[0] : fmaf(-r[0], z, a[0]);
 #pragma unroll
     for (int w = 1; w < NW; ++w)
-      v += fmaf(-r[w * NT * SLOTS * 32], z, a[w * NT * SLOTS * 32]);
+      v += FULL ? a[w * NT * SLOTS * 32]
+                : fmaf(-r[w * NT * SLOTS * 32], z, a[w * NT * SLOTS * 32]);
     bsum[e] = v;
   }
 
@@ -441,16 +460,16 @@ lut_gemm_tc_kernel(const uint8_t* __restrict__ x,
   cluster.sync();           // keep this block's sums until all have read
 }
 
-template <int NT>
+template <int NT, bool FULL>
 cudaError_t launch(const void* x, const void* codes, const void* hi,
-                   const void* lo, const void* res, const void* zp,
-                   const void* scale, void* out, int M, int K, int N,
-                   int splits, cudaStream_t st) {
+                   const void* lo, const void* res, const void* cb,
+                   const void* zp, const void* scale, void* out, int M, int K,
+                   int N, int splits, cudaStream_t st) {
   // the shared-memory limit and the non-portable cluster sizes are set once
   // per device (one bit each): a call inside a graph capture then only
   // launches
   static unsigned long long sized = 0;
-  auto kern = lut_gemm_tc_kernel<NT>;
+  auto kern = lut_gemm_tc_kernel<NT, FULL>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -503,10 +522,46 @@ cudaError_t launch(const void* x, const void* codes, const void* hi,
       &cfg, kern, static_cast<const uint8_t*>(x),
       static_cast<const int8_t*>(codes), static_cast<const float*>(hi),
       static_cast<const float*>(lo), static_cast<const float*>(res),
-      static_cast<const float*>(zp), static_cast<const float*>(scale),
-      static_cast<float*>(out), M, K, N);
+      static_cast<const float*>(cb), static_cast<const float*>(zp),
+      static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The checks both entry points share: x (M, K) bf16 and codes (K, N) int8,
+// contiguous, 16-byte aligned, K % 4 == 0, N % 16 == 0, 1 <= M <= 32, K in
+// `splits` (<= 16, the cluster size) slices.
+bool valid(const void* x, const void* codes, int M, int K, int N,
+           int splits) {
+  return M > 0 && M <= 8 * MAX_NT && K > 0 && N > 0 && K % 4 == 0 &&
+         N % 16 == 0 && splits > 0 && splits <= MAX_CLUSTER &&
+         splits <= (K + KSTEP - 1) / KSTEP &&
+         (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(codes) & 15) == 0 &&
+         (N + BN - 1) / BN <= 65535;
+}
+
+template <bool FULL>
+int dispatch(const void* x, const void* codes, const void* hi, const void* lo,
+             const void* res, const void* cb, const void* zp,
+             const void* scale, void* out, int M, int K, int N, int splits,
+             void* stream) {
+  if (!valid(x, codes, M, K, N, splits)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((M + 7) / 8) {
+    case 1:
+      return (int)launch<1, FULL>(x, codes, hi, lo, res, cb, zp, scale, out,
+                                  M, K, N, splits, st);
+    case 2:
+      return (int)launch<2, FULL>(x, codes, hi, lo, res, cb, zp, scale, out,
+                                  M, K, N, splits, st);
+    case 3:
+      return (int)launch<3, FULL>(x, codes, hi, lo, res, cb, zp, scale, out,
+                                  M, K, N, splits, st);
+    default:
+      return (int)launch<4, FULL>(x, codes, hi, lo, res, cb, zp, scale, out,
+                                  M, K, N, splits, st);
+  }
 }
 
 }  // namespace
@@ -519,36 +574,23 @@ int lut_gemm_tc_max_m() { return 8 * MAX_NT; }
 int lut_gemm_tc_max_cluster() { return MAX_CLUSTER; }
 int lut_gemm_tc_kstep() { return KSTEP; }
 
-// One launch on `stream`: x (M, K) bf16 and codes (K, N) int8, contiguous,
-// 16-byte aligned, K % 4 == 0, N % 16 == 0, 1 <= M <= 32; res may be NULL
-// (lut_gemm_dc); K in `splits` (<= 16, the cluster size) slices.  Returns
-// the cudaError_t of the launch (0 = cudaSuccess).
+// One D&C launch on `stream` (see valid() for the shapes); res may be NULL
+// (lut_gemm_dc).  Returns the cudaError_t of the launch (0 = cudaSuccess).
 int lut_gemm_tc_launch(const void* x, const void* codes, const void* hi,
                        const void* lo, const void* res, const void* zp,
                        const void* scale, void* out, int M, int K, int N,
                        int splits, void* stream) {
-  if (M <= 0 || M > 8 * MAX_NT || K <= 0 || N <= 0 || K % 4 != 0 ||
-      N % 16 != 0 || splits <= 0 || splits > MAX_CLUSTER ||
-      splits > (K + KSTEP - 1) / KSTEP ||
-      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(codes) & 15) != 0 ||
-      (N + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((M + 7) / 8) {
-    case 1:
-      return (int)launch<1>(x, codes, hi, lo, res, zp, scale, out, M, K, N,
-                            splits, st);
-    case 2:
-      return (int)launch<2>(x, codes, hi, lo, res, zp, scale, out, M, K, N,
-                            splits, st);
-    case 3:
-      return (int)launch<3>(x, codes, hi, lo, res, zp, scale, out, M, K, N,
-                            splits, st);
-    default:
-      return (int)launch<4>(x, codes, hi, lo, res, zp, scale, out, M, K, N,
-                            splits, st);
-  }
+  return dispatch<false>(x, codes, hi, lo, res, nullptr, zp, scale, out, M,
+                         K, N, splits, stream);
+}
+
+// One full-table launch: T[q] = cb[q], (16,) f32; no zero point.  As
+// lut_gemm_tc_launch otherwise.
+int lut_gemm_tc_full_launch(const void* x, const void* codes, const void* cb,
+                            const void* scale, void* out, int M, int K, int N,
+                            int splits, void* stream) {
+  return dispatch<true>(x, codes, nullptr, nullptr, nullptr, cb, nullptr,
+                        scale, out, M, K, N, splits, stream);
 }
 
 }  // extern "C"

@@ -10,9 +10,12 @@ after it.  (The JAX oracle
 the matmul instead; the port's CPU engine path, ``ops.quantized_matmul``,
 keeps that order for token parity with the JAX engine.)
 
-:func:`lut_gemm_tc_emulate` is the tensor-core kernel's arithmetic step by
-step (``csrc/lut_gemm_tc.cu``), which the CPU tests hold to JAX's kernels
-and to the bitwise x = I contract.
+:func:`lut_gemm_tc_emulate` (and, for the full table,
+:func:`lut_gemm_tc_full_emulate`) is the tensor-core decode kernel's
+arithmetic step by step (``csrc/lut_gemm_tc.cu``), and
+:func:`lut_gemm_wgmma_emulate` the prefill kernel's
+(``csrc/lut_gemm_wgmma.cu``); the CPU tests hold them to JAX's kernels and
+to the bitwise x = I contract.
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ import torch
 #: step, warps a block (each a contiguous run of the block's steps)
 TC_KSTEP = 16
 TC_WARPS = 8
+#: the prefill kernel's (csrc/lut_gemm_wgmma.cu): K rows a stage (the unit
+#: of its K slices), each four 16-row wgmma steps
+WG_BK = 64
 
 
 def lut_gemm_ref(x: torch.Tensor, w_codes: torch.Tensor,
@@ -114,6 +120,37 @@ def tc_zero_point(acc: torch.Tensor, rowsum: torch.Tensor,
     return fma.float()
 
 
+def _tc_sum(x: torch.Tensor, w_codes: torch.Tensor, table: torch.Tensor,
+            zero_point: torch.Tensor | None, splits: int) -> torch.Tensor:
+    """The tensor-core kernel's unscaled sum (see
+    :func:`lut_gemm_tc_emulate`); ``zero_point`` None: the full-table mode,
+    no rowsum and no zero point."""
+    m, k = x.shape
+    steps = -(-k // TC_KSTEP)
+    xf = torch.zeros((m, steps * TC_KSTEP), dtype=torch.float32)
+    xf[:, :k] = x.to(torch.bfloat16).float()
+    q = torch.zeros((steps * TC_KSTEP, w_codes.shape[1]), dtype=torch.long)
+    q[:k] = w_codes.long()
+    weights = [p[q] for p in tc_pieces(table)]
+    n = q.shape[1]
+    total = torch.zeros((m, n))
+    for rank in range(splits):
+        split = tc_split_steps(rank, k, splits)
+        block = None
+        for warp in range(TC_WARPS):
+            acc, rs = torch.zeros((m, n)), torch.zeros(m)
+            for s in tc_warp_steps(split, warp):
+                xs = xf[:, s * TC_KSTEP:(s + 1) * TC_KSTEP]
+                rs = rs + xs.sum(dim=1)
+                for w in weights:
+                    acc = acc + xs @ w[s * TC_KSTEP:(s + 1) * TC_KSTEP]
+            part = (acc if zero_point is None
+                    else tc_zero_point(acc, rs, zero_point))
+            block = part if block is None else block + part
+        total = total + block
+    return total
+
+
 def lut_gemm_tc_emulate(x: torch.Tensor, w_codes: torch.Tensor,
                         hi_tab: torch.Tensor, lo_tab: torch.Tensor,
                         zero_point: torch.Tensor, scale: torch.Tensor,
@@ -133,26 +170,55 @@ def lut_gemm_tc_emulate(x: torch.Tensor, w_codes: torch.Tensor,
     the k inside one tensor-core product, whose sum order the hardware
     fixes: here it is the f32 matmul's.
     """
+    table = tc_table(hi_tab, lo_tab, residual)
+    return _tc_sum(x, w_codes, table, zero_point, splits) * scale[None, :]
+
+
+def lut_gemm_tc_full_emulate(x: torch.Tensor, w_codes: torch.Tensor,
+                             codebook: torch.Tensor, scale: torch.Tensor, *,
+                             splits: int) -> torch.Tensor:
+    """The tensor-core kernel's full-table mode on the CPU -> (M, N) f32:
+    as :func:`lut_gemm_tc_emulate` with ``T[q] = CB[q]`` cut into
+    :func:`tc_pieces` as it is, no rowsum and no zero point."""
+    return _tc_sum(x, w_codes, codebook, None, splits) * scale[None, :]
+
+
+def wgmma_split_stages(rank: int, k: int, splits: int) -> range:
+    """The ``WG_BK``-row stages that cluster rank ``rank`` of ``splits``
+    of the prefill kernel sums."""
+    stages = -(-k // WG_BK)
+    per = -(-stages // splits)
+    lo = min(stages, rank * per)
+    return range(lo, min(stages, lo + per))
+
+
+def lut_gemm_wgmma_emulate(x: torch.Tensor, w_codes: torch.Tensor,
+                           codebook: torch.Tensor, scale: torch.Tensor, *,
+                           splits: int) -> torch.Tensor:
+    """The prefill kernel's arithmetic on the CPU -> (M, N) f32.
+
+    x (M, K) bf16 values; the codebook cut into :func:`tc_pieces`; K
+    zero-filled to whole ``WG_BK``-row stages (TMA's zero fill); cluster
+    rank r of ``splits`` sums :func:`wgmma_split_stages` into one f32
+    accumulator, per 16-row step the f32 product of the step's x with each
+    piece's weights added in piece order; the ranks' sums added in rank
+    order, then scaled.  A wgmma's own sum order over its 16 k is the
+    hardware's: here it is the f32 matmul's.
+    """
     m, k = x.shape
-    steps = -(-k // TC_KSTEP)
-    xf = torch.zeros((m, steps * TC_KSTEP), dtype=torch.float32)
+    rows = -(-k // WG_BK) * WG_BK
+    xf = torch.zeros((m, rows), dtype=torch.float32)
     xf[:, :k] = x.to(torch.bfloat16).float()
-    q = torch.zeros((steps * TC_KSTEP, w_codes.shape[1]), dtype=torch.long)
+    q = torch.zeros((rows, w_codes.shape[1]), dtype=torch.long)
     q[:k] = w_codes.long()
-    weights = [p[q] for p in tc_pieces(tc_table(hi_tab, lo_tab, residual))]
-    n = q.shape[1]
-    total = torch.zeros((m, n))
+    weights = [p[q] for p in tc_pieces(codebook)]
+    total = None
     for rank in range(splits):
-        split = tc_split_steps(rank, k, splits)
-        block = None
-        for warp in range(TC_WARPS):
-            acc, rs = torch.zeros((m, n)), torch.zeros(m)
-            for s in tc_warp_steps(split, warp):
-                xs = xf[:, s * TC_KSTEP:(s + 1) * TC_KSTEP]
-                rs = rs + xs.sum(dim=1)
+        acc = torch.zeros((m, q.shape[1]))
+        for stage in wgmma_split_stages(rank, k, splits):
+            for s in range(stage * WG_BK, (stage + 1) * WG_BK, TC_KSTEP):
+                xs = xf[:, s:s + TC_KSTEP]
                 for w in weights:
-                    acc = acc + xs @ w[s * TC_KSTEP:(s + 1) * TC_KSTEP]
-            part = tc_zero_point(acc, rs, zero_point)
-            block = part if block is None else block + part
-        total = total + block
+                    acc = acc + xs @ w[s:s + TC_KSTEP]
+        total = acc if total is None else total + acc
     return total * scale[None, :]

@@ -8,7 +8,12 @@ machine with the card and no JAX:
   versions at the tolerance stated in ``kernels/lut_gemm/lut_gemm.py``;
   the dequantized weight (x = I) bitwise; the D&C wrappers' tensor-core
   kernel (bf16 x, M <= 32: ``lut_gemm_tc.cu``) the same way, x = I taken
-  8 rows a call, the kernel each call ran read from ``launches_tc``;
+  8 rows a call, the kernel each call ran read from ``launches_tc``; the
+  full-table ``lut_gemm`` on each of its kernels (``route``: the decode
+  kernel's full-table mode at M <= 32, ``lut_gemm_wgmma.cu`` above,
+  ``lut_gemm.cu`` for f32 and shapes TMA cannot take) the same way, at
+  decode and prefill M, ragged shapes and yi-9b's projections, each call
+  on the kernel ``route`` names (``launches_tc`` / ``launches_wgmma``);
 * ``luna_mm`` against its plain version, bitwise, every mode, on a
   row-major and a K-major W, across the tensor-core kernel's tile edges,
   each call's kernel (``launches_tc``) the one ``takes_tc`` names;
@@ -143,6 +148,68 @@ def test_lut_gemm_tc_reads_weight_back_bitwise_on_card(dev):
         for r in range(0, 256, 8):
             assert torch.equal(fn(eye[r:r + 8], *args), want[r:r + 8]), r
         assert fn.launches_tc - tc0 == 32
+
+
+#: M of the full-table routes: decode sizes, the decode kernel's edge and
+#: the prefill kernel's row tiles (33 .. 64: one of 64 rows; 100: 112; 176:
+#: 176; 272: two of 144; 448: three of 160; 512: three of 176)
+FULL_M = [1, 8, 32, 33, 48, 64, 100, 176, 272, 448, 512]
+#: (K, N): yi-9b's projections, ragged ones the prefill kernel takes
+#: (K off its 64-row stages, N off its 128-column tiles) and ones it does
+#: not (K or N not a multiple of 16: lut_gemm.cu)
+FULL_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
+               (528, 4112), (4104, 520), (4104, 528)]
+
+
+def _full_call(dev, x, codes, scale):
+    """One public lut_gemm call; returns it and the kernel it ran."""
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    f = tkern.lut_gemm
+    before = (f.launches, f.launches_tc, f.launches_wgmma)
+    out = f(x, codes, cb, scale)
+    torch.cuda.synchronize()
+    ran = (f.launches - before[0], f.launches_tc - before[1],
+           f.launches_wgmma - before[2])
+    assert ran[0] == 1 and ran[1] + ran[2] <= 1
+    return out, "tc" if ran[1] else "wgmma" if ran[2] else "fma"
+
+
+@pytest.mark.parametrize("k,n", FULL_SHAPES)
+@pytest.mark.parametrize("m", FULL_M)
+def test_lut_gemm_routes_match_plain_on_card(dev, m, k, n):
+    """The full-table lut_gemm on the kernel ``route`` names, at 1e-4 of
+    its plain version, for bf16 x; f32 x on lut_gemm.cu."""
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+    codes, scale = tops.codebook_quantize(w.bfloat16(), cb)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((m, k), generator=gen, device=dev, dtype=dtype)
+        got, ran = _full_call(dev, x, codes, scale)
+        assert ran == tkern.route(m, k, n, dtype, True)
+        torch.testing.assert_close(got, tref.lut_gemm_ref(x, codes, cb, scale),
+                                   rtol=tkern.KERNEL_RTOL,
+                                   atol=tkern.KERNEL_ATOL)
+        if dtype == torch.bfloat16 and k % 16 == 0 and n % 16 == 0:
+            assert ran == ("tc" if m <= tkern.TC_MAX_M else "wgmma")
+
+
+@pytest.mark.parametrize("rows", [8, 32, 64, 176, 256])
+def test_lut_gemm_routes_read_weight_back_bitwise_on_card(dev, rows):
+    """x = rows of I, ``rows`` a call (the decode kernel up to 32, the
+    prefill kernel above), reads every row of ``CB[q] * scale`` of a (256,
+    4096) weight back bitwise."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    w = torch.randn((256, 4096), generator=gen, device=dev) / 16
+    codes, scale = tops.codebook_quantize(w.bfloat16(), cb)
+    want = cb[codes.long()] * scale[None, :]
+    eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    for r in range(0, 256, rows):
+        got, ran = _full_call(dev, eye[r:r + rows], codes, scale)
+        assert ran == tkern.route(min(rows, 256 - r), 256, 4096,
+                                  torch.bfloat16, True)
+        assert torch.equal(got, want[r:r + rows]), r
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 512), (8, 11008, 4096),
