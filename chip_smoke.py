@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py             # the whole check, 48 layers
     python3 chip_smoke.py --layers 8  # the same with yi-9b's depth cut
+    python3 chip_smoke.py --ssd-against DIR   # only ssd_scan: DIR's kernel
+                                              # and this checkout's in turns
 
 Phases, each fatal on failure (the script exits nonzero and prints no
 result line):
@@ -11,7 +13,7 @@ result line):
 2. build every CUDA source of the port with nvcc for sm_90a, one nvcc per
    source, all started together (seconds); the SASS instructions a code of
    the LUT kernels' streaming loops (``cuobjdump -sass``), ptxas' registers
-   and spills of the LUT tensor-core libraries;
+   and spills of the LUT and SSD tensor-core libraries;
 3. each kernel against its plain PyTorch version on the card, times by
    CUDA events, each beside its bound:
    a. the D&C LUT GEMMs (``lut_gemm_dc``, ``lut_gemm_dc_res``) on both
@@ -45,11 +47,19 @@ result line):
       272, 336, 448, 512} (decode, the prefill calls' M and 512) every
       kernel that takes that M, device-only and by events, beside the
       bound at the bf16 peak and the three-piece floor;
-   d. the SSD chunk scan (``ssd_scan``) at mamba2's widths (H = 64, P =
-      64, N = 128, G = 1, chunk min(256, S)) for (B, S) in {(1, 48),
-      (1, 272) with a carried initial state, (1, 448) masked at 438 (off
-      the chunk grid), (8, 512)}, and a small G = 2 case, within the
-      tolerance stated in ``kernels/ssd_scan/ssd_scan.py``;
+   d. the SSD chunk scan (``ssd_scan``, the four kernels of
+      ``ssd_scan_tc.cu``) at mamba2's widths (H = 64, P = 64, N = 128, G
+      = 1, chunk min(256, S)) for (B, S) in {(1, 48), (1, 272) with a
+      carried initial state, (8, 512)} and the engine's eight prefill
+      calls (B = 1, S the 16-token buckets 448 ... 32, masked at the
+      prompt lengths 438 ... 24, the zero state read), and a small G = 2
+      case, within the tolerance stated in
+      ``kernels/ssd_scan/ssd_scan.py``; the S = 448 call also within
+      ``ref.EMULATE_TOL`` of its CPU emulation (run on the card); each timed
+      device-only
+      (``graph_ms``) and by events beside its bound (bytes, or three TF32
+      products at 494.7 TFLOP/s) and the f32 SIMT bound, and the sum over
+      a layer's eight calls;
    e. flash attention (``flash_attention``): bf16 at D in {64, 128} on
       the tensor-core kernel (``flash_attention_wgmma.cu``), f32 and bf16
       at D in {16, 32} on the SIMT kernel (``flash_attention.cu``), each
@@ -110,7 +120,8 @@ finite and each kernel's launch counter (all set to 0 just before the
 run, read just after) equals the launches the run made through it; then
 (after the counts are read) a torch.profiler window over 4 decode ticks
 (and for mamba2 one prefill call): device time by kernel and the idle
-share.
+share (for the prefill call, device time as the union of the kernels'
+intervals: ``ssd_scan``'s side stream overlaps its other kernels).
 
 Every line is one JSON object (``t_s``: seconds since the start); the
 ``{"kernels": [...]}`` line comes just before the last, which is
@@ -137,6 +148,7 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
 F32_FLOP_S = 67e12           # outside the tensor cores
+TF32_FLOP_S = 494.7e12
 #: (K, N) of yi-9b's decode projections, in layer order wq wk wv wo
 #: w_gate w_up w_down
 LAYER_SHAPES = [(4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
@@ -916,11 +928,18 @@ def lut_full_kernel_phase(dev):
     return {"lut_gemm": entry}
 
 
+#: the engine's prefill calls of phase 7's request mix at mamba2-1.3b's
+#: widths: (B, S the 16-token bucket, the prompt length it is masked at,
+#: the zero state the engine carries in)
+SSD_BUCKETS = [(1, 448, 438, "zero"), (1, 336, 332, "zero"),
+               (1, 272, 270, "zero"), (1, 176, 168, "zero"),
+               (1, 160, 150, "zero"), (1, 64, 53, "zero"),
+               (1, 48, 36, "zero"), (1, 32, 24, "zero")]
 #: phase 3d at mamba2-1.3b's widths: (B, S, valid length or None for no
 #: mask, initial state: None, "zero" as the main path carries it into a
-#: prefill, or "random"); the engine's buckets are B = 1
+#: prefill, or "random"): the engine's buckets (B = 1) and three more
 SSD_CASES = [(1, 48, None, None), (1, 272, None, "random"),
-             (1, 448, 438, "zero"), (8, 512, None, None)]
+             (8, 512, None, None)] + SSD_BUCKETS
 SSD_WIDTHS = dict(h=64, p=64, g=1, n=128)
 
 
@@ -945,51 +964,63 @@ def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     return b * total
 
 
-def ssd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> tuple[float, str]:
+def ssd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
     """Least time of one scan: x, dt, a, B, C, the mask and the initial
     state (where one is passed, zero or not) read once, y and the final
-    state written once, against :func:`ssd_flops` at f32's 67 TFLOP/s;
-    the larger of the two."""
+    state written once, against :func:`ssd_flops` at three TF32 products
+    each (the 3xTF32 split, 494.7 TFLOP/s); the larger of the two, and
+    beside it the f32 SIMT bound (the same bytes, one product each at
+    f32's 67 TFLOP/s)."""
     nbytes = (4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
                    + (1 + (init is not None)) * b * h * p * n)
               + masked * b * s)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ssd_flops(b, s, h, p, g, n, chunk, init == "random") \
-        / F32_FLOP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    flops = ssd_flops(b, s, h, p, g, n, chunk, init == "random")
+    t_ops = 3 * flops / TF32_FLOP_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_simt_bound_ms": max(t_bytes, flops / F32_FLOP_S * 1e3)}
+
+
+def ssd_inputs(dev, gen, b, s, h, p, g, n, valid, init):
+    """One scan's f32 inputs at phase 3d's distributions: ``(args, kw)``
+    for ``ssd_scan(*args, chunk=..., **kw)``."""
+    import torch
+    args = (torch.randn((b, s, h, p), generator=gen, device=dev),
+            0.01 + 0.19 * torch.rand((b, s, h), generator=gen, device=dev),
+            -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev)),
+            torch.randn((b, s, g, n), generator=gen, device=dev),
+            torch.randn((b, s, g, n), generator=gen, device=dev))
+    state = None
+    if init == "random":
+        state = torch.randn((b, h, p, n), generator=gen, device=dev)
+    elif init == "zero":
+        state = torch.zeros((b, h, p, n), device=dev)
+    kw = {"initial_state": state,
+          "mask": (None if valid is None else
+                   (torch.arange(s, device=dev) < valid)[None]
+                   .expand(b, s).contiguous())}
+    return args, kw
 
 
 def ssd_kernel_phase(dev):
     """Phase 3d: ssd_scan against its plain version (``_ssd_chunked`` on
     the card, true f32) at mamba2's widths, each case's error within
-    ``KERNEL_TOL`` of the output's scale."""
+    ``KERNEL_TOL`` of the output's scale; each case timed device-only
+    (``graph_ms``, 20 calls a graph) and by events (20 eager calls, the
+    host wrapper included), inputs hot in L2, beside its bound."""
     import torch
 
+    from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models.ssm import _ssd_chunked
 
     gen = torch.Generator(device=dev).manual_seed(4)
-
-    def inputs(b, s, h, p, g, n, valid, init):
-        args = (torch.randn((b, s, h, p), generator=gen, device=dev),
-                0.01 + 0.19 * torch.rand((b, s, h), generator=gen,
-                                         device=dev),
-                -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev)),
-                torch.randn((b, s, g, n), generator=gen, device=dev),
-                torch.randn((b, s, g, n), generator=gen, device=dev))
-        state = None
-        if init == "random":
-            state = torch.randn((b, h, p, n), generator=gen, device=dev)
-        elif init == "zero":
-            state = torch.zeros((b, h, p, n), device=dev)
-        kw = {"initial_state": state,
-              "mask": (None if valid is None else
-                       (torch.arange(s, device=dev) < valid)[None]
-                       .expand(b, s).contiguous())}
-        return args, kw
+    emulate_err = None
 
     def compare(args, kw, chunk):
-        y, fs = sk.ssd_scan(*args, chunk=chunk, **kw)
+        y, fs = synced("phase 3d ssd_scan",
+                       lambda: sk.ssd_scan(*args, chunk=chunk, **kw))
         y0, fs0 = _ssd_chunked(*args, chunk, **kw)
         err = max(sk.scaled_err(y, y0), sk.scaled_err(fs, fs0))
         abs_err = max((y - y0).abs().max().item(),
@@ -997,54 +1028,185 @@ def ssd_kernel_phase(dev):
         return err, abs_err
 
     # small: G = 2, ragged S, Q = 48, P off the 32-column tiles, masked
-    args, kw = inputs(2, 77, 4, 40, 2, 16, 70, "random")
+    args, kw = ssd_inputs(dev, gen, 2, 77, 4, 40, 2, 16, 70, "random")
     err, _ = compare(args, kw, 48)
     check(err <= sk.KERNEL_TOL, f"ssd_scan G=2 small case: error {err}")
     per_shape, max_err, max_abs = [], err, 0.0
     w = SSD_WIDTHS
     for b, s, valid, init in SSD_CASES:
         chunk = min(256, s)
-        args, kw = inputs(b, s, w["h"], w["p"], w["g"], w["n"], valid, init)
+        args, kw = ssd_inputs(dev, gen, b, s, w["h"], w["p"], w["g"],
+                              w["n"], valid, init)
         err, abs_err = compare(args, kw, chunk)
         check(err <= sk.KERNEL_TOL,
               f"ssd_scan ({b}, {s}) valid={valid} init={init}: scaled "
               f"error {err} > {sk.KERNEL_TOL}")
         max_err, max_abs = max(max_err, err), max(max_abs, abs_err)
-        ms = cuda_ms(lambda i: sk.ssd_scan(*args, chunk=chunk, **kw), 20)
+        if (b, s, valid, init) == SSD_BUCKETS[0]:
+            # the kernels against their arithmetic emulated (on the card)
+            y, fs = sk.ssd_scan(*args, chunk=chunk, **kw)
+            ye, fse = sref.ssd_scan_tc_emulate(*args, chunk=chunk, **kw)
+            emulate_err = max(sk.scaled_err(y, ye), sk.scaled_err(fs, fse))
+            check(emulate_err <= sref.EMULATE_TOL,
+                  f"ssd_scan ({b}, {s}) against ssd_scan_tc_emulate: "
+                  f"{emulate_err} > {sref.EMULATE_TOL}")
+            del y, fs, ye, fse
+
+        def call(i):
+            return sk.ssd_scan(*args, chunk=chunk, **kw)
+        device_ms = graph_ms(call, 20)
+        ms = cuda_ms(call, 20)
         plain_ms = cuda_ms(lambda i: _ssd_chunked(*args, chunk, **kw), 5)
-        b_ms, b_by = ssd_bound_ms(b, s, w["h"], w["p"], w["g"], w["n"],
-                                  chunk, valid is not None, init)
+        bound = ssd_bound_ms(b, s, w["h"], w["p"], w["g"], w["n"], chunk,
+                             valid is not None, init)
         per_shape.append({"b": b, "s": s, "chunk": chunk, "valid": valid,
                           "initial_state": init, "scaled_err": err,
-                          "max_abs_err": abs_err, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by,
+                          "max_abs_err": abs_err, "device_ms": device_ms,
+                          "ms": ms, "plain_ms": plain_ms, **bound,
                           "gflop": ssd_flops(b, s, w["h"], w["p"], w["g"],
                                              w["n"], chunk,
                                              init == "random") / 1e9})
         del args, kw
+    buckets = [r for r in per_shape
+               if (r["b"], r["s"], r["valid"], r["initial_state"])
+               in SSD_BUCKETS]
+    layer = {k: sum(r[k] for r in buckets)
+             for k in ("device_ms", "ms", "plain_ms", "bound_ms",
+                       "f32_simt_bound_ms", "gflop")}
     emit({"kernel_check": "ssd_scan", "passed": True,
           "max_scaled_err": max_err, "max_abs_err": max_abs,
-          "tol": sk.KERNEL_TOL,
+          "tol": sk.KERNEL_TOL, "emulate_scaled_err": emulate_err,
+          "emulate_tol": sref.EMULATE_TOL,
           "tol_rule": "max|kernel - plain| <= tol * max(1, max|plain|)",
-          "per_shape": per_shape})
+          "per_shape": per_shape,
+          "layer_prefill_calls": {"calls": len(buckets), **layer}})
     head = next(r for r in per_shape if r["s"] == 448)
     gc.collect()
     torch.cuda.empty_cache()
     return {"ssd_scan": {
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:81",
         "launches": None, "max_abs_err": max_abs, "max_scaled_err": max_err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "emulate_scaled_err": emulate_err,
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "f32_simt_bound_ms": head["f32_simt_bound_ms"],
         "library_ms": None,
         "timed_as": "one mamba2-1.3b layer's scan of the main path's "
                     "largest prefill call: B=1, S=448 (valid 438, masked), "
                     "the carried zero initial state read, H=64, P=64, "
-                    "N=128, G=1, chunk 256, f32; no single PyTorch call "
-                    "computes it",
+                    "N=128, G=1, chunk 256, f32; ms by CUDA events around "
+                    "20 eager calls, device_ms by CUDA-graph replays "
+                    "(graph_ms), inputs hot in L2; bound: bytes or three "
+                    "TF32 products each at 494.7 TFLOP/s; no single "
+                    "PyTorch call computes it",
+        "layer_prefill_calls": {"calls": len(buckets), **layer},
         "per_shape": per_shape}}
+
+
+def ssd_kernel_us(call, calls: int = 10) -> dict:
+    """Device microseconds a call of each ``ssd_*`` kernel of ``call``
+    (torch.profiler over ``calls`` eager calls; kernels on the side stream
+    overlap the others), or "not measured" where the trace shows none."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            call(i)
+        torch.cuda.synchronize()
+    out = {}
+    for name, ms, _ in kernel_rows(prof):
+        m = re.search(r"ssd_\w+", name)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + ms * 1e3 / calls
+    return out or {"ssd_": "not measured"}
+
+
+def ssd_bench(root: str) -> dict:
+    """``--ssd-bench ROOT``: ROOT's ``ssd_scan`` (the checkout's
+    ``src/repro_torch``) at the engine's 8 prefill calls and (8, 512),
+    mamba2's widths: checked against that tree's ``_ssd_chunked`` at
+    ``KERNEL_TOL``, timed device-only (``graph_ms``, 20 calls) and by events
+    (20 eager calls), each kernel by torch.profiler; inputs from
+    :func:`ssd_inputs`, seed 4, hot in L2."""
+    sys.path.insert(0, os.path.join(os.path.abspath(root), "src"))
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.ssm import _ssd_chunked
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = SSD_WIDTHS
+    rows = []
+    for b, s, valid, init in SSD_BUCKETS + [(8, 512, None, None)]:
+        chunk = min(256, s)
+        args, kw = ssd_inputs(dev, gen, b, s, w["h"], w["p"], w["g"],
+                              w["n"], valid, init)
+
+        def call(i):
+            return sk.ssd_scan(*args, chunk=chunk, **kw)
+        y, fs = call(0)
+        y0, fs0 = _ssd_chunked(*args, chunk, **kw)
+        err = max(sk.scaled_err(y, y0), sk.scaled_err(fs, fs0))
+        check(err <= sk.KERNEL_TOL,
+              f"{root}: ssd_scan ({b}, {s}) scaled error {err}")
+        rows.append({"b": b, "s": s, "valid": valid, "scaled_err": err,
+                     "device_ms": graph_ms(call, 20), "ms": cuda_ms(call, 20),
+                     "kernels_us": ssd_kernel_us(call)})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    return {"root": root, "kernel": sk.__file__, "nvidia_smi": smi,
+            "shapes": rows}
+
+
+def ssd_against(other: str) -> dict:
+    """``--ssd-against DIR``: DIR's ``ssd_scan`` and this checkout's in
+    turns (DIR, this, this, DIR; a process each, the two packages share a
+    name), each run printed; per shape the faster of each tree's two
+    times, their ratio, and the sums over a layer's 8 prefill calls."""
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ssd-bench", root], capture_output=True,
+                             text=True)
+        check(out.returncode == 0,
+              f"--ssd-bench {root} failed:\n{out.stderr[-4000:]}")
+        run = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(run), flush=True)
+        runs.append(run)
+    per_shape = []
+    for i, row in enumerate(runs[1]["shapes"]):
+        best = {side: {k: min(r["shapes"][i][k] for r in pair)
+                       for k in ("device_ms", "ms")}
+                for side, pair in (("other", (runs[0], runs[3])),
+                                   ("this", (runs[1], runs[2])))}
+        per_shape.append({"b": row["b"], "s": row["s"],
+                          "other_device_ms": best["other"]["device_ms"],
+                          "this_device_ms": best["this"]["device_ms"],
+                          "other_ms": best["other"]["ms"],
+                          "this_ms": best["this"]["ms"],
+                          "speedup_device": best["other"]["device_ms"]
+                          / best["this"]["device_ms"]})
+    layer = [r for r in per_shape if r["b"] == 1]
+    return {"against": other, "nvidia_smi": runs[1]["nvidia_smi"],
+            "per_shape": per_shape,
+            "layer_prefill_calls": {
+                k: sum(r[k] for r in layer)
+                for k in ("other_device_ms", "this_device_ms", "other_ms",
+                          "this_ms")},
+            "faster_everywhere": all(r["this_device_ms"]
+                                     < r["other_device_ms"]
+                                     for r in per_shape)}
 
 
 #: phase 3e: JAX's test_flash_vs_ref shapes (B, S, H, Hkv, D), causal and
@@ -1435,6 +1597,25 @@ def kernel_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def busy_ms(prof, match: str = "") -> float | None:
+    """Device ms in the CUDA kernels whose name holds ``match``, the union
+    of their intervals (kernels on two streams that overlap count once);
+    None where the trace holds no device interval."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA and match in e.name)
+    if not spans:
+        return None
+    total, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
 def profile_decode(eng, prompts, ticks: int = 4) -> dict:
     """Device time by kernel over ``ticks`` steady decode ticks of a fresh
     batch (torch.profiler; admission and drain run outside the window)."""
@@ -1549,13 +1730,21 @@ def profile_prefill(eng, prompt) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = kernel_rows(prof)
-    device_ms = sum(r[1] for r in rows)
+    # ssd_scan runs ssd_cb and chunk 0's ssd_chunk_out on a side stream
+    # beside its other kernels: device time is the union of the kernels'
+    # intervals; the summed durations are kept beside it
+    busy, ssd_busy = busy_ms(prof), busy_ms(prof, "ssd_")
     return {"profile": f"one prefill call, {len(prompt)} tokens",
             "wall_ms": wall_ms,
-            "device_ms": device_ms if rows else "not measured",
-            "ssd_scan_ms": (sum(r[1] for r in rows if "ssd_" in r[0])
-                            if rows else "not measured"),
-            "device_idle_share": (1 - device_ms / wall_ms) if rows
+            "device_ms": busy if busy is not None else "not measured",
+            "kernel_ms_summed": sum(r[1] for r in rows) if rows
+            else "not measured",
+            "ssd_scan_ms": ssd_busy if ssd_busy is not None
+            else "not measured",
+            "ssd_scan_kernel_ms_summed": (
+                sum(r[1] for r in rows if "ssd_" in r[0]) if rows
+                else "not measured"),
+            "device_idle_share": (1 - busy / wall_ms) if busy is not None
             else "not measured",
             "top": [{"kernel": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:10]]}
@@ -2077,7 +2266,17 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=48,
                     help="depth of the full-width yi-9b (it has 48); "
                          "mamba2-1.3b always runs all 48 of its layers")
+    bench = ap.add_mutually_exclusive_group()
+    bench.add_argument("--ssd-bench", metavar="ROOT",
+                       help="only time ROOT's ssd_scan (ssd_bench)")
+    bench.add_argument("--ssd-against", metavar="DIR",
+                       help="only time DIR's ssd_scan and this checkout's "
+                            "in turns (ssd_against)")
     args = ap.parse_args()
+    if args.ssd_bench or args.ssd_against:
+        print(json.dumps(ssd_bench(args.ssd_bench) if args.ssd_bench
+                         else ssd_against(args.ssd_against)))
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -2137,7 +2336,8 @@ def main() -> int:
               ln for ln in ptxas if "spill" in ln
               and "0 bytes spill stores, 0 bytes spill loads" not in ln}),
           "ptxas_lut_gemm": {n: by_lib.get(n) for n in (
-              "lut_gemm_tc", "lut_gemm_wgmma")}})
+              "lut_gemm_tc", "lut_gemm_wgmma")},
+          "ptxas_ssd_scan_tc": by_lib.get("ssd_scan_tc")})
 
     kernels = kernel_phase(dev)
     kernels.update(luna_kernel_phase(dev))

@@ -1,10 +1,23 @@
 """Sequential oracle for the SSD chunk scan (mirrors
 ``repro.kernels.ssd_scan.ref``): the naive token-by-token recurrence.
 The chunked plain version the kernel repeats is
-``repro_torch.models.ssm._ssd_chunked``."""
+``repro_torch.models.ssm._ssd_chunked``.
+
+:func:`ssd_scan_tc_emulate` is the Hopper kernels' arithmetic
+(``csrc/ssd_scan_tc.cu``) on any device: its four passes, every product
+split 3xTF32 (:func:`tf32_split`), with switches for the faults its tests
+must catch.
+"""
 from __future__ import annotations
 
 import torch
+
+#: the kernels against :func:`ssd_scan_tc_emulate` on the card, as a share
+#: of the output's scale (``ssd_scan.scaled_err``): both take the same
+#: 3xTF32 products and differ in the order of their sums and in exp (the
+#: kernels' ``__expf`` in L); 3.2e-6 at mamba2's widths, S = 448, on an
+#: H100, against ``KERNEL_TOL`` = 1e-4
+EMULATE_TOL = 1e-5
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -34,3 +47,113 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  + dt[:, t, None, None] * b[:, t, :, None] * x[:, t, None, :])
         ys.append(torch.einsum("zn,znp->zp", c[:, t], state))
     return torch.stack(ys, 1), state
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero: ``cvt.rna.tf32.f32``, by bit operations on finite f32."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) = (tf32(t), tf32(t - hi)): t = hi + lo within 2^-22 |t|."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor, lo_terms: bool,
+         acc: torch.Tensor | None = None) -> torch.Tensor:
+    """``acc + a @ b`` as the kernels take it: a_lo b_hi, a_hi b_lo, a_hi
+    b_hi into one f32 accumulator (lo·lo dropped); ``lo_terms=False``: one
+    TF32 product, a_hi b_hi."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    out = torch.zeros((), device=a.device) if acc is None else acc
+    if lo_terms:
+        out = out + al @ bh
+        out = out + ah @ bl
+    return out + ah @ bh
+
+
+def ssd_scan_tc_emulate(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+                        initial_state: torch.Tensor | None = None,
+                        mask: torch.Tensor | None = None,
+                        lo_terms: bool = True,
+                        skip_decay_chunk: int | None = None,
+                        diagonal: bool = True):
+    """``csrc/ssd_scan_tc.cu``'s arithmetic, pass by pass.
+
+    x: (B,S,H,P); dt: (B,S,H); a: (H,); b/c: (B,S,G,N) with G | H;
+    ``initial_state`` (B,H,P,N), ``mask`` (B,S) as in
+    :func:`~repro_torch.kernels.ssd_scan.ssd_scan.ssd_scan`.  The passes:
+
+    1. ``ssd_cb``: CB = C·Bᵀ per (b, group, chunk);
+    2. ``ssd_chunk_state``: masked dt, da = cumsum(dt·a) per chunk,
+       seg_end = exp(da[-1] - da), Sloc = ((x·dt)ᵀ (seg_end ⊙ B)) (P x N)
+       and the chunk decay exp(da[-1]);
+    3. ``ssd_state_pass``: S_enter[c] = S; S = decay_c·S + Sloc_c, from the
+       initial state (or zero); S at the end is the final state;
+    4. ``ssd_chunk_out``: y = (C·S_enterᵀ)·exp(da) + (CB ⊙ L)(x·dt), L =
+       exp(da_i - da_j) for j <= i, masked before exp.
+
+    Every product is split 3xTF32 (:func:`_mm3`); positions past S are
+    zeros, as the kernels' zero-filled tiles.  Faults: ``lo_terms=False``
+    takes one TF32 product (lo terms dropped); ``skip_decay_chunk=k`` lets
+    the state pass skip chunk k's decay; ``diagonal=False`` drops the
+    diagonal from the causal mask.  Returns (y (B,S,H,P), final (B,H,P,N)).
+    """
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hg = h // g
+    x, dt, a, b, c = (t.float() for t in (x, dt, a, b, c))
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, torch.zeros((), device=dt.device))
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
+    # (B, nc, group or head, Q, ·) streams
+    xq = x.reshape(bb, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
+    dtq = dt.reshape(bb, nc, chunk, h).permute(0, 1, 3, 2)
+    bq = b.reshape(bb, nc, chunk, g, n).permute(0, 1, 3, 2, 4)
+    cq = c.reshape(bb, nc, chunk, g, n).permute(0, 1, 3, 2, 4)
+
+    cb = _mm3(cq, bq.transpose(-1, -2), lo_terms)             # 1: (B,nc,G,Q,Q)
+
+    da = torch.cumsum(dtq * a[None, None, :, None], dim=-1)  # 2: (B,nc,H,Q)
+    da_last = da[..., -1:]
+    seg_end = torch.exp(da_last - da)
+    xdt = xq * dtq[..., None]                                 # (B,nc,H,Q,P)
+    bh = bq.repeat_interleave(hg, dim=2)                      # (B,nc,H,Q,N)
+    sloc = _mm3(xdt.transpose(-1, -2), seg_end[..., None] * bh,
+                lo_terms)                                     # (B,nc,H,P,N)
+    decay = torch.exp(da_last[..., 0])                        # (B,nc,H)
+
+    state = (torch.zeros((bb, h, p, n), device=x.device)      # 3
+             if initial_state is None else initial_state.float())
+    enter = []
+    for ci in range(nc):
+        enter.append(state)
+        d = (torch.ones((), device=x.device) if ci == skip_decay_chunk
+             else decay[:, ci, :, None, None])
+        state = d * state + sloc[:, ci]
+
+    ch = cq.repeat_interleave(hg, dim=2)                      # 4: (B,nc,H,Q,N)
+    s_enter = torch.stack(enter, 1)                           # (B,nc,H,P,N)
+    inter = _mm3(ch, s_enter.transpose(-1, -2), lo_terms) \
+        * torch.exp(da)[..., None]                            # (B,nc,H,Q,P)
+    rows = torch.arange(chunk, device=x.device)
+    causal = (rows[:, None] >= rows[None, :]) if diagonal \
+        else (rows[:, None] > rows[None, :])
+    rel = da[..., :, None] - da[..., None, :]                 # (B,nc,H,Q,Q)
+    L = torch.exp(torch.where(causal, rel,
+                              torch.full((), -torch.inf, device=x.device)))
+    cbh = cb.repeat_interleave(hg, dim=2)
+    y = _mm3(cbh * L, xdt, lo_terms, acc=inter)               # (B,nc,H,Q,P)
+    y = y.permute(0, 1, 3, 2, 4).reshape(bb, nc * chunk, h, p)[:, :s]
+    return y, state

@@ -1,26 +1,39 @@
-"""Wrapper of the hand-written Hopper SSD chunk-scan kernel.
+"""Wrapper of the hand-written Hopper SSD chunk-scan kernels.
 
 :func:`ssd_scan` — the mamba2 prefill's state-space scan over (B, S, H, P)
 streams, resumable (``initial_state``) and maskable (``mask``).  Replaces
 the Pallas ``repro/kernels/ssd_scan/ssd_scan.py:81 ssd_scan``.
 
-A CUDA tensor launches the kernel (``csrc/ssd_scan.cu``, built on first
-use) on ``torch.cuda.current_stream()``, or the call raises; a CPU tensor
-takes the plain version, ``repro_torch.models.ssm._ssd_chunked`` (JAX's
-jnp scan).  Nothing falls back.  The wrapper counts its kernel launches in
-a plain integer attribute, ``launches``.
+A CUDA tensor launches the kernels (``csrc/ssd_scan_tc.cu``, built on
+first use) on ``torch.cuda.current_stream()``, or the call raises; a CPU
+tensor takes the plain version, ``repro_torch.models.ssm._ssd_chunked``
+(JAX's jnp scan).  Nothing falls back.  A call is four device kernels:
+``ssd_cb`` (C·Bᵀ per group and chunk, causal tiles only),
+``ssd_chunk_state`` (each chunk's cumsum and its chunk-local state, all
+chunks in parallel), ``ssd_state_pass`` (the state carried across chunks,
+elementwise, the only sequential part) and ``ssd_chunk_out`` (y per 64-row
+tile; launched twice where S spans more than one chunk: chunk 0's tiles,
+which need only ``ssd_cb``, run on a side stream beside the middle two);
+every product on the TF32 tensor cores, three products each (the 3xTF32
+split, f32 accuracy).  The workspace (one buffer) comes from
+``torch.empty``, so a CUDA graph takes it from its pool.
+``ref.ssd_scan_tc_emulate`` is the same arithmetic on the CPU.  The
+wrapper counts its public calls that launch the kernels in a plain integer
+attribute, ``launches`` (one a call).
 
 Tolerance of kernel against plain version on the card: ``KERNEL_TOL``
 = 1e-4 of the output's scale, ``max|kernel - plain| <= KERNEL_TOL *
 max(1, max|plain|)`` (:func:`scaled_err`), for y and the final state
 alike; 1e-4 is the bound JAX holds its Pallas kernel to against the jnp
-scan (``tests/test_ssd_kernel.py``).  Both sum the same f32 products in
-different orders (the kernel: a parallel cumsum and FMA chains over
-32-wide tiles; the plain version: ``torch.cumsum`` and the library's
-einsum tiling); at mamba2's widths an output sums ~N + Q = 384 products
-of magnitude up to ~10, which moves results by ~1e-6 of their scale.  The
-scale, not each element, is the reference because outputs near zero are
-sums of cancelling terms of that scale.
+scan (``tests/test_ssd_kernel.py``).  The kernels' products split each
+f32 operand into two TF32 parts (hi·hi + hi·lo + lo·hi, lo·lo dropped:
+each product within ~2^-21 of the f32 one) and sum them in the tensor
+cores' order; the plain version sums true f32 products with the
+library's tiling.  At mamba2's widths an output sums ~N + Q = 384
+products of magnitude up to ~10, which moves results by ~1e-6 of their
+scale (a single TF32 product would move them by ~5e-4).  The scale, not
+each element, is the reference because outputs near zero are sums of
+cancelling terms of that scale.
 """
 from __future__ import annotations
 
@@ -30,7 +43,7 @@ import torch
 
 KERNEL_TOL = 1e-4
 
-#: the kernel's limits (mirrors the constants in csrc/ssd_scan.cu)
+#: the kernels' limits (mirrors the constants in csrc/ssd_scan_tc.cu)
 QMAX = 256
 NMAX = 128
 
@@ -43,16 +56,19 @@ def scaled_err(out: torch.Tensor, plain: torch.Tensor) -> float:
 
 
 def _lib():
-    """The built library, its entry point typed on first use."""
+    """The built library, its entry points typed on first use."""
     from repro_torch.kernels._build import load_library
-    lib = load_library("ssd_scan")
-    if lib.ssd_scan_launch.argtypes is None:
+    lib = load_library("ssd_scan_tc")
+    if lib.ssd_scan_tc_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [p] * 10 + [i] * 7 + [p]
-        lib.ssd_scan_launch.restype = ctypes.c_int
-        limits = (lib.ssd_scan_qmax(), lib.ssd_scan_nmax())
+        lib.ssd_scan_tc_workspace.argtypes = [i] * 7 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ssd_scan_tc_workspace.restype = ctypes.c_int
+        lib.ssd_scan_tc_launch.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.ssd_scan_tc_launch.restype = ctypes.c_int
+        limits = (lib.ssd_scan_tc_qmax(), lib.ssd_scan_tc_nmax())
         if limits != (QMAX, NMAX):
-            raise RuntimeError(f"ssd_scan.cu limits {limits} differ from "
+            raise RuntimeError(f"ssd_scan_tc.cu limits {limits} differ from "
                                "the wrapper's")
     return lib
 
@@ -92,19 +108,22 @@ def _launch(x, dt, a, b, c, chunk, initial_state, mask):
         raise ValueError("ssd_scan takes contiguous operands")
     bb, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    nc = -(-s // chunk)
-    cb = torch.empty((bb, g, nc, chunk, chunk), dtype=torch.float32,
-                     device=x.device)
+    sizes = (bb, s, h, p, g, n, chunk)
     y = torch.empty_like(x)
     final = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _lib().ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), None if mask is None else mask.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(),
-            cb.data_ptr(), y.data_ptr(), final.data_ptr(), bb, s, h, p, g,
-            n, chunk, stream)
+        lib = _lib()
+        nbytes = ctypes.c_longlong()
+        err = lib.ssd_scan_tc_workspace(*sizes, ctypes.byref(nbytes))
+        if err == 0:
+            # C·Bᵀ, the chunks' states and their decays
+            ws = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+            err = lib.ssd_scan_tc_launch(
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), None if mask is None else mask.data_ptr(),
+                None if initial_state is None else initial_state.data_ptr(),
+                ws.data_ptr(), y.data_ptr(), final.data_ptr(), *sizes, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t "
                            f"{err}")

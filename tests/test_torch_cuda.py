@@ -23,8 +23,12 @@ machine with the card and no JAX:
 * ``ssd_scan`` against its plain version (``models.ssm._ssd_chunked`` on
   the card) at the tolerance stated in ``kernels/ssd_scan/ssd_scan.py``:
   ragged S, chunks that are not powers of two, a mask off the chunk grid,
-  a carried initial state, G = 2, P not a multiple of 32; and a reduced
-  f32 mamba2 prefill (through the kernel) against the CPU's (1e-4);
+  a carried initial state, G = 2, P not a multiple of 32, and mamba2's
+  widths at the engine's eight prefill calls and (8, 512); two calls
+  bitwise equal; the kernels against their CPU emulation
+  (``ref.ssd_scan_tc_emulate``, run on the card) within
+  ``ref.EMULATE_TOL``; and a reduced f32 mamba2 prefill (through the
+  kernel) against the CPU's (1e-4);
 * ``flash_attention`` against its plain version on the same input values
   (``flash_attention.reference``: the SIMT kernel, f32 and bf16 at D < 64,
   against ``attention_ref``; the tensor-core kernel, bf16 at D in {64,
@@ -51,6 +55,7 @@ from repro_torch.kernels.luna_mm.ref import luna_mm_ref
 from repro_torch.kernels.lut_gemm import lut_gemm as tkern
 from repro_torch.kernels.lut_gemm import ops as tops
 from repro_torch.kernels.lut_gemm import ref as tref
+from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.kernels.ssd_scan import ssd_scan as skern
 from repro_torch.models.registry import get_config, get_model
 from repro_torch.models.ssm import _ssd_chunked
@@ -262,20 +267,18 @@ def test_quant_matmul_card_matches_cpu(dev):
     (2, 130, 2, 40, 2, 16, 64, 70, True),      # mask, initial state, P = 40
     (1, 300, 2, 64, 1, 128, 256, 211, True),   # two chunks of 256, masked
     (1, 1, 2, 8, 1, 8, 1, None, True),         # one position
-])
+] + [
+    # mamba2's widths: the engine's eight prefill calls (16-token buckets
+    # masked at the prompt lengths, the zero state read), and (8, 512)
+    (1, S, 64, 64, 1, 128, min(256, S), valid, "zero")
+    for S, valid in ((448, 438), (336, 332), (272, 270), (176, 168),
+                     (160, 150), (64, 53), (48, 36), (32, 24))
+] + [(8, 512, 64, 64, 1, 128, 256, None, False),
+       (1, 300, 4, 64, 1, 128, 256, 211, "mixed")])  # zero and nonzero heads
 def test_ssd_scan_matches_plain_on_card(dev, B, S, H, P, G, N, chunk, valid,
                                         init):
-    gen = torch.Generator(device=dev).manual_seed(S)
-    x = torch.randn((B, S, H, P), generator=gen, device=dev)
-    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
-    a = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
-    b = torch.randn((B, S, G, N), generator=gen, device=dev)
-    c = torch.randn((B, S, G, N), generator=gen, device=dev)
-    s0 = (torch.randn((B, H, P, N), generator=gen, device=dev) if init
-          else None)
-    mask = (None if valid is None
-            else (torch.arange(S, device=dev) < valid)[None].expand(B, S)
-            .contiguous())
+    x, dt, a, b, c, s0, mask = _ssd_inputs(dev, B, S, H, P, G, N, valid,
+                                           init)
     before = skern.ssd_scan.launches
     y, fs = skern.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=s0,
                            mask=mask)
@@ -285,6 +288,64 @@ def test_ssd_scan_matches_plain_on_card(dev, B, S, H, P, G, N, chunk, valid,
     torch.cuda.synchronize()
     assert skern.scaled_err(y, y0) <= skern.KERNEL_TOL
     assert skern.scaled_err(fs, fs0) <= skern.KERNEL_TOL
+
+
+def _ssd_inputs(dev, B, S, H, P, G, N, valid, init):
+    """x, dt, a, b, c, the initial state (None; True: random; "zero";
+    "mixed": random but zero in every other head) and the mask (None, or
+    the first ``valid`` positions) of one scan."""
+    gen = torch.Generator(device=dev).manual_seed(S)
+    x = torch.randn((B, S, H, P), generator=gen, device=dev)
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    b = torch.randn((B, S, G, N), generator=gen, device=dev)
+    c = torch.randn((B, S, G, N), generator=gen, device=dev)
+    s0 = None
+    if init == "zero":
+        s0 = torch.zeros((B, H, P, N), device=dev)
+    elif init:
+        s0 = torch.randn((B, H, P, N), generator=gen, device=dev)
+        if init == "mixed":
+            s0[:, ::2] = 0.0
+    mask = (None if valid is None
+            else (torch.arange(S, device=dev) < valid)[None].expand(B, S)
+            .contiguous())
+    return x, dt, a, b, c, s0, mask
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,valid,init", [
+    (1, 448, 64, 64, 1, 128, 256, 438, "zero"),
+    (2, 130, 2, 40, 2, 16, 64, 70, True),
+])
+def test_ssd_scan_is_deterministic_on_card(dev, B, S, H, P, G, N, chunk,
+                                           valid, init):
+    """Sums in a fixed order, no atomics: two calls are bitwise equal."""
+    x, dt, a, b, c, s0, mask = _ssd_inputs(dev, B, S, H, P, G, N, valid,
+                                           init)
+    first = skern.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=s0,
+                           mask=mask)
+    second = skern.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=s0,
+                            mask=mask)
+    for got, want in zip(second, first):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S,valid,init", [(448, 438, "zero"),
+                                          (512, None, True)])
+def test_ssd_scan_matches_its_emulation_on_card(dev, S, valid, init):
+    """The kernels against ``ref.ssd_scan_tc_emulate`` (the same passes
+    and 3xTF32 split, summed in another order, on the card) at mamba2's
+    widths, within ``ref.EMULATE_TOL`` of the scale: tighter than
+    ``KERNEL_TOL``."""
+    x, dt, a, b, c, s0, mask = _ssd_inputs(dev, 1, S, 64, 64, 1, 128,
+                                           valid, init)
+    y, fs = skern.ssd_scan(x, dt, a, b, c, chunk=256, initial_state=s0,
+                           mask=mask)
+    ye, fse = sref.ssd_scan_tc_emulate(x, dt, a, b, c, chunk=256,
+                                       initial_state=s0, mask=mask)
+    assert sref.EMULATE_TOL < skern.KERNEL_TOL
+    assert skern.scaled_err(y, ye) <= sref.EMULATE_TOL
+    assert skern.scaled_err(fs, fse) <= sref.EMULATE_TOL
 
 
 def test_mamba2_prefill_card_matches_cpu(dev):
