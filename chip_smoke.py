@@ -50,12 +50,15 @@ result line):
    d. the SSD chunk scan (``ssd_scan``, the four kernels of
       ``ssd_scan_tc.cu``) at mamba2's widths (H = 64, P = 64, N = 128, G
       = 1, chunk min(256, S)) for (B, S) in {(1, 48), (1, 272) with a
-      carried initial state, (8, 512)} and the engine's eight prefill
+      carried initial state, (8, 512)}, the engine's eight prefill
       calls (B = 1, S the 16-token buckets 448 ... 32, masked at the
-      prompt lengths 438 ... 24, the zero state read), and a small G = 2
+      prompt lengths 438 ... 24, the zero state read), phase 9b's resumed
+      and warm-seeded pieces (S in {16, 32, 48, 64, 128} from a random,
+      non-zero initial state, four of them masked) and a small G = 2
       case, within the tolerance stated in
-      ``kernels/ssd_scan/ssd_scan.py``; the S = 448 call also within
-      ``ref.EMULATE_TOL`` of its CPU emulation (run on the card); each timed
+      ``kernels/ssd_scan/ssd_scan.py``; the S = 448 call and every resumed
+      piece also within ``ref.EMULATE_TOL`` of the CPU emulation (run on
+      the card); each timed
       device-only
       (``graph_ms``) and by events beside its bound (bytes, or three TF32
       products at 494.7 TFLOP/s) and the f32 SIMT bound, and the sum over
@@ -76,7 +79,11 @@ result line):
    equals the CPU's bitwise; decode logits through the kernels under
    lut4, nf4p; lut_nf4 prefill) and mamba2 (right-padded prefill with
    ``last_pos`` through ``ssd_scan``; w_in/w_out codes bitwise; one
-   decode step under lut4 and nf4p), logits at 1e-4; yi-9b training:
+   decode step under lut4 and nf4p), logits at 1e-4; the cache
+   substrate (yi-9b paged, paged + chunked, paged + prefix cache with
+   and without chunks; mamba2 chunked and prefix + chunked, on a
+   shared-head mix on 3 slots): greedy tokens on the card equal the
+   CPU's and the dense, whole-prompt, cold engine's; yi-9b training:
    the cacheless forward under attn_impl="flash", the loss and every
    gradient under chunked attention and under luna_approx (the STE on
    luna_mm), one train step;
@@ -88,7 +95,8 @@ result line):
    a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
       decode projections on the D&C kernels, every launch on the
       tensor-core kernel);
-   b. under the model-level modes luna_approx2, luna_dc (every projection
+   b. on the first 24 of those layers, under the model-level modes
+      luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm: prefill calls at M >= 32 on its
       tensor-core kernel, decode's M = 8 on the __dp4a kernel, each count
       checked) and lut_nf4 (on lut_gemm: decode and the M = 32 prefill
@@ -115,13 +123,30 @@ result line):
    dropped for the last 64 queries) must fail;
    8b. the Trainer on luna-mlp: 12 steps with checkpoints every 5, then
    a rerun to 20 resumes from step 12;
-each run of 6 and 7 asserting every request finished, every logit is
+9. the cache substrate at full width (bf16, random weights from seed 0),
+   run after phase 6 on its model (9a) and after phase 7 on its (9b):
+   a. yi-9b under lut4 on the paged pool (block 16) serves phase 6's 8
+      requests: tokens bitwise equal to phase 6a's dense lut4 run; then
+      with ``prefix_cache`` and ``prefill_chunk=128`` the shared-prefix
+      mix (a 384-token prefix alone, then 7 requests of it plus 8-64
+      token tails together): 7 hits reusing 2,688 tokens, every pool
+      block free or held by the cache alone after the run;
+   b. mamba2-1.3b under nf4p with ``prefill_chunk=64`` and
+      ``prefix_cache`` on the same mix in the same order: 7 hits, every
+      prefill piece on ``ssd_scan`` (resumed from a carried state, warm
+      ones from a seeded snapshot);
+   each warm request's first-token logits bitwise equal to a replay of its
+   prefill pieces on a fresh cache, and from the same prompt prefilled
+   whole at most ``WARM_FACTOR`` times the bf16 model's own distance from
+   an f32 copy of its weights;
+each run of 6, 7 and 9 asserting every request finished, every logit is
 finite and each kernel's launch counter (all set to 0 just before the
 run, read just after) equals the launches the run made through it; then
 (after the counts are read) a torch.profiler window over 4 decode ticks
 (and for mamba2 one prefill call): device time by kernel and the idle
 share (for the prefill call, device time as the union of the kernels'
 intervals: ``ssd_scan``'s side stream overlaps its other kernels).
+``--layers N`` cuts yi-9b's depth in phases 6 and 9a.
 
 Every line is one JSON object (``t_s``: seconds since the start); the
 ``{"kernels": [...]}`` line comes just before the last, which is
@@ -935,11 +960,22 @@ SSD_BUCKETS = [(1, 448, 438, "zero"), (1, 336, 332, "zero"),
                (1, 272, 270, "zero"), (1, 176, 168, "zero"),
                (1, 160, 150, "zero"), (1, 64, 53, "zero"),
                (1, 48, 36, "zero"), (1, 32, 24, "zero")]
+#: the scans of phase 9b's resumed and warm-seeded prefill pieces
+#: (prefill_chunk 64, capture grid 16, the shared-prefix mix): a 64-token
+#: piece continuing a carried state, the 384-token prefix's last piece
+#: (masked), a warm tail's pieces up to its capture boundary (32, 48) and
+#: its masked last pieces (16 padded, 2, 9 and 16 real); and a 128-token
+#: piece (yi-9b's chunk).  Every one starts from a non-zero state.
+SSD_PIECES = [(1, 64, None, "random"), (1, 64, 64, "random"),
+              (1, 32, None, "random"), (1, 48, None, "random"),
+              (1, 16, 2, "random"), (1, 16, 9, "random"),
+              (1, 16, 16, "random"), (1, 128, None, "random")]
 #: phase 3d at mamba2-1.3b's widths: (B, S, valid length or None for no
 #: mask, initial state: None, "zero" as the main path carries it into a
-#: prefill, or "random"): the engine's buckets (B = 1) and three more
+#: prefill, or "random"): the engine's buckets (B = 1), its resumed
+#: pieces and three more
 SSD_CASES = [(1, 48, None, None), (1, 272, None, "random"),
-             (8, 512, None, None)] + SSD_BUCKETS
+             (8, 512, None, None)] + SSD_BUCKETS + SSD_PIECES
 SSD_WIDTHS = dict(h=64, p=64, g=1, n=128)
 
 
@@ -1042,14 +1078,17 @@ def ssd_kernel_phase(dev):
               f"ssd_scan ({b}, {s}) valid={valid} init={init}: scaled "
               f"error {err} > {sk.KERNEL_TOL}")
         max_err, max_abs = max(max_err, err), max(max_abs, abs_err)
-        if (b, s, valid, init) == SSD_BUCKETS[0]:
+        emulated = None
+        if (b, s, valid, init) == SSD_BUCKETS[0] or \
+                (b, s, valid, init) in SSD_PIECES:
             # the kernels against their arithmetic emulated (on the card)
             y, fs = sk.ssd_scan(*args, chunk=chunk, **kw)
             ye, fse = sref.ssd_scan_tc_emulate(*args, chunk=chunk, **kw)
-            emulate_err = max(sk.scaled_err(y, ye), sk.scaled_err(fs, fse))
-            check(emulate_err <= sref.EMULATE_TOL,
-                  f"ssd_scan ({b}, {s}) against ssd_scan_tc_emulate: "
-                  f"{emulate_err} > {sref.EMULATE_TOL}")
+            emulated = max(sk.scaled_err(y, ye), sk.scaled_err(fs, fse))
+            check(emulated <= sref.EMULATE_TOL,
+                  f"ssd_scan ({b}, {s}) valid={valid} init={init} against "
+                  f"ssd_scan_tc_emulate: {emulated} > {sref.EMULATE_TOL}")
+            emulate_err = max(emulate_err or 0.0, emulated)
             del y, fs, ye, fse
 
         def call(i):
@@ -1061,6 +1100,7 @@ def ssd_kernel_phase(dev):
                              valid is not None, init)
         per_shape.append({"b": b, "s": s, "chunk": chunk, "valid": valid,
                           "initial_state": init, "scaled_err": err,
+                          "emulate_scaled_err": emulated,
                           "max_abs_err": abs_err, "device_ms": device_ms,
                           "ms": ms, "plain_ms": plain_ms, **bound,
                           "gflop": ssd_flops(b, s, w["h"], w["p"], w["g"],
@@ -1070,16 +1110,21 @@ def ssd_kernel_phase(dev):
     buckets = [r for r in per_shape
                if (r["b"], r["s"], r["valid"], r["initial_state"])
                in SSD_BUCKETS]
-    layer = {k: sum(r[k] for r in buckets)
-             for k in ("device_ms", "ms", "plain_ms", "bound_ms",
-                       "f32_simt_bound_ms", "gflop")}
+    keys = ("device_ms", "ms", "plain_ms", "bound_ms", "f32_simt_bound_ms",
+            "gflop")
+    layer = {k: sum(r[k] for r in buckets) for k in keys}
+    pieces = [r for r in per_shape
+              if (r["b"], r["s"], r["valid"], r["initial_state"])
+              in SSD_PIECES]
+    piece_sums = {k: sum(r[k] for r in pieces) for k in keys}
     emit({"kernel_check": "ssd_scan", "passed": True,
           "max_scaled_err": max_err, "max_abs_err": max_abs,
           "tol": sk.KERNEL_TOL, "emulate_scaled_err": emulate_err,
           "emulate_tol": sref.EMULATE_TOL,
           "tol_rule": "max|kernel - plain| <= tol * max(1, max|plain|)",
           "per_shape": per_shape,
-          "layer_prefill_calls": {"calls": len(buckets), **layer}})
+          "layer_prefill_calls": {"calls": len(buckets), **layer},
+          "resumed_pieces": {"calls": len(pieces), **piece_sums}})
     head = next(r for r in per_shape if r["s"] == 448)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1547,6 +1592,81 @@ def small_ssm_reference_phase(dev):
           "max_abs_err": out, "rtol": 1e-4, "atol": 1e-4})
 
 
+#: phase 4's engines on the cache substrate, each against the dense,
+#: whole-prompt, cold engine: (family, label, EngineConfig knobs)
+SMALL_SUBSTRATES = [
+    ("dense", "paged", dict(paged=True, block_size=8)),
+    ("dense", "paged chunked", dict(paged=True, block_size=8,
+                                    prefill_chunk=8)),
+    ("dense", "paged prefix chunked", dict(paged=True, block_size=8,
+                                           prefill_chunk=8,
+                                           prefix_cache=True)),
+    ("dense", "paged prefix", dict(paged=True, block_size=8,
+                                   prefix_cache=True)),
+    ("ssm", "chunked", dict(prefill_chunk=8)),
+    ("ssm", "prefix chunked", dict(prefill_chunk=8, prefix_cache=True)),
+]
+
+
+def small_substrate_phase(dev):
+    """Phase 4, the cache substrate: reduced f32 yi-9b and mamba2 (seed 1
+    weights, the same on both devices) serve a shared-head mix on 3 slots
+    (warm, cold, strict-extension and chunked admissions; 5 new tokens
+    each) on the paged, chunked and warm-prefix engines: greedy tokens on
+    the card equal the CPU's, and both equal the dense, whole-prompt, cold
+    engine's on the CPU; the prefix engines hit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    out = {}
+    for arch in ("yi-9b", "mamba2-1.3b"):
+        cfg = get_config(arch).reduced(dtype="float32", attn_impl="full")
+        cpu = get_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(1))
+        gpu = type(cpu).from_params(cfg, tree_to(cpu.params_tree(), dev),
+                                    device=dev)
+        rng = np.random.default_rng(2)
+        head = rng.integers(1, cfg.vocab_size, 24).tolist()
+        mix = [head + rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (6, 13, 2, 9, 20)]
+        mix.insert(3, rng.integers(1, cfg.vocab_size, 11).tolist())
+
+        def serve(model, device, **knobs):
+            eng = Engine(cfg, model, EngineConfig(max_batch=3, max_seq=64,
+                                                  **knobs), device=device)
+            reqs = [Request(rid=i, prompt=p, max_new=5)
+                    for i, p in enumerate(mix)]
+            stats = eng.serve(reqs)
+            check(stats["done"], f"phase 4 {arch} {knobs}: not done")
+            return [r.out for r in reqs], stats
+
+        cold, _ = serve(cpu, "cpu")
+        for family, label, knobs in SMALL_SUBSTRATES:
+            if family != cfg.family:
+                continue
+            on_cpu, _ = serve(cpu, "cpu", **knobs)
+            on_card, stats = serve(gpu, dev, **knobs)
+            check(on_cpu == cold,
+                  f"phase 4 {arch} {label}: CPU tokens differ from the "
+                  "dense, whole-prompt, cold engine's")
+            check(on_card == on_cpu,
+                  f"phase 4 {arch} {label}: card tokens differ from the "
+                  "CPU's")
+            if knobs.get("prefix_cache"):
+                check(stats["prefix_hits"] >= 2,
+                      f"phase 4 {arch} {label}: {stats['prefix_hits']} hits")
+            out[f"{arch} {label}"] = {
+                k: stats[k] for k in ("prefix_hits", "prefix_tokens_reused",
+                                      "prefill_chunks", "prefill_calls")}
+    emit({"small_substrate": "reduced f32 yi-9b and mamba2, greedy tokens "
+                             "card == cpu == dense whole-prompt cold",
+          "runs": out})
+
+
 def small_training_phase(dev):
     """Phase 4, training: reduced f32 yi-9b, card against CPU, through
     ``repro_torch.train.card_vs_cpu`` (the checks and tolerances the card
@@ -1624,9 +1744,14 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
 
     from repro_torch.serve.engine import Request
 
-    reqs = [Request(rid=100 + i, prompt=p, max_new=ticks + 4)
+    # a chunked engine admits one piece a tick: the window opens once
+    # every admission has landed, and each request outlives it
+    staged = 2 * len(prompts) if eng.prefill_chunk is not None else 0
+    reqs = [Request(rid=100 + i, prompt=p, max_new=ticks + 4 + staged)
             for i, p in enumerate(prompts)]
     eng.serve(reqs, max_ticks=1)           # admit + first decode tick
+    while eng._chunked or eng.scheduler.pending:
+        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1648,6 +1773,49 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
             else "not measured",
             "top": [{"kernel": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:12]]}
+
+
+def watch_logits(eng) -> tuple[list, list]:
+    """Wrap ``logits`` of the engine's prefill and decode models (on the
+    instances; the caller deletes the attribute after the run) so every
+    call records whether all its logits are finite.  Returns (the
+    records, the models watched)."""
+    import torch
+    finite = []
+
+    def watch(m):
+        base = m.logits
+
+        def logits(hidden):
+            out = base(hidden)
+            finite.append(torch.isfinite(out).all())
+            return out
+        m.logits = logits
+
+    watched = list({id(eng.params): eng.params,
+                    id(eng.decode_params): eng.decode_params}.values())
+    for m in watched:
+        watch(m)
+    return finite, watched
+
+
+def reset_counters(wrappers: dict) -> None:
+    """Every kernel wrapper's launch counters to 0."""
+    for f in wrappers.values():
+        f.launches = 0
+    for name in TC_ROUTED:
+        wrappers[name].launches_tc = 0
+    wrappers["lut_gemm"].launches_wgmma = 0
+
+
+def read_counters(wrappers: dict) -> tuple[dict, dict]:
+    """(launches by kernel, launches by tensor-core route: ``launches_tc``
+    of each ``TC_ROUTED`` wrapper, lut_gemm's prefill kernel under
+    ``"lut_gemm_wgmma"``)."""
+    counts = {name: f.launches for name, f in wrappers.items()}
+    tc = {name: wrappers[name].launches_tc for name in TC_ROUTED}
+    tc["lut_gemm_wgmma"] = wrappers["lut_gemm"].launches_wgmma
+    return counts, tc
 
 
 def kernel_wrappers() -> dict:
@@ -1789,39 +1957,18 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
                                               max_seq=1024), device=dev)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
-    finite = []
-
-    def watch(m):
-        base = m.logits
-
-        def logits(hidden):
-            out = base(hidden)
-            finite.append(torch.isfinite(out).all())
-            return out
-        m.logits = logits
-
-    watched = {id(eng.params): eng.params,
-               id(eng.decode_params): eng.decode_params}.values()
-    for m in watched:
-        watch(m)
+    finite, watched = watch_logits(eng)
     reqs = [Request(rid=i, prompt=p, max_new=32)
             for i, p in enumerate(prompts)]
     wrappers = kernel_wrappers()
-    with_tc = [wrappers[n] for n in TC_ROUTED]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in wrappers.values():
-        f.launches = 0
-    for f in with_tc:
-        f.launches_tc = 0
-    wrappers["lut_gemm"].launches_wgmma = 0
+    reset_counters(wrappers)
     t0 = time.perf_counter()
     stats = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: f.launches for name, f in wrappers.items()}
-    tc = {f.__name__: f.launches_tc for f in with_tc}
-    tc["lut_gemm_wgmma"] = wrappers["lut_gemm"].launches_wgmma
+    counts, tc = read_counters(wrappers)
     luna_tc = tc["luna_mm"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in watched:
@@ -1904,24 +2051,41 @@ def add_launches(total: dict, counts: dict) -> None:
             total[name] = total.get(name, 0) + n
 
 
-def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
+#: phase 6b's model-level runs repeat phase 6a's serving path, host-bound
+#: (re-quantizing every weight each call): on the first 24 of the model's
+#: layers (the same weights), which keeps the whole script near half its
+#: time limit now that phase 9 runs too
+MODEL_LEVEL_LAYERS = 24
+
+
+def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict, dict]:
     """Phase 6: the engine at yi-9b's full width; returns launches by
-    kernel and by tensor-core route (``launches_tc``).  6a:
+    kernel and by tensor-core route (``launches_tc``), and each run's
+    tokens by quant mode.  6a:
     engine-level lut4 / nf4p (decode projections on the D&C kernels,
     prefill full precision).  6b: model-level luna_approx2 / luna_dc
-    (every projection on luna_mm) and lut_nf4 (on lut_gemm)."""
+    (every projection on luna_mm) and lut_nf4 (on lut_gemm), on the
+    first ``MODEL_LEVEL_LAYERS`` layers."""
+    from dataclasses import replace
+
+    cut = replace(cfg, num_layers=min(MODEL_LEVEL_LAYERS, cfg.num_layers))
+    tree = model.params_tree()
+    cut_model = type(model).from_params(
+        cut, {**tree, "blocks": tree["blocks"][:cut.num_layers]}, device=dev)
     launches, outs, tc_total = {}, {}, {}
     for quant, kern in (("lut4", "lut_gemm_dc"), ("nf4p", "lut_gemm_dc_res"),
                         ("luna_approx2", "luna_mm"), ("luna_dc", "luna_mm"),
                         ("lut_nf4", "lut_gemm")):
-        counts, outs[quant], tc = serve_once(dev, cfg, model, prompts, quant,
-                                             kern)
+        full = quant in ("lut4", "nf4p")
+        counts, outs[quant], tc = serve_once(
+            dev, cfg if full else cut, model if full else cut_model, prompts,
+            quant, kern)
         add_launches(launches, counts)
         add_launches(tc_total, tc)
     # prefill runs the same full-precision model under lut4 and nf4p
     check([o[0] for o in outs["lut4"]] == [o[0] for o in outs["nf4p"]],
           "first (prefill) tokens differ between the lut4 and nf4p runs")
-    return launches, tc_total
+    return launches, tc_total, outs
 
 
 def ssm_main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
@@ -1940,6 +2104,289 @@ def ssm_main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
     check(firsts[None] == firsts["lut4"] == firsts["nf4p"],
           f"mamba2 first (prefill) tokens differ between runs: {firsts}")
     return launches, tc_total
+
+
+#: phase 9's shared-prefix mix: a 384-token prefix (24 blocks of 16, a
+#: multiple of mamba2's 16-token capture grid) and 7 tails of 8-64 tokens
+SHARED_PREFIX = 384
+#: phase 9's warm-vs-cold bound on the first-token logits (bf16 models):
+#: max |warm - cold| <= WARM_FACTOR * max |cold - exact|, ``exact`` the
+#: same prompt prefilled whole on an f32 copy of the weights.  The warm
+#: prefix was computed in chunked pieces, the cold prompt in one call:
+#: two bf16 roundings of one function, each about as far from exact
+#: arithmetic as the other, so by the triangle inequality about twice
+#: that distance apart at most.  Beside it the warm logits must equal,
+#: bitwise, a replay of the same pieces from a fresh cache
+#: (:func:`replay_staged`): any error of the shared blocks or the
+#: snapshot shows there exactly.
+WARM_FACTOR = 2.0
+
+
+def shared_prefix_mix(vocab: int) -> list:
+    """Phase 9's prompts from seed 1: the 384-token prefix alone, then the
+    prefix with 7 distinct tails (lengths 34, 37, 51, 62, 9, 16, 54), ids
+    in [1, vocab)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    tails = rng.integers(8, 65, size=7)
+    prefix = rng.integers(1, vocab, SHARED_PREFIX).tolist()
+    return [prefix] + [prefix + rng.integers(1, vocab, int(n)).tolist()
+                       for n in tails]
+
+
+def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
+                  batches: list, label: str, warm_check: bool = False
+                  ) -> tuple[dict, list, dict, dict]:
+    """One phase-9 run: the engine under ``EngineConfig(quant, max_batch=8,
+    max_seq=1024, **knobs)`` serves ``batches`` (lists of prompts, one
+    ``serve()`` each, in order; 32 new tokens a request), every kernel
+    counter set to 0 just before the first and read just after the last.
+    Checks: every request finished, every logit finite, ``kern`` launched
+    once per decode projection of each tick (``ssd_scan`` once per layer
+    of each prefill call for mamba2) and no other kernel, every ``kern``
+    launch on the tensor-core kernel; on a pool, every block free or held
+    by the prefix cache alone.  ``warm_check``: each warm request's
+    first-token logits (the engine's own, from its final prefill piece)
+    bitwise equal to :func:`replay_staged`'s and within ``WARM_FACTOR``
+    times the bf16 model's own distance from f32 of the same prompt
+    prefilled whole on a fresh cache.  Emits wall, prefill/decode tok/s, the engine's chunk and
+    prefix counts and a 4-tick decode profile; returns (launches, tokens,
+    launches by tensor-core route, the emitted line)."""
+    import torch
+
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    eng = Engine(cfg, model, EngineConfig(quant=quant, max_batch=8,
+                                          max_seq=1024, **knobs),
+                 device=dev)
+    finite, watched = watch_logits(eng)
+    firsts = []
+    if warm_check:
+        # the first-token logits of each staged admission's final piece
+        # (the only prefill calls given last_pos in these runs), in
+        # admission order
+        base_prefill = model.prefill
+
+        def prefill(tokens, caches, *, last_pos=None, cache_index=0):
+            logits, caches = base_prefill(tokens, caches, last_pos=last_pos,
+                                          cache_index=cache_index)
+            if last_pos is not None:
+                firsts.append(logits[:, 0].float().clone())
+            return logits, caches
+        model.prefill = prefill
+    reqs, rid = [], 0
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    start = eng.metrics.snapshot()
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    for batch in batches:
+        served = [Request(rid=rid + i, prompt=p, max_new=32)
+                  for i, p in enumerate(batch)]
+        rid += len(batch)
+        reqs += served
+        eng.serve(served)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, tc = read_counters(wrappers)
+    for m in watched:
+        del m.logits
+    if warm_check:
+        del model.prefill
+    stats = eng.metrics.since(start).summary(eng.max_batch)
+    layers = cfg.num_layers
+    want = dict.fromkeys(wrappers, 0)
+    want[kern] = stats["ticks"] * layers * PROJECTIONS[cfg.family]
+    if cfg.family == "ssm":
+        want["ssd_scan"] = stats["prefill_calls"] * layers
+    check(all(r.done and len(r.out) == 32 for r in reqs),
+          f"phase 9 {label}: not every request finished")
+    check(finite and bool(torch.stack(finite).all()),
+          f"phase 9 {label}: non-finite logits")
+    check(counts == want,
+          f"phase 9 {label}: launches {counts}, want {want}")
+    check(tc[kern] == counts[kern],
+          f"phase 9 {label}: {tc[kern]} of {counts[kern]} {kern} launches "
+          "on the tensor-core kernel")
+    out = {"substrate": label, "model": cfg.name, "quant": quant,
+           "knobs": knobs, "layers": layers,
+           "batches": [[len(p) for p in b] for b in batches],
+           "max_new": 32, "launches": counts, "launches_tc": tc,
+           "wall_s": wall, **{k: stats[k] for k in (
+               "prefill_tok_s", "decode_tok_s", "prefill_s", "decode_s",
+               "prefill_calls", "prefill_chunks", "ticks", "prefix_hits",
+               "prefix_tokens_reused", "cache_evictions")}}
+    if eng.paged:
+        pool = eng.backend.num_blocks - 1
+        owners = {} if eng.prefix_cache is None else \
+            eng.prefix_cache._block_owners
+        check(eng.allocator.free_blocks + len(owners) == pool
+              and all(eng.allocator.refcount(b) == n
+                      for b, n in owners.items()),
+              f"phase 9 {label}: {eng.allocator.free_blocks} free + "
+              f"{len(owners)} cached blocks of {pool}")
+        out["pool"] = {"blocks": pool, "free": eng.allocator.free_blocks,
+                       "cached": len(owners)}
+    if warm_check:
+        check(len(firsts) == len(reqs),
+              f"phase 9 {label}: {len(firsts)} final prefill pieces for "
+              f"{len(reqs)} requests")
+        rows = []
+        exact = f32_copy(model)
+        with torch.inference_mode():
+            for req, warm in zip(reqs[1:], firsts[1:]):
+                check(int(warm.argmax()) == req.out[0],
+                      f"phase 9 {label}: rid {req.rid}'s recorded logits "
+                      "are not the ones it sampled from")
+                warm = warm[0]
+                replay = replay_staged(eng, model, reqs[0].prompt,
+                                       req.prompt)
+                toks = torch.as_tensor([req.prompt], device=dev)
+                cold, _ = model.prefill(toks, model.init_cache(1, 1024))
+                ref, _ = exact.prefill(toks, exact.init_cache(1, 1024))
+                cold, ref = cold[0, 0].float(), ref[0, 0]
+                scale = cold.abs().max()
+                rows.append({
+                    "replay_bitwise": bool(torch.equal(warm, replay)),
+                    "warm_vs_cold": ((warm - cold).abs().max()
+                                     / scale).item(),
+                    "cold_vs_f32": ((cold - ref).abs().max()
+                                    / scale).item(),
+                    "argmax_equal": int(cold.argmax()) == req.out[0]})
+        del exact
+        out["warm"] = {"factor": WARM_FACTOR, "per_request": rows,
+                       "max_warm_vs_cold": max(r["warm_vs_cold"]
+                                               for r in rows)}
+        for r, req in zip(rows, reqs[1:]):
+            check(r["replay_bitwise"],
+                  f"phase 9 {label}: rid {req.rid}'s warm logits differ "
+                  "from a replay of its pieces on a fresh cache")
+            check(r["warm_vs_cold"] <= WARM_FACTOR * r["cold_vs_f32"],
+                  f"phase 9 {label}: rid {req.rid}'s warm logits "
+                  f"{r['warm_vs_cold']} of the scale from cold, above "
+                  f"{WARM_FACTOR} x the cold ones' {r['cold_vs_f32']} "
+                  "from f32")
+    prof = profile_decode(eng, batches[-1])   # after the counts are read
+    out.update({f"profile_{k}": v for k, v in prof.items()})
+    emit(out)
+    tokens = [r.out for r in reqs]
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, tokens, tc, out
+
+
+def f32_copy(model):
+    """``model`` over f32 copies of its weights (norm weights, already
+    f32, shared)."""
+    from dataclasses import replace
+
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(v) for v in node]
+        return node.float()
+    cfg = replace(model.cfg, dtype="float32")
+    return type(model).from_params(cfg, cast(model.params_tree()),
+                                   device=model.device)
+
+
+def replay_staged(eng, model, prefix: list, prompt: list):
+    """The first-token logits (V,) of ``prompt`` computed as the engine's
+    warm admission computed them, but from a fresh cache with no prefix
+    cache between: ``prefix`` fed in the pieces its own cold staged
+    admission ran (``eng.prefill_chunk`` tokens each, the last padded to
+    its bucket with ``last_pos``), then ``prompt``'s tail in the warm
+    admission's pieces (cut at the state-capture boundary where the
+    substrate carries state).  Same calls and shapes, so the engine's
+    logits equal these bitwise unless its shared blocks or snapshot
+    differ from what that prefix computed."""
+    import torch
+    dev = eng.device
+    chunk = eng.prefill_chunk
+    caches = model.init_cache(1, eng.backend.stage_len)
+
+    def pieces(tokens, consumed, cap):
+        nonlocal caches
+        while True:
+            remaining = len(tokens) - consumed
+            c = chunk
+            if cap is not None and consumed < cap:
+                c = min(c, cap - consumed)
+            if remaining > c:
+                _, caches = model.prefill(
+                    torch.as_tensor([tokens[consumed:consumed + c]],
+                                    device=dev), caches,
+                    cache_index=consumed)
+                consumed += c
+                continue
+            pl = min(eng._bucket_len(remaining),
+                     eng.backend.stage_len - consumed)
+            toks = torch.zeros((1, pl), dtype=torch.long, device=dev)
+            toks[0, :remaining] = torch.as_tensor(tokens[consumed:])
+            logits, caches = model.prefill(
+                toks, caches, cache_index=consumed,
+                last_pos=torch.as_tensor([remaining - 1], device=dev))
+            return logits[0, 0].float()
+
+    pieces(prefix, 0, None)
+    cap = None
+    if eng.backend.needs_state:
+        c = eng._capture_boundary(len(prompt))
+        cap = c if len(prefix) < c < len(prompt) else None
+    return pieces(prompt, len(prefix), cap)
+
+
+def substrate_phase(dev, cfg, model, prompts, dense_lut4
+                    ) -> tuple[dict, dict]:
+    """Phase 9a (after phase 6, on its model): yi-9b under lut4 on the
+    paged pool (block 16) serves phase 6's requests, tokens bitwise equal
+    to phase 6a's dense lut4 run; then with ``prefix_cache`` and
+    ``prefill_chunk=128`` the shared-prefix mix (the prefix alone, then 7
+    warm requests together): 7 hits reusing 7 x 384 tokens."""
+    launches, tc = {}, {}
+    counts, outs, route, _ = substrate_run(
+        dev, cfg, model, "lut4", "lut_gemm_dc",
+        dict(paged=True, block_size=16), [prompts], "yi-9b paged")
+    check(outs == dense_lut4,
+          "phase 9a: paged lut4 tokens differ from phase 6a's dense run")
+    add_launches(launches, counts)
+    add_launches(tc, route)
+    mix = shared_prefix_mix(cfg.vocab_size)
+    counts, _, route, out = substrate_run(
+        dev, cfg, model, "lut4", "lut_gemm_dc",
+        dict(paged=True, block_size=16, prefix_cache=True,
+             prefill_chunk=128), [mix[:1], mix[1:]],
+        "yi-9b paged prefix chunked", warm_check=True)
+    check(out["prefix_hits"] == 7
+          and out["prefix_tokens_reused"] == 7 * SHARED_PREFIX,
+          f"phase 9a: {out['prefix_hits']} hits reusing "
+          f"{out['prefix_tokens_reused']} tokens, want 7 and "
+          f"{7 * SHARED_PREFIX}")
+    add_launches(launches, counts)
+    add_launches(tc, route)
+    return launches, tc
+
+
+def ssm_substrate_phase(dev, cfg, model) -> tuple[dict, dict]:
+    """Phase 9b (after phase 7, on its model): mamba2-1.3b under nf4p with
+    ``prefill_chunk=64`` and ``prefix_cache`` serves the shared-prefix mix
+    in phase 9a's order: 7 hits on the 384-token snapshot; every prefill
+    piece (a carried, non-zero initial state for all but the first, a
+    masked last piece) on ``ssd_scan``."""
+    mix = shared_prefix_mix(cfg.vocab_size)
+    counts, _, route, out = substrate_run(
+        dev, cfg, model, "nf4p", "lut_gemm_dc_res",
+        dict(prefill_chunk=64, prefix_cache=True), [mix[:1], mix[1:]],
+        "mamba2 prefix chunked", warm_check=True)
+    check(out["prefix_hits"] == 7
+          and out["prefix_tokens_reused"] == 7 * SHARED_PREFIX,
+          f"phase 9b: {out['prefix_hits']} hits reusing "
+          f"{out['prefix_tokens_reused']} tokens, want 7 and "
+          f"{7 * SHARED_PREFIX}")
+    return counts, route
 
 
 def profile_train_step(step_fn, model, opt_state, batch) -> tuple:
@@ -2264,8 +2711,9 @@ def trainer_phase(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
-                    help="depth of the full-width yi-9b (it has 48); "
-                         "mamba2-1.3b always runs all 48 of its layers")
+                    help="depth of the full-width yi-9b in phases 6 and "
+                         "9a (it has 48); mamba2-1.3b always runs all 48 "
+                         "of its layers")
     bench = ap.add_mutually_exclusive_group()
     bench.add_argument("--ssd-bench", metavar="ROOT",
                        help="only time ROOT's ssd_scan (ssd_bench)")
@@ -2346,12 +2794,23 @@ def main() -> int:
     kernels.update(flash_kernel_phase(dev))
     small_reference_phase(dev)
     small_ssm_reference_phase(dev)
+    small_substrate_phase(dev)
     small_training_phase(dev)
     quant_matmul_phase(dev)
-    launches, tc = main_path_phase(dev, *build_model(dev, args.layers))
-    ssm_launches, ssm_tc = ssm_main_path_phase(dev, *build_ssm_model(dev))
-    add_launches(launches, ssm_launches)
-    add_launches(tc, ssm_tc)
+    cfg, model, prompts = build_model(dev, args.layers)
+    launches, tc, outs = main_path_phase(dev, cfg, model, prompts)
+    for total, part in zip((launches, tc), substrate_phase(
+            dev, cfg, model, prompts, outs["lut4"])):
+        add_launches(total, part)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, prompts = build_ssm_model(dev)
+    for run in (ssm_main_path_phase(dev, cfg, model, prompts),
+                ssm_substrate_phase(dev, cfg, model)):
+        for total, part in zip((launches, tc), run):
+            add_launches(total, part)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     launches_train, flash_tc, luna_tc_train = train_phase(dev)

@@ -16,6 +16,15 @@
   # the paper's LUNA multiplier on every projection (model-level):
   PYTHONPATH=src python -m repro_torch.launch.serve --quant luna_approx2
 
+  # the cache substrate: paged KV, chunked prefill, the prefix cache
+  # (--shared-prefix gives every prompt the same head, so it has hits):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --paged --block-size 8 --prefill-chunk 16 --prefix-cache \
+      --shared-prefix 24 --quant lut4
+  # mamba2 caches state snapshots (no --paged):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch mamba2-1.3b --prefill-chunk 16 --prefix-cache --shared-prefix 24
+
 ``--arch`` is ``yi-9b`` or ``mamba2-1.3b``.  Weights are random, drawn
 from ``--seed``.  ``--quant lut4|int4|nf4|nf4p`` freezes the decode
 projections (mamba2: ``w_in``/``w_out``) to 4 bits (lut4 and nf4/nf4p run the
@@ -23,8 +32,9 @@ hand-written LUT GEMM kernels on the card); prefill stays full precision.
 Any other spelling but bf16 (``luna_*``, ``lut_nf4``, ``int8``,
 ``int4_dequant``) is a model-level mode that quantizes every projection
 dynamically (``luna_*`` on the card run the LUNA GEMM kernel, ``lut_nf4``
-the full-table LUT GEMM).  Prints each request's tokens and the
-``serve()`` stats.
+the full-table LUT GEMM).  A prompt is ``--shared-prefix`` tokens common
+to every request (0 by default) and 6 of its own.  Prints each request's
+tokens and the ``serve()`` stats.
 """
 from __future__ import annotations
 
@@ -43,6 +53,9 @@ def main(argv=None):
                     help="'cpu' to run on the CPU (default: the card)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens every prompt starts with (prefix-cache "
+                         "hits)")
     EngineConfig.add_cli_args(ap)
     ap.set_defaults(max_batch=4, max_seq=128)
     args = ap.parse_args(argv)
@@ -67,9 +80,10 @@ def main(argv=None):
     model = get_model(cfg, device=device).init(gen)
     engine = Engine(cfg, model, EngineConfig.from_args(args), device=device)
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, 6).tolist(),
-                    max_new=args.max_new)
-            for i in range(args.requests)]
+    head = rng.integers(1, cfg.vocab_size, args.shared_prefix).tolist()
+    reqs = [Request(rid=i, prompt=head + rng.integers(
+        1, cfg.vocab_size, 6).tolist(), max_new=args.max_new)
+        for i in range(args.requests)]
     stats = engine.serve(reqs)
     for r in reqs:
         print(f"rid {r.rid}: {r.out}")
@@ -80,10 +94,15 @@ def main(argv=None):
           f"done={stats['done']}")
     print(f"  prefill: {stats['prefill_tokens']} tok in "
           f"{stats['prefill_s']:.2f}s ({stats['prefill_tok_s']:.0f} tok/s, "
-          f"{stats['prefill_calls']} bucket calls)")
+          f"{stats['prefill_calls']} calls, {stats['prefill_chunks']} "
+          f"chunks)")
     print(f"  decode:  {stats['decode_tokens']} tok in "
           f"{stats['decode_s']:.2f}s ({stats['decode_tok_s']:.0f} tok/s, "
           f"occupancy {stats['occupancy']:.0%})")
+    if args.prefix_cache:
+        print(f"  prefix:  {stats['prefix_hits']} hits, "
+              f"{stats['prefix_tokens_reused']} tok reused, "
+              f"{stats['cache_evictions']} evictions")
     return stats
 
 

@@ -1,16 +1,19 @@
-"""GQA attention with a dense KV slab (mirrors ``repro.models.attention``).
+"""GQA attention over a dense KV slab or a paged block pool (mirrors
+``repro.models.attention``).
 
 Tensor convention: activations (B, S, D); per-head tensors (B, S, H, Dh);
-KV caches are preallocated (B, S_max, Hkv, Dh) slabs.  Unlike JAX's
-functional updates, the cache writes here are IN PLACE (``index_put_`` /
-slice assignment) and the returned cache holds the same tensors.
+KV caches are preallocated (B, S_max, Hkv, Dh) slabs, or (num_blocks,
+block_size, Hkv, Dh) pools read through per-row block tables.  Unlike
+JAX's functional updates, the cache writes here are IN PLACE
+(``index_put_`` / slice assignment) and the returned cache holds the same
+tensors.
 
 Ported: the ``full`` and ``chunked`` SDPA impls with f32 operands (JAX's
 default ``attn_f32=True``), ``flash`` (the hand-written kernel of
 ``kernels.flash_attention``, taken under JAX's condition: a cacheless
-full-sequence forward), the scalar-index and per-row cache writes.
-Paged tables, sharded decode and ``n_valid`` verify windows are ROADMAP
-queue 1 item 6.
+full-sequence forward), the scalar-index and per-row cache writes, and
+paged decode through a block table.  Sharded decode is ROADMAP queue 1
+item 9; ``n_valid`` verify windows (speculation) are queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from torch import nn
 
 from repro_torch.core.layers import quant_matmul
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.models.common import apply_rope, set_leaf
+from repro_torch.models.common import (PagedRows, apply_rope,
+                                       paged_gather, paged_write, set_leaf)
 
 
 class KVCache(NamedTuple):
@@ -117,10 +121,15 @@ class GQAAttention(nn.Module):
             set_leaf(self, name, params[name])
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
-                cache: KVCache | None = None, cache_index=None):
+                cache: KVCache | None = None, cache_index=None,
+                paged: PagedRows | None = None):
         """Returns (out (B, S, D), cache).  ``cache_index``: a Python int
         (prefill writes a (B, S) block at that offset) or a (B,) tensor of
-        per-row decode depths (S must be 1)."""
+        per-row decode depths (S must be 1).  ``paged``: the step's block
+        table and write targets (:class:`PagedRows`); the cache leaves are
+        then paged pools, the new K/V is written at each row's logical
+        depth through the table and attention reads the gathered
+        logical-order view."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -132,21 +141,34 @@ class GQAAttention(nn.Module):
 
         kv_len, q_offset = None, 0
         if cache is not None:
-            if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
-                if s != 1:
-                    raise NotImplementedError(
-                        "multi-token per-row windows (speculative verify) "
-                        "are not ported yet: ROADMAP queue 1 item 6")
-                # per-row decode: each slab row writes at its own depth
-                rows = torch.arange(b, device=x.device)
-                cache.k[rows, cache_index] = k[:, 0].to(cache.k.dtype)
-                cache.v[rows, cache_index] = v[:, 0].to(cache.v.dtype)
+            per_row = (isinstance(cache_index, torch.Tensor)
+                       and cache_index.ndim == 1)
+            if (per_row or paged is not None) and s != 1:
+                raise NotImplementedError(
+                    "multi-token per-row windows (speculative verify) "
+                    "are not ported yet: ROADMAP queue 1 item 6")
+            if paged is not None:
+                # paged decode: write at the row's logical depth through
+                # the table, attend over the gathered logical-order view
+                paged_write(cache.k, k, paged)
+                paged_write(cache.v, v, paged)
+                k = paged_gather(cache.k, paged.table)
+                v = paged_gather(cache.v, paged.table)
+                kv_len, q_offset = cache_index + 1, cache_index
             else:
-                cache.k[:, cache_index:cache_index + s] = k.to(cache.k.dtype)
-                cache.v[:, cache_index:cache_index + s] = v.to(cache.v.dtype)
-            k, v = cache.k, cache.v
-            kv_len = cache_index + s
-            q_offset = cache_index
+                if per_row:
+                    # per-row decode: each slab row writes at its own depth
+                    rows = torch.arange(b, device=x.device)
+                    cache.k[rows, cache_index] = k[:, 0].to(cache.k.dtype)
+                    cache.v[rows, cache_index] = v[:, 0].to(cache.v.dtype)
+                else:
+                    cache.k[:, cache_index:cache_index + s] = \
+                        k.to(cache.k.dtype)
+                    cache.v[:, cache_index:cache_index + s] = \
+                        v.to(cache.v.dtype)
+                k, v = cache.k, cache.v
+                kv_len = cache_index + s
+                q_offset = cache_index
 
         out = sdpa(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len,
                    impl=cfg.attn_impl, chunk=cfg.attn_chunk)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -10,20 +11,83 @@ from torch.utils.checkpoint import checkpoint
 
 @dataclass(frozen=True)
 class CacheSpec:
-    """Cache-layout request of ``init_cache``.  Only the dense slab is
-    ported: a paged spec (``block_size``/``num_blocks``) raises, and the
-    paged pool is ROADMAP queue 1 item 6."""
+    """Cache-layout request of ``init_cache`` (``repro.models.common.
+    CacheSpec``).  With ``spec=None`` (or a spec without paging) the cache
+    is a dense slab of per-slot (batch, s_max, ...) rows.  A paged spec
+    turns every KV leaf into a pool of ``num_blocks`` fixed
+    ``block_size``-token blocks read and written through per-row block
+    tables; a family with nothing to page (recurrent state) rejects it
+    (:func:`reject_paged_spec`)."""
     block_size: int | None = None
     num_blocks: int | None = None
 
     def __post_init__(self):
-        if self.block_size is not None or self.num_blocks is not None:
-            raise NotImplementedError(
-                "paged KV caches are not ported yet: ROADMAP queue 1 item 6")
+        if (self.block_size is None) != (self.num_blocks is None):
+            raise ValueError(
+                "CacheSpec paging needs BOTH block_size and num_blocks "
+                f"(got block_size={self.block_size}, "
+                f"num_blocks={self.num_blocks})")
 
     @property
     def paged(self) -> bool:
-        return False
+        return self.block_size is not None
+
+
+def reject_paged_spec(spec: CacheSpec | None, family: str, why: str) -> None:
+    """Shared guard for families with nothing to page."""
+    if spec is not None and spec.paged:
+        raise ValueError(f"family {family!r} rejects a paged CacheSpec: "
+                         f"{why}")
+
+
+class PagedRows(NamedTuple):
+    """Where one decode step's rows meet a paged pool, computed once a
+    step and read by every layer: the (B, nblk) block table, and each
+    row's physical block and offset for its new token."""
+    table: torch.Tensor
+    block: torch.Tensor
+    offset: torch.Tensor
+
+
+def paged_rows(block_table: torch.Tensor, index, block_size: int
+               ) -> PagedRows:
+    """``index``: (B,) logical positions of the new tokens (or one int for
+    every row).  The physical target of row ``b`` is
+    ``block_table[b, index // block_size]`` at ``index % block_size``."""
+    b = block_table.shape[0]
+    idx = (index.long() if isinstance(index, torch.Tensor) else
+           torch.full((b,), index, dtype=torch.long,
+                      device=block_table.device))
+    rows = torch.arange(b, device=block_table.device)
+    return PagedRows(block_table, block_table[rows, idx // block_size].long(),
+                     idx % block_size)
+
+
+def paged_gather(pool: torch.Tensor, block_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """Logical-order view of each row's paged cache (a copy).
+
+    ``pool``: (num_blocks, block_size, ...); ``block_table``: (B, nblk)
+    physical block ids in logical order, each in range (the backend builds
+    them; an id out of range faults instead of being clipped, as JAX
+    clips it).  Returns (B, nblk * block_size, ...): column ``j`` is
+    logical token ``j`` of the row.  Unreserved entries point at the
+    garbage block; their columns lie beyond the row's ``kv_len`` and the
+    caller masks them."""
+    g = pool[block_table]
+    return g.reshape((block_table.shape[0], -1) + tuple(pool.shape[2:]))
+
+
+def paged_write(pool: torch.Tensor, new: torch.Tensor, rows: PagedRows
+                ) -> torch.Tensor:
+    """Write one new token per row into a paged pool at its logical depth
+    (``rows``: the step's :class:`PagedRows`), IN PLACE, and return the
+    pool; with :func:`paged_rows` it is JAX's ``paged_write``.  ``new``:
+    (B, 1, ...).  Rows parked on the garbage block all write there
+    (duplicate indices: which write wins is unspecified on CUDA; the
+    garbage block is never read unmasked)."""
+    pool[rows.block, rows.offset] = new[:, 0].to(pool.dtype)
+    return pool
 
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -12,8 +12,9 @@ JAX (no kernel there).
 
 Parameters of one layer are a dict (:func:`mamba2_shapes`); the layer
 module :class:`Mamba2` holds them as leaves so a frozen 4-bit
-``QuantizedWeight`` can stand in for ``w_in``/``w_out``.  State snapshots
-for the prefix cache (``snapshot_row``) are ROADMAP queue 1 item 6.
+``QuantizedWeight`` can stand in for ``w_in``/``w_out``.  The prefix
+cache keeps per-row state snapshots (:func:`snapshot_row`), copies that
+later decode ticks cannot overwrite.
 """
 from __future__ import annotations
 
@@ -31,6 +32,17 @@ from repro_torch.models.common import dense_init, dtype_of, set_leaf
 class SSMCache(NamedTuple):
     conv: torch.Tensor   # (B, conv_dim-1, conv_channels), model dtype
     state: torch.Tensor  # (B, H, P, N) f32
+
+
+def snapshot_row(cache: SSMCache, row: int = 0) -> SSMCache:
+    """One batch row of a layer's recurrent cache, keepdim: the fixed-size
+    state the prefix cache stores at a prompt boundary (JAX's
+    ``snapshot_row``).  A COPY: the engine writes its slab in place, and a
+    view would follow the row's later decode ticks.  The SSD scan takes an
+    initial state, so a prefill seeded from the snapshot resumes exactly
+    where the cached prefix left off."""
+    return SSMCache(cache.conv[row:row + 1].clone(),
+                    cache.state[row:row + 1].clone())
 
 
 def _dims(cfg) -> tuple[int, int, int]:

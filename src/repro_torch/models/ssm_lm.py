@@ -9,7 +9,9 @@ under ``lax.scan``; here they are an ``nn.ModuleList`` and the tree's
 ``blocks`` is a per-layer list of ``{"ln", "m": {...}}``.  The caches are
 a list of per-layer :class:`~repro_torch.models.ssm.SSMCache`: conv state
 (B, K-1, conv channels) in the model dtype and SSD state (B, H, P, N) in
-f32.  The recurrence is position-free, so the cache index is unused.
+f32.  The recurrence is position-free, so the cache index is unused.  The
+prefix cache snapshots a row of that state (:meth:`SSMLM.state_snapshot`)
+and seeds a staging row from it (:meth:`SSMLM.seed_from_snapshot`).
 """
 from __future__ import annotations
 
@@ -20,13 +22,11 @@ from torch import nn
 from repro_torch.core.layers import quant_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (CacheSpec, dense_init, dtype_of,
-                                       embed_init, gather_last, rms_norm,
-                                       set_leaf)
+                                       embed_init, gather_last,
+                                       reject_paged_spec, rms_norm, set_leaf)
 from repro_torch.models.ssm import (Mamba2, SSMCache, init_mamba2,
-                                    mamba2_shapes, ssm_cache_shape)
-
-#: what the prefix cache and speculative decoding need from the SSM
-_UNPORTED = "not ported yet: ROADMAP queue 1 item 6 (prefix cache, speculation)"
+                                    mamba2_shapes, snapshot_row,
+                                    ssm_cache_shape)
 
 
 def _empty_params(cfg, device) -> dict:
@@ -125,9 +125,11 @@ class SSMLM(nn.Module):
     def init_cache(self, batch: int, s_max: int, *,
                    spec: CacheSpec | None = None) -> list[SSMCache]:
         """Zeroed recurrent state, one :class:`SSMCache` per layer; O(1)
-        per slot, so ``s_max`` is unused (a paged spec already raised at
-        construction)."""
-        del s_max, spec
+        per slot, so ``s_max`` is unused and a paged spec is rejected
+        (there is nothing to page)."""
+        reject_paged_spec(spec, "ssm", "recurrent state is O(1) per slot; "
+                          "paged KV pools apply to attention slabs")
+        del s_max
         conv_s, state_s = ssm_cache_shape(self.cfg, batch)
         return [SSMCache(
             torch.zeros(conv_s, dtype=dtype_of(self.cfg), device=self.device),
@@ -137,8 +139,10 @@ class SSMLM(nn.Module):
     def prefill(self, tokens, caches, *, last_pos=None, cache_index=0):
         """Prompt forward continuing ``caches``; returns the (B, 1, V)
         logits at ``last_pos`` (default: the last column) and the new
-        caches.  ``cache_index`` is unused (the recurrence is
-        position-free)."""
+        caches.  ``cache_index`` > 0 is a chunked-prefill continuation:
+        the recurrence is position-free, so the offset itself is unused;
+        the carried (conv, state) in ``caches`` is the continuation point
+        and the scan resumes from it."""
         del cache_index
         hidden, caches = self.forward(tokens, caches=caches,
                                       last_pos=last_pos)
@@ -146,19 +150,34 @@ class SSMLM(nn.Module):
                 else gather_last(hidden, last_pos))
         return self.logits(last), caches
 
-    def decode_step(self, token, state, index):
-        """token: (B, 1); ``index`` is unused (position-free recurrence).
-        Under the engine's frozen decode model ``w_in``/``w_out`` run the
-        LUT GEMM of their ``QuantizedWeight``."""
+    def decode_step(self, token, state, index, *, tables=None):
+        """token: (B, 1); ``index`` is unused (position-free recurrence);
+        ``tables`` must be None (the state is dense).  Under the engine's
+        frozen decode model ``w_in``/``w_out`` run the LUT GEMM of their
+        ``QuantizedWeight``."""
+        assert tables is None, "ssm caches are dense (no block table)"
         del index
         hidden, caches = self.forward(token, caches=state)
         return self.logits(hidden), caches
 
-    def state_snapshot(self, caches, row: int = 0):
-        raise NotImplementedError(f"SSM state snapshots are {_UNPORTED}")
+    def state_snapshot(self, caches, row: int = 0) -> list[SSMCache]:
+        """Prefix-cache export: the whole cache is the recurrent state, so
+        a snapshot is each layer's (conv, state) at ``row``, copied
+        (:func:`~repro_torch.models.ssm.snapshot_row`); O(1) in the prefix
+        length."""
+        return [snapshot_row(c, row) for c in caches]
 
-    def seed_from_snapshot(self, staging, snap):
-        raise NotImplementedError(f"SSM snapshot seeding is {_UNPORTED}")
+    def seed_from_snapshot(self, staging, snap) -> list[SSMCache]:
+        """Warm admission: copy a snapshot into a 1-row staging cache (the
+        position-free recurrence has nothing else to restore).  The
+        snapshot stays the cache's own: the staging row is written by the
+        prefill that follows, never the snapshot."""
+        for st, sn in zip(staging, snap):
+            st.conv.copy_(sn.conv)
+            st.state.copy_(sn.state)
+        return staging
 
     def decode_window(self, tokens, state, index, **kw):
-        raise NotImplementedError(f"SSM decode windows are {_UNPORTED}")
+        raise NotImplementedError(
+            "SSM decode windows (speculative decoding) are not ported yet: "
+            "ROADMAP queue 1 item 6")

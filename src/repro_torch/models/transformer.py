@@ -28,8 +28,9 @@ from repro_torch.core.layers import quant_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import GQAAttention, KVCache, gqa_shapes
 from repro_torch.models.common import (CacheSpec, dense_init, dtype_of,
-                                       embed_init, gather_last, remat_of,
-                                       rms_norm, set_leaf, token_positions)
+                                       embed_init, gather_last, paged_rows,
+                                       remat_of, rms_norm, set_leaf,
+                                       token_positions)
 from repro_torch.models.mlp import MLP, mlp_shapes
 
 
@@ -63,10 +64,10 @@ class Block(nn.Module):
         self.attn = GQAAttention(cfg, params["attn"])
         self.mlp = MLP(cfg, params["mlp"])
 
-    def forward(self, x, *, positions, cache, cache_index):
+    def forward(self, x, *, positions, cache, cache_index, paged=None):
         h = rms_norm(x, self.ln1, self.cfg.norm_eps)
         a, cache = self.attn(h, positions=positions, cache=cache,
-                             cache_index=cache_index)
+                             cache_index=cache_index, paged=paged)
         x = x + a
         h = rms_norm(x, self.ln2, self.cfg.norm_eps)
         return x + self.mlp(h), cache
@@ -126,18 +127,26 @@ class TransformerLM(nn.Module):
 
     # ---------------- forward ----------------
     def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
+                block_tables: torch.Tensor | None = None,
                 training: bool = False):
-        """Returns (hidden (B, S, D), caches).  ``training`` with
-        ``cfg.remat`` recomputes each block in the backward."""
+        """Returns (hidden (B, S, D), caches).  ``block_tables``: (B, nblk)
+        when ``caches`` hold paged pools (one tensor for every layer).
+        ``training`` with ``cfg.remat`` recomputes each block in the
+        backward."""
         x = F.embedding(tokens, self.embed)
         positions = token_positions(tokens.shape[1], cache_index, x.device)
+        paged = None
+        if block_tables is not None:
+            # each row's write target, once for every layer
+            paged = paged_rows(block_tables, cache_index,
+                               caches[0].k.shape[1])
         new_caches = [] if caches is not None else None
         remat = training and self.cfg.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             run = remat_of(self.cfg, blk) if remat else blk
             x, c = run(x, positions=positions,
                        cache=caches[i] if caches is not None else None,
-                       cache_index=cache_index)
+                       cache_index=cache_index, paged=paged)
             if caches is not None:
                 new_caches.append(c)
         return rms_norm(x, self.ln_f, self.cfg.norm_eps), new_caches
@@ -162,11 +171,15 @@ class TransformerLM(nn.Module):
     # ---------------- serving ----------------
     def init_cache(self, batch: int, s_max: int, *,
                    spec: CacheSpec | None = None) -> list[KVCache]:
-        """Dense slab caches: one KVCache of (batch, s_max, Hkv, Dh) zeros
-        per layer."""
-        del spec     # a paged spec already raised at construction
+        """Dense slab caches by default: one KVCache of (batch, s_max, Hkv,
+        Dh) zeros per layer.  With a paged ``spec`` every leaf is a pool
+        of (num_blocks, block_size, Hkv, Dh) zeros shared by all slots and
+        read through per-row block tables (``batch``/``s_max`` then size
+        nothing)."""
         cfg = self.cfg
-        shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+        lead = ((spec.num_blocks, spec.block_size)
+                if spec is not None and spec.paged else (batch, s_max))
+        shape = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
         dt = dtype_of(cfg)
         return [KVCache(torch.zeros(shape, dtype=dt, device=self.device),
                         torch.zeros(shape, dtype=dt, device=self.device))
@@ -174,18 +187,23 @@ class TransformerLM(nn.Module):
 
     def prefill(self, tokens, caches, *, last_pos=None, cache_index=0):
         """Prompt forward writing ``caches`` at ``cache_index``; returns the
-        (B, 1, V) logits at ``last_pos`` (default: the last column)."""
+        (B, 1, V) logits at ``last_pos`` (default: the last column).
+        Chunked prefill feeds the prompt in pieces, each continuing the
+        staged cache at the previous piece's end."""
         hidden, caches = self.forward(tokens, caches=caches,
                                       cache_index=cache_index)
         last = (hidden[:, -1:] if last_pos is None
                 else gather_last(hidden, last_pos))
         return self.logits(last), caches
 
-    def decode_step(self, token, state, index):
+    def decode_step(self, token, state, index, *, tables=None):
         """token: (B, 1); index: int shared by all rows, or a (B,) tensor of
-        per-row positions.  Under the engine's frozen decode model every
-        projection runs the LUT GEMM of its ``QuantizedWeight``."""
-        hidden, caches = self.forward(token, caches=state, cache_index=index)
+        per-row positions.  ``tables``: (B, nblk) block tables when
+        ``state`` holds paged pools.  Under the engine's frozen decode
+        model every projection runs the LUT GEMM of its
+        ``QuantizedWeight``."""
+        hidden, caches = self.forward(token, caches=state, cache_index=index,
+                                      block_tables=tables)
         return self.logits(hidden), caches
 
 

@@ -1,12 +1,12 @@
 """EngineConfig: the serving knobs in one validated dataclass (mirrors
 ``repro.serve.config``), with the shared argparse binding.
 
-The port serves the synchronous path over a dense slab (dense family) or
-dense recurrent state (ssm).  The switches of the JAX engine's other
-paths (``paged``, ``prefix_cache``, ``prefill_chunk``, ``spec``,
-``trace``) are accepted so a caller gets a clear error:
-:meth:`EngineConfig.validate` raises ``NotImplementedError`` naming
-ROADMAP queue 1 item 6, which ports them.
+The port serves the synchronous path: a dense slab or a paged block pool
+(dense family), dense recurrent state (ssm), chunked prefill and the
+prefix cache.  Speculative decoding (``spec``) and tracing (``trace``) are
+accepted so a caller gets a clear error: :meth:`EngineConfig.validate`
+raises ``NotImplementedError`` naming ROADMAP queue 1 item 6, which ports
+them.
 """
 from __future__ import annotations
 
@@ -30,10 +30,7 @@ def model_quant(quant: str | None):
     return QuantConfig(mode=quant)
 
 
-#: families the port's engine serves
-SERVED_FAMILIES = ("dense", "ssm")
-
-_UNPORTED = ("paged", "prefix_cache", "prefill_chunk", "spec", "trace")
+_UNPORTED = ("spec", "trace")
 
 
 @dataclass(frozen=True)
@@ -44,21 +41,35 @@ class EngineConfig:
     * ``sampling`` / ``seed`` — sampling mode (None = greedy) and seed.
     * ``starvation_bound`` — scheduler aging threshold (see
       ``repro_torch.serve.engine.Scheduler``).
+    * ``paged`` / ``block_size`` / ``num_blocks`` — paged KV: the cache
+      is a pool of ``num_blocks`` (default: the dense-equivalent capacity
+      plus the reserved garbage block) ``block_size``-token blocks, and
+      admission reserves only the blocks a request's prompt and
+      generation need (attention families).
+    * ``prefill_chunk`` — prompts longer than this are admitted in
+      pieces of this many tokens, one piece a tick between decode ticks.
+    * ``prefix_cache`` / ``prefix_cache_nodes`` — a radix tree over
+      prompt tokens: warm admissions reuse cached KV blocks (attention,
+      needs ``paged``) or recurrent state snapshots (ssm) and prefill
+      only the uncached tail; the tree keeps at most
+      ``prefix_cache_nodes`` boundaries (LRU).
     * ``quant`` — decode weight quantization (``ENGINE_QUANT_MODES``);
       prefill always runs full precision; None keeps full-precision decode.
-    * ``paged`` / ``prefix_cache`` / ``prefill_chunk`` / ``spec`` /
-      ``trace`` — not ported (ROADMAP queue 1 item 6).
+    * ``spec`` / ``trace`` — not ported (ROADMAP queue 1 item 6).
     """
     max_batch: int = 8
     max_seq: int = 256
     prefill_bucket: int = 16
+    paged: bool = False
+    block_size: int = 16
+    num_blocks: int | None = None
+    prefill_chunk: int | None = None
+    prefix_cache: bool = False
+    prefix_cache_nodes: int = 256
     sampling: SamplingConfig | None = None
     seed: int = 0
     starvation_bound: int = 8
     quant: str | None = None
-    paged: bool = False
-    prefix_cache: bool = False
-    prefill_chunk: int | None = None
     spec: str | None = None
     trace: bool = False
 
@@ -75,11 +86,23 @@ class EngineConfig:
         if self.prefill_bucket < 1:
             raise ValueError(f"prefill_bucket must be >= 1, "
                              f"got {self.prefill_bucket}")
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, "
+                             f"got {self.prefill_chunk}")
+        if self.paged and self.block_size < 1:
+            raise ValueError(f"block_size must be >= 1, "
+                             f"got {self.block_size}")
+        if self.prefix_cache and self.prefix_cache_nodes < 1:
+            raise ValueError(f"prefix_cache_nodes must be >= 1, "
+                             f"got {self.prefix_cache_nodes}")
         if self.starvation_bound < 1:
             raise ValueError(f"starvation_bound must be >= 1, "
                              f"got {self.starvation_bound}")
 
     def validate(self, family: str) -> None:
+        """Every family-dependent rule, in one place (JAX's cross-rules
+        over the families the port serves)."""
+        from repro_torch.serve.backend import PAGED_FAMILIES, SERVED_FAMILIES
         if family not in SERVED_FAMILIES:
             raise NotImplementedError(
                 f"serving family {family!r} is not ported yet: ROADMAP "
@@ -88,8 +111,18 @@ class EngineConfig:
         if on:
             raise NotImplementedError(
                 f"EngineConfig {', '.join(on)} not ported yet: ROADMAP "
-                "queue 1 item 6 (the port serves the synchronous dense-slab "
-                "path)")
+                "queue 1 item 6 (speculative decoding, tracing)")
+        if self.paged and family not in PAGED_FAMILIES:
+            raise ValueError(
+                f"paged=True is not supported for family {family!r}: "
+                "its cache is O(1) recurrent state per slot with no KV "
+                f"leaves to page (paged families: {PAGED_FAMILIES})")
+        if self.prefix_cache and family in PAGED_FAMILIES and not self.paged:
+            raise ValueError(
+                f"prefix_cache for family {family!r} shares its "
+                "attention KV as copy-on-write paged blocks: construct "
+                "with paged=True (the ssm family caches dense state "
+                "snapshots and needs no paging)")
 
     # --- CLI binding ----------------------------------------------------
     @staticmethod
@@ -102,10 +135,26 @@ class EngineConfig:
         ap.add_argument("--prefill-bucket", type=int, default=None,
                         help="prompt lengths are padded up to multiples of "
                              "this and prefilled one call per bucket")
-        for flag in ("--paged", "--prefix-cache", "--trace"):
-            ap.add_argument(flag, action="store_true",
-                            help="not ported yet (ROADMAP queue 1 item 6)")
+        ap.add_argument("--paged", action="store_true",
+                        help="paged-block KV cache: per-request block "
+                             "reservation instead of full max-seq rows "
+                             "(attention families)")
+        ap.add_argument("--block-size", type=int, default=None,
+                        help="tokens per KV block in --paged mode")
+        ap.add_argument("--num-blocks", type=int, default=None,
+                        help="pool size in blocks (default: dense-equivalent "
+                             "capacity + the reserved garbage block)")
         ap.add_argument("--prefill-chunk", type=int, default=None,
+                        help="admit prompts longer than this in N-token "
+                             "chunks interleaved with decode ticks")
+        ap.add_argument("--prefix-cache", action="store_true",
+                        help="radix-tree prompt-prefix sharing: warm "
+                             "admissions reuse cached KV blocks (attention, "
+                             "needs --paged) or recurrent state snapshots "
+                             "(ssm) and prefill only the uncached tail")
+        ap.add_argument("--prefix-cache-nodes", type=int, default=None,
+                        help="LRU budget for cached prefix boundaries")
+        ap.add_argument("--trace", action="store_true",
                         help="not ported yet (ROADMAP queue 1 item 6)")
         ap.add_argument("--spec", default=None,
                         help="not ported yet (ROADMAP queue 1 item 6)")

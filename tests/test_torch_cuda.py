@@ -37,7 +37,12 @@ machine with the card and no JAX:
   and yi-9b's heads, causal and not, with the launch counters; and
   reduced f32 yi-9b training on the card against the CPU: the flash
   forward, the loss and gradients (chunked, and luna_approx through the
-  STE on luna_mm) and one train step.
+  STE on luna_mm) and one train step;
+* the cache substrate on the card: the engine on the paged pool emits the
+  dense slab's tokens (reduced bf16 yi-9b, decode on the LUT kernels) and
+  a decode step over the pool gives the slab's logits bitwise; a warm
+  mamba2 admission (a chunked prefix's state snapshot seeded, the tail's
+  scan on the kernel from that state) within 1e-4 of the cold prefill.
 """
 import numpy as np
 import pytest
@@ -366,6 +371,96 @@ def test_mamba2_prefill_card_matches_cpu(dev):
     for a, b in zip(cg, cc):
         torch.testing.assert_close(a.state.cpu(), b.state, rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("quant", [None, "lut4", "nf4p"])
+def test_paged_decode_equals_dense_bitwise_on_card(dev, quant):
+    """Reduced bf16 yi-9b on the card (decode projections on
+    ``lut_gemm_tc.cu`` under lut4/nf4p): the engine on the paged pool
+    (max_seq a multiple of the block, so the gathered view has the slab's
+    shape) emits the dense slab's tokens, and one decode step over the
+    pool gives the slab's logits bitwise."""
+    from repro_torch.serve.backend import PagedPool
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+    cfg = get_config("yi-9b").reduced(dtype="bfloat16")
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 9, 5, 17, 2, 30)]
+    outs = []
+    for paged in (False, True):
+        eng = Engine(cfg, model, EngineConfig(
+            max_batch=3, max_seq=64, quant=quant, paged=paged,
+            block_size=16), device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new=8)
+                for i, p in enumerate(prompts)]
+        assert eng.serve(reqs)["done"]
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+    # one step: the slab's rows copied into the pool through the tables
+    toks = torch.randint(1, cfg.vocab_size, (3, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    pool = PagedPool(model, 3, 64, block_size=16)
+    with torch.inference_mode():
+        dec = pool.prepare_decode_params(model, quant)
+        _, rows = model.prefill(toks, model.init_cache(3, 64))
+        for slot in range(3):
+            assert pool.reserve(slot, 20, 30)
+        pool.scatter(pool.caches, rows, None, pool.admission_tables([0, 1,
+                                                                     2]))
+        nxt = toks[:, -1:]
+        pos = torch.full((3,), 20, device=dev)
+        dense, _ = dec.decode_step(nxt, rows, pos)
+        paged, _ = dec.decode_step(nxt, pool.caches, pos,
+                                   tables=pool.decode_tables([]))
+    assert torch.equal(dense, paged)
+
+
+def test_warm_mamba2_admission_equals_cold_on_card(dev):
+    """Reduced f32 mamba2 on the card: a prefix prefilled in 8-token pieces
+    (each scan continuing a carried, non-zero state on the kernel), its
+    state snapshot seeded into a fresh row and a masked tail prefilled
+    from it, against the whole prompt in one call: logits within 1e-4; and
+    the engine's warm tokens equal its cold ones."""
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(4)
+    head = rng.integers(1, cfg.vocab_size, 32).tolist()
+    tail = rng.integers(1, cfg.vocab_size, 11).tolist()
+    with torch.inference_mode():
+        cold, _ = model.prefill(torch.tensor([head + tail], device=dev),
+                                model.init_cache(1, 64))
+        caches = model.init_cache(1, 64)
+        for i in range(0, 32, 8):
+            _, caches = model.prefill(
+                torch.tensor([head[i:i + 8]], device=dev), caches,
+                cache_index=i)
+        snap = model.state_snapshot(caches, 0)
+        staging = model.seed_from_snapshot(model.init_cache(1, 64), snap)
+        toks = torch.zeros((1, 16), dtype=torch.long, device=dev)
+        toks[0, :len(tail)] = torch.tensor(tail)
+        warm, _ = model.prefill(toks, staging, cache_index=32,
+                                last_pos=torch.tensor([len(tail) - 1],
+                                                      device=dev))
+    assert skern.scaled_err(warm, cold) <= 1e-4
+    prompts = [head + tail, head + tail[:5], head + [7, 8, 9]]
+    outs, hits = [], []
+    for cache in (False, True):
+        eng = Engine(cfg, model, EngineConfig(
+            max_batch=2, max_seq=64, prefill_chunk=8, prefix_cache=cache),
+            device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            assert eng.serve([r])["done"]
+        outs.append([r.out for r in reqs])
+        hits.append(eng.metrics.prefix_hits)
+    assert outs[0] == outs[1] and hits == [0, 2]
 
 
 def _tree_to(node, device):

@@ -185,10 +185,17 @@ def test_engine_validation(setup):
         eng.serve([Request(rid=0, prompt=[1], max_new=0)])
     with pytest.raises(ValueError, match="quant"):
         EngineConfig(quant="fp3")
-    for knob in (dict(paged=True), dict(prefix_cache=True),
-                 dict(prefill_chunk=8), dict(spec="ngram"), dict(trace=True)):
+    for knob in (dict(spec="ngram"), dict(trace=True)):
         with pytest.raises(NotImplementedError, match="queue 1 item 6"):
             Engine(cfg, model, EngineConfig(**knob), device="cpu")
+    # the cache substrate's switches serve (tests/test_torch_chunked.py);
+    # a dense prefix cache is refused as JAX refuses it
+    with pytest.raises(ValueError, match="prefix_cache"):
+        Engine(cfg, model, EngineConfig(prefix_cache=True), device="cpu")
+    for knob in (dict(paged=True), dict(prefill_chunk=8),
+                 dict(paged=True, prefix_cache=True)):
+        Engine(cfg, model, EngineConfig(max_batch=1, max_seq=16, **knob),
+               device="cpu")
 
 
 def test_from_args_routes_quant_flag():

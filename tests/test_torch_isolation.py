@@ -122,15 +122,25 @@ def test_ssm_entry_points_refuse_the_cpu_unless_asked():
 
 
 def test_ssm_unported_parts_name_their_roadmap_item():
+    """Speculation's decode windows still raise naming their item; the
+    prefix cache's snapshot hooks are ported (a copy, seeded by copying),
+    and ``paged`` is refused as JAX refuses it (nothing to page)."""
     model = get_model(get_config("mamba2-1.3b").reduced(dtype="float32"),
                       device="cpu")
-    caches = model.init_cache(1, 8)
-    for call in (lambda: model.state_snapshot(caches),
-                 lambda: model.seed_from_snapshot(caches, caches),
-                 lambda: model.decode_window(torch.zeros(1, 2), caches, 0)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            call()
+    caches = model.init_cache(2, 8)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        model.decode_window(torch.zeros(1, 2), caches, 0)
+    for c in caches:
+        c.state.normal_()
+    snap = model.state_snapshot(caches, 1)
+    assert all(torch.equal(s.state[0], c.state[1])
+               and s.state.data_ptr() != c.state.data_ptr()
+               for s, c in zip(snap, caches))
+    staging = model.seed_from_snapshot(model.init_cache(1, 8), snap)
+    assert all(torch.equal(s.state, t.state)
+               and s.state.data_ptr() != t.state.data_ptr()
+               for s, t in zip(snap, staging))
+    with pytest.raises(ValueError, match="paged"):
         Engine(model.cfg, model, EngineConfig(max_batch=1, max_seq=16,
                                               paged=True), device="cpu")
 
@@ -143,8 +153,9 @@ def test_unported_parts_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         Trainer(get_config("mamba2-1.3b").reduced(), TrainerConfig(),
                 device="cpu")
+    assert CacheSpec(block_size=16, num_blocks=8).paged   # ported
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        CacheSpec(block_size=16, num_blocks=8)
+        EngineConfig(spec="ngram").validate("dense")
     q = torch.zeros(1, 4, 2, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         sdpa(q, q, q, impl="flash")
