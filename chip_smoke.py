@@ -27,7 +27,10 @@ result line):
       a call on the tensor-core one; ragged shapes; each checked call
       synchronised and named on a fault; both kernels timed at M = 8 by
       events and device-only (``graph_ms``: CUDA-graph replays), at the
-      other M device-only (the route's edge);
+      other M device-only (the route's edge); and at speculation's verify
+      M = 40 (8 rows x 5 columns, past the tensor-core route: the public
+      call on ``lut_gemm.cu``, checked and timed device-only beside its
+      bound);
    b. the LUNA GEMM (``luna_mm``) in all five modes, int32 bitwise, both
       its kernels (the int8 tensor-core ``luna_mm_tc.cu`` and the __dp4a
       ``luna_mm.cu``) and the public call on a row-major and a K-major W,
@@ -54,13 +57,15 @@ result line):
       calls (B = 1, S the 16-token buckets 448 ... 32, masked at the
       prompt lengths 438 ... 24, the zero state read), phase 9b's resumed
       and warm-seeded pieces (S in {16, 32, 48, 64, 128} from a random,
-      non-zero initial state, four of them masked) and a small G = 2
-      case, within the tolerance stated in
-      ``kernels/ssd_scan/ssd_scan.py``; the S = 448 call and every resumed
-      piece also within ``ref.EMULATE_TOL`` of the CPU emulation (run on
-      the card); each timed
-      device-only
-      (``graph_ms``) and by events beside its bound (bytes, or three TF32
+      non-zero initial state, four of them masked), speculation's windows
+      (B = 8, S = 5 from a random state, each row masked at its own valid
+      length in {0, 1, 2, 3, 5}: a fully masked row's final state must
+      equal its initial state bitwise) and a small G = 2 case, within the
+      tolerance stated in ``kernels/ssd_scan/ssd_scan.py``; the S = 448
+      call, every resumed piece and the windows also within
+      ``ref.EMULATE_TOL`` of the CPU emulation (run on the card); each
+      timed device-only (``graph_ms``) and by events beside its bound
+      (bytes, or three TF32
       products at 494.7 TFLOP/s) and the f32 SIMT bound, and the sum over
       a layer's eight calls;
    e. flash attention (``flash_attention``): bf16 at D in {64, 128} on
@@ -83,7 +88,9 @@ result line):
    substrate (yi-9b paged, paged + chunked, paged + prefix cache with
    and without chunks; mamba2 chunked and prefix + chunked, on a
    shared-head mix on 3 slots): greedy tokens on the card equal the
-   CPU's and the dense, whole-prompt, cold engine's; yi-9b training:
+   CPU's and the dense, whole-prompt, cold engine's; speculation (yi-9b
+   dense and paged, mamba2; ngram and self_lut; quant None, lut4, nf4p):
+   tokens on the card == the CPU's == plain greedy's; yi-9b training:
    the cacheless forward under attn_impl="flash", the loss and every
    gradient under chunked attention and under luna_approx (the STE on
    luna_mm), one train step;
@@ -139,14 +146,33 @@ result line):
    prefill pieces on a fresh cache, and from the same prompt prefilled
    whole at most ``WARM_FACTOR`` times the bf16 model's own distance from
    an f32 copy of its weights;
-each run of 6, 7 and 9 asserting every request finished, every logit is
+10. the rest of the serving stack at full width (bf16, random weights
+   from seed 0), on phase 6's and phase 7's models:
+   a. yi-9b on the first ``MODEL_LEVEL_LAYERS`` (24) of its layers, as
+      6b, under lut4: a plain run of phase 6's 8 requests (32 new
+      tokens), then the same under ``spec="self_lut", spec_k=4`` (drafts
+      on ``lut_gemm_dc_res``'s tensor-core kernel at M = 8, verify
+      windows at M = 40 on ``lut_gemm.cu``) and ``spec="ngram"``;
+   b. mamba2-1.3b under nf4p with self_lut (verify and commit windows on
+      ``ssd_scan``, masked per row);
+   c. yi-9b lut4 on the paged pool with ``prefill_chunk=128`` and
+      ``trace=True``, served through ``start()``: 8 client threads submit
+      and consume ``tokens()``, one request cancelled during its chunked
+      admission and one preempted while decoding (both from a callback
+      inside the tick), then ``stop(drain=True)``; against a synchronous
+      run of the same mix: streams == outs, untouched tokens bitwise, pool
+      free, the Perfetto trace complete, registry == EngineMetrics;
+   each spec run's tokens equal the plain run's (10a's, 7's nf4p) or
+   pass the ``WINDOW_FACTOR`` rule at their first divergence;
+each run of 6, 7, 9 and 10 asserting every request finished, every logit is
 finite and each kernel's launch counter (all set to 0 just before the
 run, read just after) equals the launches the run made through it; then
 (after the counts are read) a torch.profiler window over 4 decode ticks
 (and for mamba2 one prefill call): device time by kernel and the idle
 share (for the prefill call, device time as the union of the kernels'
 intervals: ``ssd_scan``'s side stream overlaps its other kernels).
-``--layers N`` cuts yi-9b's depth in phases 6 and 9a.
+``--layers N`` cuts yi-9b's depth in phases 6, 9a and 10c (and 10a's
+to at most ``MODEL_LEVEL_LAYERS``).
 
 Every line is one JSON object (``t_s``: seconds since the start); the
 ``{"kernels": [...]}`` line comes just before the last, which is
@@ -349,6 +375,8 @@ def sass_loops(lib, match, stream: str = "LDG") -> list:
 
 #: M of phase 3a's tensor-core checks (decode sizes up to the kernel's 32)
 DC_TC_M = (1, 8, 16, 32)
+#: the verify window's M: max_batch 8 x (spec_k 4 + 1), past TC_MAX_M
+VERIFY_M = 40
 
 
 def kernel_phase(dev, device_times: bool = True):
@@ -495,6 +523,18 @@ def kernel_phase(dev, device_times: bool = True):
                     row["simt_device_ms"] = graph_ms(
                         lambda i: simt(x, copies[i % len(copies)]), calls)
                 per_shape.append(row)
+            # speculation's verify window: the public call at M = 40 runs
+            # the f32-FMA kernel (takes_tc is false past TC_MAX_M)
+            x = torch.randn((VERIFY_M, k), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            max_err = max(max_err, hold(x, q, "public call, verify M"))
+            row = {"m": VERIFY_M, "k": k, "n": n}
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                VERIFY_M, k, n, 2, sp["table_bytes"])
+            if device_times:
+                row["simt_device_ms"] = graph_ms(
+                    lambda i: simt(x, copies[i % len(copies)]), calls)
+            per_shape.append(row)
             del copies
         emit({"kernel_check": name, "passed": True, "max_abs_err": max_err,
               "rtol": lg.KERNEL_RTOL, "atol": lg.KERNEL_ATOL,
@@ -530,7 +570,18 @@ def kernel_phase(dev, device_times: bool = True):
                 if k in ("ms", "simt_ms", "device_ms", "simt_device_ms",
                          "plain_ms", "bound_ms", "bound_by")} | {
                 "timed_as": "one mamba2-1.3b layer's w_in (2048 x 8512) "
-                            "and w_out (4096 x 2048), M=8"})
+                            "and w_out (4096 x 2048), M=8"},
+            verify_m40={
+                f"{model}_{k}": v for model, shapes in (
+                    ("yi9b", LAYER_SHAPES), ("mamba2", MAMBA2_SHAPES))
+                for k, v in layer_summary(
+                    name, [r for r in per_shape if r["m"] == VERIFY_M],
+                    VERIFY_M, shapes).items()
+                if k in ("simt_device_ms", "bound_ms")} | {
+                "timed_as": "one layer's decode projections at verify's "
+                            "M=40 (8 rows x 5 window columns), bf16 x, on "
+                            "the f32-FMA kernel the route takes there, "
+                            "device-only (graph_ms), codes cold in L2"})
         gc.collect()
         torch.cuda.empty_cache()
     return results
@@ -977,6 +1028,11 @@ SSD_PIECES = [(1, 64, None, "random"), (1, 64, 64, "random"),
 SSD_CASES = [(1, 48, None, None), (1, 272, None, "random"),
              (8, 512, None, None)] + SSD_BUCKETS + SSD_PIECES
 SSD_WIDTHS = dict(h=64, p=64, g=1, n=128)
+#: phase 3d's speculation windows (phase 10b's verify and commit scans):
+#: B = 8 rows of S = spec_k + 1 = 5 from a random non-zero state, each
+#: row masked at its own valid length (0: a fully masked row, whose state
+#: must pass through bitwise)
+SSD_WINDOW_VALID = (0, 1, 2, 3, 5, 0, 5, 3)
 
 
 def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
@@ -1107,6 +1163,40 @@ def ssd_kernel_phase(dev):
                                              w["n"], chunk,
                                              init == "random") / 1e9})
         del args, kw
+    # speculation's windows: per-row valid lengths, fully masked rows
+    b, s = len(SSD_WINDOW_VALID), 5
+    args, kw = ssd_inputs(dev, gen, b, s, w["h"], w["p"], w["g"], w["n"],
+                          None, "random")
+    kw["mask"] = (torch.arange(s, device=dev)[None] < torch.as_tensor(
+        SSD_WINDOW_VALID, device=dev)[:, None]).contiguous()
+    err, abs_err = compare(args, kw, s)
+    check(err <= sk.KERNEL_TOL,
+          f"ssd_scan window (8, 5) valid={SSD_WINDOW_VALID}: scaled error "
+          f"{err} > {sk.KERNEL_TOL}")
+    y, fs = sk.ssd_scan(*args, chunk=s, **kw)
+    ye, fse = sref.ssd_scan_tc_emulate(*args, chunk=s, **kw)
+    emulated = max(sk.scaled_err(y, ye), sk.scaled_err(fs, fse))
+    check(emulated <= sref.EMULATE_TOL,
+          f"ssd_scan window against ssd_scan_tc_emulate: {emulated}")
+    masked_rows = [i for i, v in enumerate(SSD_WINDOW_VALID) if v == 0]
+    check(all(torch.equal(fs[i], kw["initial_state"][i])
+              for i in masked_rows),
+          "ssd_scan window: a fully masked row's final state is not its "
+          "initial state bitwise")
+    max_err, max_abs = max(max_err, err), max(max_abs, abs_err)
+    emulate_err = max(emulate_err or 0.0, emulated)
+
+    def call(i):
+        return sk.ssd_scan(*args, chunk=s, **kw)
+    window = {"b": b, "s": s, "chunk": s, "valid": list(SSD_WINDOW_VALID),
+              "initial_state": "random", "scaled_err": err,
+              "emulate_scaled_err": emulated, "max_abs_err": abs_err,
+              "masked_rows_bitwise": True, "device_ms": graph_ms(call, 20),
+              "ms": cuda_ms(call, 20),
+              "plain_ms": cuda_ms(lambda i: _ssd_chunked(*args, s, **kw), 5),
+              **ssd_bound_ms(b, s, w["h"], w["p"], w["g"], w["n"], s, True,
+                             "random")}
+    del args, kw, y, fs, ye, fse
     buckets = [r for r in per_shape
                if (r["b"], r["s"], r["valid"], r["initial_state"])
                in SSD_BUCKETS]
@@ -1124,7 +1214,8 @@ def ssd_kernel_phase(dev):
           "tol_rule": "max|kernel - plain| <= tol * max(1, max|plain|)",
           "per_shape": per_shape,
           "layer_prefill_calls": {"calls": len(buckets), **layer},
-          "resumed_pieces": {"calls": len(pieces), **piece_sums}})
+          "resumed_pieces": {"calls": len(pieces), **piece_sums},
+          "spec_window": window})
     head = next(r for r in per_shape if r["s"] == 448)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1148,7 +1239,7 @@ def ssd_kernel_phase(dev):
                     "TF32 products each at 494.7 TFLOP/s; no single "
                     "PyTorch call computes it",
         "layer_prefill_calls": {"calls": len(buckets), **layer},
-        "per_shape": per_shape}}
+        "spec_window": window, "per_shape": per_shape}}
 
 
 def ssd_kernel_us(call, calls: int = 10) -> dict:
@@ -1919,7 +2010,8 @@ def profile_prefill(eng, prompt) -> dict:
 
 
 def serve_once(dev, cfg, model, prompts, quant: str | None,
-               kern: str | None) -> tuple[dict, list, dict]:
+               kern: str | None, record: bool = False, profile: bool = True
+               ) -> tuple[dict, list, dict, dict]:
     """One main-path run: the engine serves the request mix; every kernel
     counter is set to 0 just before and read just after.  Returns the
     launches by kernel, each request's tokens and the launches of each
@@ -1936,7 +2028,10 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     (7 a layer for yi-9b, 2 for mamba2) of each decode tick, and of each
     prefill call under a model-level mode; for mamba2 ``ssd_scan`` once
     per layer of each prefill call; no other kernel at all.  Profiles 4
-    decode ticks after (and, for mamba2, one prefill call)."""
+    decode ticks after (and, for mamba2, one prefill call).  The fourth
+    value: the run's decode tok/s and, with ``record``, each decode step's
+    logits by (rid, step) (:func:`record_logits`; phase 10's reference).
+    ``profile=False`` leaves the profiles out."""
     from dataclasses import replace
 
     import torch
@@ -1958,6 +2053,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     finite, watched = watch_logits(eng)
+    rec, unhook = record_logits(eng) if record else (None, None)
     reqs = [Request(rid=i, prompt=p, max_new=32)
             for i, p in enumerate(prompts)]
     wrappers = kernel_wrappers()
@@ -1973,6 +2069,8 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in watched:
         del m.logits
+    if unhook is not None:
+        unhook()
     layers = cfg.num_layers
     ticks = eng.metrics.ticks
     want = dict.fromkeys(wrappers, 0)
@@ -2022,9 +2120,11 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
         check(tc[n] == counts[n],
               f"{cfg.name} {quant}: {tc[n]} of {counts[n]} {n} launches on "
               "the tensor-core kernel")
-    prof = profile_decode(eng, prompts)    # after the counts are read
-    if cfg.family == "ssm":
-        prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
+    prof = {}
+    if profile:                            # after the counts are read
+        prof = profile_decode(eng, prompts)
+        if cfg.family == "ssm":
+            prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
     emit({"main_path": quant or "bf16", "model": cfg.name,
           "requests": len(reqs),
           "prompt_lens": [len(p) for p in prompts], "max_new": 32,
@@ -2041,7 +2141,8 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, out, tc
+    return counts, out, tc, {"decode_tok_s": stats["decode_tok_s"],
+                             "logits": rec}
 
 
 def add_launches(total: dict, counts: dict) -> None:
@@ -2077,7 +2178,7 @@ def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict, dict]:
                         ("luna_approx2", "luna_mm"), ("luna_dc", "luna_mm"),
                         ("lut_nf4", "lut_gemm")):
         full = quant in ("lut4", "nf4p")
-        counts, outs[quant], tc = serve_once(
+        counts, outs[quant], tc, _ = serve_once(
             dev, cfg if full else cut, model if full else cut_model, prompts,
             quant, kern)
         add_launches(launches, counts)
@@ -2088,22 +2189,25 @@ def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict, dict]:
     return launches, tc_total, outs
 
 
-def ssm_main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
+def ssm_main_path_phase(dev, cfg, model, prompts
+                        ) -> tuple[dict, dict, list, dict]:
     """Phase 7: the engine at mamba2-1.3b's full width (48 layers, bf16);
-    returns launches by kernel and by tensor-core route.  Prefill (full precision in every run) on
-    ssd_scan, decode full precision, then w_in/w_out frozen to lut4 (on
-    lut_gemm_dc) and nf4p (on lut_gemm_dc_res)."""
+    returns launches by kernel and by tensor-core route, and the nf4p
+    run's tokens, decode tok/s and logits (phase 10b's reference).
+    Prefill (full precision in every run) on ssd_scan, decode full
+    precision, then w_in/w_out frozen to lut4 (on lut_gemm_dc) and nf4p
+    (on lut_gemm_dc_res)."""
     launches, outs, tc_total = {}, {}, {}
     for quant, kern in ((None, None), ("lut4", "lut_gemm_dc"),
                         ("nf4p", "lut_gemm_dc_res")):
-        counts, outs[quant], tc = serve_once(dev, cfg, model, prompts, quant,
-                                             kern)
+        counts, outs[quant], tc, extra = serve_once(
+            dev, cfg, model, prompts, quant, kern, record=quant == "nf4p")
         add_launches(launches, counts)
         add_launches(tc_total, tc)
     firsts = {q: [o[0] for o in out] for q, out in outs.items()}
     check(firsts[None] == firsts["lut4"] == firsts["nf4p"],
           f"mamba2 first (prefill) tokens differ between runs: {firsts}")
-    return launches, tc_total
+    return launches, tc_total, outs["nf4p"], extra
 
 
 #: phase 9's shared-prefix mix: a 384-token prefix (24 blocks of 16, a
@@ -2387,6 +2491,497 @@ def ssm_substrate_phase(dev, cfg, model) -> tuple[dict, dict]:
           f"{out['prefix_tokens_reused']} tokens, want 7 and "
           f"{7 * SHARED_PREFIX}")
     return counts, route
+
+
+#: phase 10's token rule (bf16 models at full width).  A speculative run
+#: computes the same greedy function as the plain run in another order:
+#: the verify window scores 5 columns in one (40-row) GEMM where the plain
+#: tick scores one, and its cache was written by earlier windows.  Two
+#: such orders move argmax at near-ties (phase 9's warm-vs-cold runs show
+#: it for chunked against whole prefill).  So a request's
+#: tokens must equal the plain run's, or, at their FIRST divergence (token
+#: t) only, the plain run's top-two logit margin at t must be at most
+#: WINDOW_FACTOR times the distance between the two orders' logits on the
+#: same token state: the spec run's logits at the window's column 0 (step
+#: t0 <= t, the latest step either run scored one token at a time or as
+#: column 0) against the plain run's decode logits at t0.  Two roundings
+#: of one function, each about as far from exact as the other: by the
+#: triangle inequality about twice that distance apart at most (as
+#: WARM_FACTOR).  Anything else fails.
+WINDOW_FACTOR = 2.0
+
+
+def record_logits(eng) -> tuple[dict, object]:
+    """Record, under (rid, step), the logits row each active request is
+    scored by when a token is chosen one at a time (``decode_step``) or as
+    a verify window's column 0 (``decode_window``), on the instance of
+    ``eng.decode_params``; the first record of a step stays.  Draft steps
+    (self_lut's, which may run on the same model) are not recorded.
+    Returns (the records, a function that removes the hooks)."""
+    rec = {}
+    m = eng.decode_params
+    drafting = [False]
+
+    def keep(logits):
+        if drafting[0]:
+            return
+        for s, req in enumerate(eng.slots):
+            if req is not None and req.rid in eng.active:
+                rec.setdefault((req.rid, len(req.out)),
+                               logits[s, 0].float().clone())
+
+    step, window = m.decode_step, m.decode_window
+
+    def decode_step(*a, **kw):
+        logits, caches = step(*a, **kw)
+        keep(logits)
+        return logits, caches
+
+    def decode_window(*a, **kw):
+        logits, caches = window(*a, **kw)
+        keep(logits)
+        return logits, caches
+
+    m.decode_step, m.decode_window = decode_step, decode_window
+    spec = eng._spec
+    if spec is not None:
+        propose = spec.propose
+
+        def drafted(*a, **kw):
+            drafting[0] = True
+            try:
+                return propose(*a, **kw)
+            finally:
+                drafting[0] = False
+        spec.propose = drafted
+
+    def unhook():
+        del m.decode_step, m.decode_window
+        if spec is not None:
+            del spec.propose
+    return rec, unhook
+
+
+def margin(logits) -> float:
+    top = logits.topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def window_rule(rid: int, got: list, plain: list, rec: dict,
+                plain_rec: dict, dist_at=None) -> dict:
+    """The WINDOW_FACTOR rule for one request: equal tokens, or at the
+    first divergence t the plain run's top-two margin at t within
+    WINDOW_FACTOR times the distance of the two runs' logits at t0 (the
+    latest step <= t that ``rec`` holds; ``dist_at``: (t0, the logits row)
+    to use instead, for a re-prefill).  Returns the verdict's numbers."""
+    n = min(len(got), len(plain))
+    t = next((i for i in range(n) if got[i] != plain[i]), None)
+    if t is None:
+        return {"rid": rid, "equal": len(got) == len(plain)}
+    if dist_at is None:
+        t0 = max((k for r, k in rec if r == rid and k <= t), default=None)
+        if t0 is None or (rid, t0) not in plain_rec:
+            return {"rid": rid, "equal": False, "first_divergence": t,
+                    "passed": False, "why": "no logits recorded at or "
+                                            "before the divergence"}
+        row = rec[(rid, t0)]
+    else:
+        t0, row = dist_at
+    dist = (row - plain_rec[(rid, t0)]).abs().max().item()
+    m = margin(plain_rec[(rid, t)]) if (rid, t) in plain_rec else math.inf
+    return {"rid": rid, "equal": False, "first_divergence": t, "t0": t0,
+            "plain_margin": m, "logit_distance": dist,
+            "passed": m <= WINDOW_FACTOR * dist}
+
+
+#: the verify kernel of each engine-level quant mode (the plain tick's too)
+DC_KERNEL = {"lut4": "lut_gemm_dc", "nf4p": "lut_gemm_dc_res"}
+
+
+def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
+             plain_extra: dict, label: str) -> tuple[dict, dict]:
+    """One phase-10 run: the engine under ``EngineConfig(quant, spec=mode,
+    spec_k=4, max_batch=8, max_seq=1024)`` serves the request mix (32 new
+    tokens each), every kernel counter set to 0 just before and read just
+    after.  Checks: every request finished, every logit finite,
+    ``spec_accepted + spec_rejected == spec_drafted``; each kernel's
+    launches equal the run's: the verify windows (M = 40, past
+    ``TC_MAX_M``: the f32-FMA kernel), mamba2's commit passes (the same)
+    and the plain ticks (M = 8, the tensor-core kernel) on
+    ``DC_KERNEL[quant]``, self_lut's draft steps
+    (M = 8) on ``lut_gemm_dc_res``'s tensor-core kernel, mamba2's
+    ``ssd_scan`` once per layer of each verify, commit and prefill call;
+    tokens against ``plain`` by the WINDOW_FACTOR rule.  Reports
+    acceptance per window, tokens per tick, decode tok/s against the plain
+    run's and a profile of 4 ticks.  Returns (launches, by route)."""
+    import torch
+
+    from repro_torch.kernels.lut_gemm.lut_gemm import takes_tc
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    t_build = time.perf_counter()
+    eng = Engine(cfg, model, EngineConfig(quant=quant, spec=mode, spec_k=4,
+                                          max_batch=8, max_seq=1024),
+                 device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    finite, watched = watch_logits(eng)
+    rec, unhook = record_logits(eng)
+    calls = Counter()
+    for name in ("_draft", "_spec_commit"):
+        base = getattr(eng, name)
+
+        def counted(*a, _base=base, _name=name, **kw):
+            calls[_name] += 1
+            return _base(*a, **kw)
+        setattr(eng, name, counted)
+    reqs = [Request(rid=i, prompt=p, max_new=32)
+            for i, p in enumerate(prompts)]
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    stats = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, tc = read_counters(wrappers)
+    for m in watched:
+        del m.logits
+    unhook()
+    for name in ("_draft", "_spec_commit"):
+        delattr(eng, name)
+    layers, proj = cfg.num_layers, PROJECTIONS[cfg.family]
+    m = eng.metrics.snapshot()             # before the profile's ticks
+    verify_ticks, plain_ticks = m.spec_ticks, m.ticks - m.spec_ticks
+    kern = DC_KERNEL[quant]
+    want = dict.fromkeys(wrappers, 0)
+    want_tc = dict.fromkeys(("lut_gemm_dc", "lut_gemm_dc_res"), 0)
+    k, n = (LAYER_SHAPES if cfg.family == "dense" else MAMBA2_SHAPES)[0]
+    verify_tc = takes_tc(eng.max_batch * 5, k, n, torch.bfloat16, True)
+    want[kern] += (verify_ticks + calls["_spec_commit"]
+                   + plain_ticks) * layers * proj
+    want_tc[kern] += (plain_ticks + verify_tc * verify_ticks) * layers * proj
+    want["lut_gemm_dc_res"] += calls["_draft"] * layers * proj
+    want_tc["lut_gemm_dc_res"] += calls["_draft"] * layers * proj
+    if cfg.family == "ssm":
+        want["ssd_scan"] = (verify_ticks + calls["_spec_commit"]
+                            + stats["prefill_calls"]) * layers
+    check(stats["done"] and all(len(r.out) == 32 for r in reqs),
+          f"phase 10 {label}: not every request finished")
+    check(finite and bool(torch.stack(finite).all()),
+          f"phase 10 {label}: non-finite logits")
+    check(m.spec_accepted + m.spec_rejected == m.spec_drafted,
+          f"phase 10 {label}: accepted {m.spec_accepted} + rejected "
+          f"{m.spec_rejected} != drafted {m.spec_drafted}")
+    check(counts == want, f"phase 10 {label}: launches {counts}, want {want}")
+    got_tc = {name: tc[name] for name in want_tc}
+    check(got_tc == want_tc, f"phase 10 {label}: tensor-core launches "
+          f"{got_tc}, want {want_tc}")
+    rules = [window_rule(r.rid, r.out, plain[r.rid], rec,
+                         plain_extra["logits"]) for r in reqs]
+    check(all(v.get("equal") or v.get("passed") for v in rules),
+          f"phase 10 {label}: tokens fail the WINDOW_FACTOR rule: {rules}")
+    window = eng.registry.dump()["engine_spec_accepted_per_window"]
+    t_prof = time.perf_counter()
+    prof = profile_decode(eng, prompts)    # after the counts are read
+    prof["s"] = time.perf_counter() - t_prof
+    out = {"phase10": label, "model": cfg.name, "quant": quant,
+           "spec": mode, "spec_k": 4, "layers": layers, "wall_s": wall,
+           "engine_build_s": build_s,
+           "ticks": m.ticks, "spec_ticks": verify_ticks,
+           "plain_ticks": plain_ticks, "draft_steps": calls["_draft"],
+           "commit_passes": calls["_spec_commit"],
+           "spec_drafted": m.spec_drafted, "spec_accepted": m.spec_accepted,
+           "spec_rejected": m.spec_rejected,
+           "acceptance": stats["spec_acceptance"],
+           "accepted_per_window": window["series"],
+           "tokens_per_tick": (m.decode_tokens / m.ticks if m.ticks
+                               else 0.0),
+           "decode_tok_s": stats["decode_tok_s"],
+           "plain_decode_tok_s": plain_extra["decode_tok_s"],
+           "launches": counts, "launches_tc": tc, "verify_m": 40,
+           "verify_route": "tc" if verify_tc else "fma",
+           "window_factor": WINDOW_FACTOR, "tokens": rules,
+           "tokens_equal_plain": sum(bool(v.get("equal")) for v in rules),
+           **{f"profile_{k}": v for k, v in prof.items()}}
+    emit(out)
+    del eng, reqs, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, tc
+
+
+def spec_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
+    """Phase 10a (after phase 9a, on phase 6's model cut to its first
+    ``MODEL_LEVEL_LAYERS`` layers, as phase 6b is, to keep the script near
+    half its time limit): the plain lut4 run on that depth (logits
+    recorded, no profile), then self_lut and ngram held to it."""
+    from dataclasses import replace
+
+    cut = replace(cfg, num_layers=min(MODEL_LEVEL_LAYERS, cfg.num_layers))
+    tree = model.params_tree()
+    cut_model = type(model).from_params(
+        cut, {**tree, "blocks": tree["blocks"][:cut.num_layers]}, device=dev)
+    launches, plain, tc, extra = serve_once(
+        dev, cut, cut_model, prompts, "lut4", "lut_gemm_dc", record=True,
+        profile=False)
+    for mode in ("self_lut", "ngram"):
+        counts, route = spec_run(dev, cut, cut_model, prompts, "lut4", mode,
+                                 plain, extra, f"10a yi-9b {mode}")
+        add_launches(launches, counts)
+        add_launches(tc, route)
+    return launches, tc
+
+
+def ssm_spec_phase(dev, cfg, model, prompts, plain, plain_extra
+                   ) -> tuple[dict, dict]:
+    """Phase 10b (after phase 9b, on phase 7's model): mamba2-1.3b nf4p
+    under self_lut (drafts and verify on the same nf4p model), held to
+    phase 7's nf4p run."""
+    return spec_run(dev, cfg, model, prompts, "nf4p", "self_lut", plain,
+                    plain_extra, "10b mamba2 self_lut")
+
+
+#: phase 10c, by index in the request mix: the request cancelled during
+#: its chunked admission (438 tokens: 4 pieces of 128), the one preempted
+#: once it has LOOP_PREEMPT_AT tokens (53 tokens: re-admitted unchunked),
+#: and the one whose ``on_token`` callback does both (24 tokens: decoding
+#: while the others admit).  The callback runs inside the tick, under the
+#: engine lock, so neither act races the loop.
+LOOP_CANCEL, LOOP_PREEMPT, LOOP_ACTOR, LOOP_PREEMPT_AT = 0, 6, 7, 4
+
+
+def loop_phase(dev, cfg, model, prompts, plain) -> tuple[dict, dict]:
+    """Phase 10c (after 10a, on phase 6's model): yi-9b lut4 on the paged
+    pool with ``prefill_chunk=128`` and ``trace=True``, served through
+    ``start()``: 8 client threads each ``submit`` one request and consume
+    its ``tokens()``; LOOP_ACTOR's callback cancels LOOP_CANCEL during its
+    chunked admission and preempts LOOP_PREEMPT after LOOP_PREEMPT_AT
+    tokens (requeued, re-admitted by a re-prefill); then
+    ``stop(drain=True)``.
+    The reference is a synchronous ``serve()`` of the same mix on the same
+    config (its prefill pieces and buckets are the loop's: each request's
+    tokens depend on its own admission only).  Checks: the consumers
+    joined (within 600 s) while the loop ran; every stream equals its
+    request's ``out``; the untouched requests' tokens equal the
+    reference's bitwise, and those admitted unchunked equal phase 6a's
+    (== 9a's paged) run too; the preempted request's first tokens equal
+    the reference's and the rest obey the WINDOW_FACTOR rule (the
+    distance: its re-prefill's logits against the reference's decode
+    logits at the preemption step); ``lut_gemm_dc`` launched 7 x 48 a
+    tick, all on the tensor-core kernel, and nothing else; every pool
+    block free after the run; the Perfetto JSON parses and every rid has
+    its submit, first-token (where it emitted one) and finish events; the
+    registry's counters equal ``EngineMetrics``; the TTFT histogram's
+    count equals the requests that emitted a token."""
+    import threading
+
+    import torch
+
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import _ENGINE_COUNTERS, Engine, Request
+
+    conf = EngineConfig(quant="lut4", max_batch=8, max_seq=1024, paged=True,
+                        block_size=16, prefill_chunk=128, trace=True)
+    ref = Engine(cfg, model, conf, device=dev)
+    ref_rec, unhook = record_logits(ref)
+    ref_reqs = [Request(rid=i, prompt=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+    check(ref.serve(ref_reqs)["done"], "phase 10c: reference not done")
+    unhook()
+    del ref
+    gc.collect()
+
+    eng = Engine(cfg, model, conf, device=dev)
+    finite, watched = watch_logits(eng)
+    reqs = [Request(rid=i, prompt=list(p), max_new=32)
+            for i, p in enumerate(prompts)]
+    victim, kicked = reqs[LOOP_CANCEL], reqs[LOOP_PREEMPT]
+    preempted = {}
+    base_prefill = model.prefill
+
+    def prefill(tokens, caches, **kw):
+        logits, caches = base_prefill(tokens, caches, **kw)
+        ext = preempted.get("prompt")
+        if ext is not None and "logits" not in preempted \
+                and tokens.shape[0] == 1 and tokens.shape[1] >= len(ext) \
+                and tokens[0, :len(ext)].tolist() == ext:
+            preempted["logits"] = logits[0, 0].float().clone()
+        return logits, caches
+    model.prefill = prefill
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    reset_counters(wrappers)
+    t0 = time.perf_counter()
+    streams = [None] * len(reqs)
+
+    def act(tok):
+        """``reqs[LOOP_ACTOR]``'s callback: cancel the victim while it is
+        staged mid-prompt, preempt ``kicked`` once it has decoded."""
+        if not victim.done and any(cp.req is victim and cp.consumed > 0
+                                   for cp in eng._chunked):
+            check(eng.cancel(victim), "phase 10c: cancel refused")
+        if "at" not in preempted and kicked.rid in eng.active \
+                and len(kicked.out) >= LOOP_PREEMPT_AT:
+            preempted["at"] = len(kicked.out)
+            check(eng.preempt(kicked), "phase 10c: preempt refused")
+            preempted["prompt"] = list(kicked.prompt)
+    eng.start()
+
+    def client(i):
+        handle = eng.submit(reqs[i],
+                            on_token=act if i == LOOP_ACTOR else None)
+        streams[i] = list(handle.tokens())
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(all(not t.is_alive() for t in threads),
+          "phase 10c: a tokens() consumer hung")
+    check(eng.running, "phase 10c: the serve loop died before stop()")
+    check(eng.stop(drain=True, timeout=300), "phase 10c: stop() timed out")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, tc = read_counters(wrappers)
+    del model.prefill
+    for m in watched:
+        del m.logits
+    m = eng.metrics
+    layers = cfg.num_layers
+    want = dict.fromkeys(wrappers, 0)
+    want["lut_gemm_dc"] = m.ticks * layers * PROJECTIONS["dense"]
+    check(counts == want, f"phase 10c: launches {counts}, want {want}")
+    check(tc["lut_gemm_dc"] == counts["lut_gemm_dc"],
+          f"phase 10c: {tc['lut_gemm_dc']} of {counts['lut_gemm_dc']} "
+          "lut_gemm_dc launches on the tensor-core kernel")
+    check(finite and bool(torch.stack(finite).all()),
+          "phase 10c: non-finite logits")
+    check(all(s == r.out for s, r in zip(streams, reqs)),
+          "phase 10c: a stream differs from its request's out")
+    check(victim.cancelled and victim.out == [] and m.cancelled == 1,
+          "phase 10c: the cancel missed the victim's chunked admission")
+    check("prompt" in preempted, "phase 10c: the preempt never fired")
+    check(m.preemptions == 1 and kicked.done and len(kicked.out) == 32,
+          "phase 10c: the preempted request did not finish")
+    untouched = [i for i in range(len(reqs))
+                 if i not in (LOOP_CANCEL, LOOP_PREEMPT)]
+    check(all(reqs[i].out == ref_reqs[i].out for i in untouched),
+          "phase 10c: untouched tokens differ from the synchronous run")
+    unchunked = [i for i in untouched
+                 if len(prompts[i]) <= conf.prefill_chunk]
+    check(all(reqs[i].out == plain[i] for i in unchunked),
+          "phase 10c: unchunked requests' tokens differ from phase 6a's")
+    at = preempted["at"]
+    check(kicked.out[:at] == ref_reqs[LOOP_PREEMPT].out[:at],
+          "phase 10c: the preempted request's first tokens differ")
+    rule = window_rule(kicked.rid, kicked.out, ref_reqs[LOOP_PREEMPT].out,
+                       {}, ref_rec, dist_at=(at, preempted["logits"]))
+    check(rule.get("equal") or rule.get("passed"),
+          f"phase 10c: the preempted request fails the rule: {rule}")
+    pool = eng.backend.num_blocks - 1
+    check(eng.allocator.free_blocks == pool,
+          f"phase 10c: {eng.allocator.free_blocks} of {pool} blocks free")
+    doc = json.loads(eng.tracer.perfetto())
+    from repro_torch.obs.trace import request_events
+    per_req = request_events(eng.tracer.events())
+    for r in reqs:
+        names = [e.name for e in per_req.get(r.rid, [])]
+        need = {"submit", "finish"} | ({"first_token"} if r.out else set())
+        check(need <= set(names) and names.count("submit") == 1
+              and names.count("finish") == 1,
+              f"phase 10c: rid {r.rid}'s trace events {names}")
+    dump = eng.registry.dump()
+    snap = m.snapshot()
+    check(all(dump[name]["series"].get("", 0) == getattr(snap, f)
+              for f, (name, _) in _ENGINE_COUNTERS.items()),
+          "phase 10c: registry counters differ from EngineMetrics")
+    ttft = sum(v["count"] for v in dump["engine_ttft_seconds"]["series"]
+               .values())
+    check(ttft == sum(1 for r in reqs if r.out),
+          f"phase 10c: TTFT count {ttft}")
+    emit({"phase10": "10c yi-9b loop", "model": cfg.name, "quant": "lut4",
+          "knobs": {"paged": True, "block_size": 16, "prefill_chunk": 128,
+                    "trace": True}, "layers": layers, "wall_s": wall,
+          "ticks": m.ticks, "prefill_chunks": m.prefill_chunks,
+          "cancelled_rid": victim.rid, "preempted_rid": kicked.rid,
+          "preempted_at": at, "preempted_rule": rule,
+          "untouched_equal_sync": len(untouched),
+          "unchunked_equal_6a": len(unchunked),
+          "trace_events": len(eng.tracer.events()),
+          "trace_dropped": eng.tracer.dropped,
+          "perfetto_bytes": len(json.dumps(doc)), "ttft_count": ttft,
+          "decode_tok_s": snap.summary(8)["decode_tok_s"],
+          "launches": counts, "launches_tc": tc})
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, tc
+
+
+#: phase 4's speculative engines: (family, label, EngineConfig knobs)
+SMALL_SPEC = [("dense", "dense", {}),
+              ("dense", "paged", dict(paged=True, block_size=8)),
+              ("ssm", "state", {})]
+
+
+def small_spec_phase(dev):
+    """Phase 4, speculation: reduced f32 yi-9b (dense slab and paged pool)
+    and mamba2 (seed 1 weights, the same on both devices) serve 3 prompts
+    (8 new tokens each) under ``spec`` ngram and self_lut with quant None,
+    lut4 and nf4p: greedy tokens on the card equal the CPU's, and both
+    equal the plain greedy engine's on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    out = {}
+    for arch in ("yi-9b", "mamba2-1.3b"):
+        cfg = get_config(arch).reduced(dtype="float32", attn_impl="full")
+        cpu = get_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(1))
+        gpu = type(cpu).from_params(cfg, tree_to(cpu.params_tree(), dev),
+                                    device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in (5, 11, 3)]
+
+        def serve(model, device, **knobs):
+            eng = Engine(cfg, model, EngineConfig(max_batch=3, max_seq=48,
+                                                  **knobs), device=device)
+            reqs = [Request(rid=i, prompt=list(p), max_new=8)
+                    for i, p in enumerate(prompts)]
+            check(eng.serve(reqs)["done"],
+                  f"phase 4 spec {arch} {knobs}: not done")
+            return [r.out for r in reqs], eng.metrics.snapshot()
+
+        for family, label, knobs in SMALL_SPEC:
+            if family != cfg.family:
+                continue
+            for quant in (None, "lut4", "nf4p"):
+                plain, _ = serve(cpu, "cpu", quant=quant, **knobs)
+                for mode in ("ngram", "self_lut"):
+                    kw = dict(quant=quant, spec=mode, **knobs)
+                    on_cpu, _ = serve(cpu, "cpu", **kw)
+                    on_card, m = serve(gpu, dev, **kw)
+                    what = f"phase 4 spec {arch} {label} {quant} {mode}"
+                    check(on_cpu == plain,
+                          f"{what}: CPU tokens differ from plain greedy")
+                    check(on_card == on_cpu,
+                          f"{what}: card tokens differ from the CPU's")
+                    out[f"{arch} {label} {quant or 'f32'} {mode}"] = {
+                        k: getattr(m, k) for k in (
+                            "spec_ticks", "spec_drafted", "spec_accepted")}
+    emit({"small_spec": "reduced f32 yi-9b (dense, paged) and mamba2, "
+                        "spec ngram/self_lut x quant None/lut4/nf4p: "
+                        "greedy tokens card == cpu == plain greedy",
+          "runs": out})
 
 
 def profile_train_step(step_fn, model, opt_state, batch) -> tuple:
@@ -2711,9 +3306,9 @@ def trainer_phase(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
-                    help="depth of the full-width yi-9b in phases 6 and "
-                         "9a (it has 48); mamba2-1.3b always runs all 48 "
-                         "of its layers")
+                    help="depth of the full-width yi-9b in phases 6, 9a, "
+                         "10a and 10c (it has 48); mamba2-1.3b always runs "
+                         "all 48 of its layers")
     bench = ap.add_mutually_exclusive_group()
     bench.add_argument("--ssd-bench", metavar="ROOT",
                        help="only time ROOT's ssd_scan (ssd_bench)")
@@ -2795,6 +3390,7 @@ def main() -> int:
     small_reference_phase(dev)
     small_ssm_reference_phase(dev)
     small_substrate_phase(dev)
+    small_spec_phase(dev)
     small_training_phase(dev)
     quant_matmul_phase(dev)
     cfg, model, prompts = build_model(dev, args.layers)
@@ -2802,20 +3398,35 @@ def main() -> int:
     for total, part in zip((launches, tc), substrate_phase(
             dev, cfg, model, prompts, outs["lut4"])):
         add_launches(total, part)
+    phase10_s = {}
+    t10 = time.perf_counter()
+    for run in (spec_phase(dev, cfg, model, prompts),
+                loop_phase(dev, cfg, model, prompts, outs["lut4"])):
+        for total, part in zip((launches, tc), run):
+            add_launches(total, part)
+    phase10_s["10a+10c"] = time.perf_counter() - t10
     del model
     gc.collect()
     torch.cuda.empty_cache()
     cfg, model, prompts = build_ssm_model(dev)
-    for run in (ssm_main_path_phase(dev, cfg, model, prompts),
-                ssm_substrate_phase(dev, cfg, model)):
+    *ssm_run, ssm_plain, ssm_extra = ssm_main_path_phase(dev, cfg, model,
+                                                         prompts)
+    for run in (ssm_run, ssm_substrate_phase(dev, cfg, model)):
         for total, part in zip((launches, tc), run):
             add_launches(total, part)
-    del model
+    t10 = time.perf_counter()
+    for total, part in zip((launches, tc), ssm_spec_phase(
+            dev, cfg, model, prompts, ssm_plain, ssm_extra)):
+        add_launches(total, part)
+    phase10_s["10b"] = time.perf_counter() - t10
+    emit({"phase10_s": sum(phase10_s.values()), "parts": phase10_s})
+    del model, ssm_extra
     gc.collect()
     torch.cuda.empty_cache()
     launches_train, flash_tc, luna_tc_train = train_phase(dev)
     add_launches(launches, launches_train)
     trainer_phase(dev)
+    emit({"script_s": time.perf_counter() - T0})
     check(set(launches) == set(kernels),
           f"kernels launched on the main path {sorted(launches)} are not "
           f"the kernels checked {sorted(kernels)}")

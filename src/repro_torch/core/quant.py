@@ -303,3 +303,19 @@ def quantize_decode_params(params, quant: str):
         return node
 
     return walk(params, ())
+
+
+#: the draft-weight mode for self-speculative decoding: the pruned-LUT NF4
+#: tree is the cheapest decode path the engine owns, so the draft budget is
+#: spent there and the decode precision verifies.
+SPEC_DRAFT_QUANT = "nf4p"
+
+
+def quantize_draft_params(params, quant: str = SPEC_DRAFT_QUANT):
+    """Draft-model weights for self-speculative decoding
+    (``repro.core.quant.quantize_draft_params``): the same model with its
+    decode projections frozen in their pruned-LUT form (default
+    :data:`SPEC_DRAFT_QUANT`); no second set of weights and no separate
+    cache layout.  An engine that already decodes at the draft mode
+    (``EngineConfig(quant="nf4p")``) aliases its decode model instead."""
+    return quantize_decode_params(params, quant)

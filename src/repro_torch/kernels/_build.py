@@ -7,10 +7,12 @@ shared library with a plain C interface::
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <src>
 
 on first use, all sources at once (one ``nvcc`` process each, started
-together).  The library name carries a hash of the source, so an edited
-source never loads a stale build.  ``build/`` sits at the root of the
-checkout and is git-ignored.  A failed build raises with nvcc's stderr;
-there is no fallback.
+together), under a process-wide lock, so two threads that launch their
+first kernel together (a client's ``submit`` and the engine's serve
+loop) never race one build.  The library name carries a hash of the
+source, so an edited source never loads a stale build.  ``build/`` sits
+at the root of the checkout and is git-ignored.  A failed build raises
+with nvcc's stderr; there is no fallback.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCK = threading.RLock()
 
 
 def sources() -> dict[str, Path]:
@@ -50,6 +54,11 @@ def build_all() -> dict[str, Path]:
     """Compile every source whose library is missing, in parallel; returns
     name -> library path.  ptxas' resource report (``-Xptxas -v``) is kept
     beside each library as ``<lib>.log``."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {name: _target(src) for name, src in sources().items()}
     procs = {}
@@ -75,7 +84,12 @@ def build_all() -> dict[str, Path]:
 
 
 @functools.cache
+def _load(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_all()[name]))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The built library of kernel source ``name`` (building on first
-    use)."""
-    return ctypes.CDLL(str(build_all()[name]))
+    use; the first load happens once, under the build lock)."""
+    with _LOCK:
+        return _load(name)

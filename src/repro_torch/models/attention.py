@@ -11,9 +11,11 @@ tensors.
 Ported: the ``full`` and ``chunked`` SDPA impls with f32 operands (JAX's
 default ``attn_f32=True``), ``flash`` (the hand-written kernel of
 ``kernels.flash_attention``, taken under JAX's condition: a cacheless
-full-sequence forward), the scalar-index and per-row cache writes, and
-paged decode through a block table.  Sharded decode is ROADMAP queue 1
-item 9; ``n_valid`` verify windows (speculation) are queue 1 item 6.
+full-sequence forward), the scalar-index and per-row cache writes, paged
+decode through a block table, and speculation's verify windows: S > 1
+tokens a row at per-row positions with ``n_valid`` real ones, on the slab
+or the pool (:class:`~repro_torch.models.common.WindowTarget`).  Sharded
+decode is ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from torch import nn
 
 from repro_torch.core.layers import quant_matmul
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.models.common import (PagedRows, apply_rope,
-                                       paged_gather, paged_write, set_leaf)
+from repro_torch.models.common import (PagedRows, WindowTarget, apply_rope,
+                                       paged_gather, paged_write, set_leaf,
+                                       write_window)
 
 
 class KVCache(NamedTuple):
@@ -122,14 +125,19 @@ class GQAAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: KVCache | None = None, cache_index=None,
-                paged: PagedRows | None = None):
+                paged: PagedRows | None = None,
+                window: WindowTarget | None = None, n_valid=None):
         """Returns (out (B, S, D), cache).  ``cache_index``: a Python int
         (prefill writes a (B, S) block at that offset) or a (B,) tensor of
-        per-row decode depths (S must be 1).  ``paged``: the step's block
-        table and write targets (:class:`PagedRows`); the cache leaves are
-        then paged pools, the new K/V is written at each row's logical
-        depth through the table and attention reads the gathered
-        logical-order view."""
+        per-row decode depths (S must be 1 unless ``window`` is given).
+        ``paged``: the step's block table and write targets
+        (:class:`PagedRows`); the cache leaves are then paged pools, the
+        new K/V is written at each row's logical depth through the table
+        and attention reads the gathered logical-order view.  ``window``:
+        a verify window's targets (S tokens a row from ``cache_index``,
+        slab or pool); ``n_valid`` (B,): its real tokens a row, the rest
+        write nowhere (or on the garbage block) and are masked out of
+        attention through ``kv_len``."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -143,11 +151,20 @@ class GQAAttention(nn.Module):
         if cache is not None:
             per_row = (isinstance(cache_index, torch.Tensor)
                        and cache_index.ndim == 1)
-            if (per_row or paged is not None) and s != 1:
-                raise NotImplementedError(
-                    "multi-token per-row windows (speculative verify) "
-                    "are not ported yet: ROADMAP queue 1 item 6")
-            if paged is not None:
+            if window is not None:
+                write_window(cache.k, k, window)
+                write_window(cache.v, v, window)
+                if window.table is not None:
+                    k = paged_gather(cache.k, window.table)
+                    v = paged_gather(cache.v, window.table)
+                else:
+                    k, v = cache.k, cache.v
+                kv_len = cache_index + (s if n_valid is None else n_valid)
+                q_offset = cache_index
+            elif (per_row or paged is not None) and s != 1:
+                raise ValueError("a multi-token per-row write needs its "
+                                 "window target (decode_window)")
+            elif paged is not None:
                 # paged decode: write at the row's logical depth through
                 # the table, attend over the gathered logical-order view
                 paged_write(cache.k, k, paged)

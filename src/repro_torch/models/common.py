@@ -8,6 +8,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.serve.paged import GARBAGE_BLOCK
+
 
 @dataclass(frozen=True)
 class CacheSpec:
@@ -61,6 +63,102 @@ def paged_rows(block_table: torch.Tensor, index, block_size: int
     rows = torch.arange(b, device=block_table.device)
     return PagedRows(block_table, block_table[rows, idx // block_size].long(),
                      idx % block_size)
+
+
+class WindowTarget(NamedTuple):
+    """Where a speculative window's (B, W) new tokens land, computed once
+    a step and read by every layer.  ``index`` (B, W): the slab column
+    (dense) or the physical block (paged); ``offset`` (B, W): the offset
+    in the block (paged) or None; ``keep`` (B, W) bool: which entries of a
+    dense slab write (None: all); ``table``: the (B, nblk) block table
+    attention gathers through (paged) or None."""
+    index: torch.Tensor
+    offset: torch.Tensor | None
+    keep: torch.Tensor | None
+    table: torch.Tensor | None
+
+
+def _window_index(index: torch.Tensor, s: int, n_valid):
+    """(B, W) logical positions of the window and its (B, W) validity
+    (None when ``n_valid`` is None: every entry is real)."""
+    ar = torch.arange(s, device=index.device)
+    idx = index.long()[:, None] + ar[None, :]
+    if n_valid is None:
+        return idx, None
+    return idx, ar[None, :] < n_valid.long()[:, None]
+
+
+def dense_window(index: torch.Tensor, s: int, s_max: int,
+                 n_valid=None) -> WindowTarget:
+    """A dense (B, S_max, ...) slab's window target: row ``b``'s token
+    ``i`` lands at ``index[b] + i``.  JAX drops the entries at or beyond
+    ``n_valid`` (an out-of-range scatter index); the port cannot index
+    out of range on the card, so each such entry is redirected to a column
+    no real entry of its row writes (``index - 1``, or the last column
+    for a row at 0) and writes back the value already there: the slab is
+    unchanged outside the real entries.  The real entries must lie below
+    ``s_max`` (the engine's window clamp keeps them below ``s_max - 1``)."""
+    idx, ok = _window_index(index, s, n_valid)
+    keep = None
+    if ok is not None:
+        start = index.long()[:, None]
+        sink = torch.where(start >= 1, start - 1, s_max - 1)
+        idx = torch.where(ok, idx, sink)
+        keep = ok
+    return WindowTarget(idx, None, keep, None)
+
+
+def paged_window(block_table: torch.Tensor, index: torch.Tensor, s: int,
+                 block_size: int, n_valid=None) -> WindowTarget:
+    """A paged pool's window target: row ``b``'s token ``i`` lands at
+    logical position ``index[b] + i`` through the row's block table.
+    Entries at or beyond ``n_valid`` (JAX drops them: an out-of-range
+    physical id) go to the garbage block (:data:`GARBAGE_BLOCK`), which is
+    never read unmasked; the table column is clamped into the table, so
+    no entry indexes past its width."""
+    idx, ok = _window_index(index, s, n_valid)
+    col = torch.clamp(idx // block_size, max=block_table.shape[1] - 1)
+    phys = torch.gather(block_table.long(), 1, col)
+    if ok is not None:
+        phys = torch.where(ok, phys, GARBAGE_BLOCK)
+    return WindowTarget(phys, idx % block_size, None, block_table)
+
+
+def write_window(cache: torch.Tensor, new: torch.Tensor,
+                 target: WindowTarget) -> torch.Tensor:
+    """Write a (B, W, ...) window into a slab or pool IN PLACE at
+    ``target`` (:func:`dense_window` / :func:`paged_window`) and return
+    it.  Garbage-block entries of several rows collide there (which write
+    wins is unspecified on CUDA; the block is never read unmasked); a
+    dense slab's redirected entries write back what they read."""
+    new = new.to(cache.dtype)
+    if target.offset is not None:
+        cache[target.index, target.offset] = new
+        return cache
+    rows = torch.arange(new.shape[0], device=new.device)[:, None]
+    if target.keep is not None:
+        keep = target.keep.reshape(target.keep.shape
+                                   + (1,) * (new.ndim - 2))
+        new = torch.where(keep, new, cache[rows, target.index])
+    cache[rows, target.index] = new
+    return cache
+
+
+def dense_write_window(cache: torch.Tensor, new: torch.Tensor,
+                       index: torch.Tensor, n_valid=None) -> torch.Tensor:
+    """JAX's ``dense_write_window``: an S-token window per row into a
+    dense (B, S_max, ...) slab, in place (see :func:`dense_window`)."""
+    return write_window(cache, new, dense_window(index, new.shape[1],
+                                                 cache.shape[1], n_valid))
+
+
+def paged_write_window(pool: torch.Tensor, new: torch.Tensor,
+                       block_table: torch.Tensor, index: torch.Tensor,
+                       n_valid=None) -> torch.Tensor:
+    """JAX's ``paged_write_window``: :func:`paged_write` generalized to an
+    S-token window per row, in place (see :func:`paged_window`)."""
+    return write_window(pool, new, paged_window(
+        block_table, index, new.shape[1], pool.shape[1], n_valid))
 
 
 def paged_gather(pool: torch.Tensor, block_table: torch.Tensor

@@ -2,16 +2,17 @@
 
 The same engine-facing interface as :class:`~repro_torch.models.
 transformer.TransformerLM`: ``init(gen)``, ``from_params``,
-``params_tree``, ``forward``, ``logits``, ``init_cache``, ``prefill`` and
-``decode_step``, so the engine and ``DenseSlab.prepare_decode_params``
-serve it unchanged.  The JAX model stacks its layers on a leading L axis
-under ``lax.scan``; here they are an ``nn.ModuleList`` and the tree's
-``blocks`` is a per-layer list of ``{"ln", "m": {...}}``.  The caches are
-a list of per-layer :class:`~repro_torch.models.ssm.SSMCache`: conv state
-(B, K-1, conv channels) in the model dtype and SSD state (B, H, P, N) in
-f32.  The recurrence is position-free, so the cache index is unused.  The
-prefix cache snapshots a row of that state (:meth:`SSMLM.state_snapshot`)
-and seeds a staging row from it (:meth:`SSMLM.seed_from_snapshot`).
+``params_tree``, ``forward``, ``logits``, ``init_cache``, ``prefill``,
+``decode_step`` and ``decode_window``, so the engine and
+``DenseSlab.prepare_decode_params`` serve it unchanged.  The JAX model
+stacks its layers on a leading L axis under ``lax.scan``; here they are
+an ``nn.ModuleList`` and the tree's ``blocks`` is a per-layer list of
+``{"ln", "m": {...}}``.  The caches are a list of per-layer
+:class:`~repro_torch.models.ssm.SSMCache`: conv state (B, K-1, conv
+channels) in the model dtype and SSD state (B, H, P, N) in f32.  The
+recurrence is position-free, so the cache index is unused.  The prefix
+cache snapshots a row of that state (:meth:`SSMLM.state_snapshot`) and
+seeds a staging row from it (:meth:`SSMLM.seed_from_snapshot`).
 """
 from __future__ import annotations
 
@@ -177,7 +178,24 @@ class SSMLM(nn.Module):
             st.state.copy_(sn.state)
         return staging
 
-    def decode_window(self, tokens, state, index, **kw):
-        raise NotImplementedError(
-            "SSM decode windows (speculative decoding) are not ported yet: "
-            "ROADMAP queue 1 item 6")
+    def decode_window(self, tokens, state, index, *, tables=None,
+                      n_valid=None, last_pos=None):
+        """Speculative verify / commit over a (B, W) token window: the
+        masked SSD scan (``ssd_scan`` on CUDA tensors) continuing from the
+        carried state.  The recurrence cannot rewind, so ``last_pos`` (B,)
+        bounds what ENTERS the state: positions beyond it are dt-masked
+        (state frozen, contribution zero) while their causal outputs still
+        score the window.  Verify passes ``last_pos = n_valid - 1``; a
+        partial-accept commit re-runs from the pre-verify caches with
+        ``last_pos`` = the accepted count, so exactly the accepted prefix
+        enters the state.  A row with ``last_pos = -1`` is fully masked:
+        its conv window and SSD state pass through unchanged.  ``index``
+        is unused (position-free); ``n_valid`` gives the default
+        ``last_pos``.  ``state`` is only read: the returned caches are new
+        tensors.  Returns (logits (B, W, V), caches)."""
+        assert tables is None, "ssm caches are dense (no block table)"
+        del index
+        if last_pos is None and n_valid is not None:
+            last_pos = n_valid - 1
+        hidden, caches = self.forward(tokens, caches=state, last_pos=last_pos)
+        return self.logits(hidden), caches

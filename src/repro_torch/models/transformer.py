@@ -27,10 +27,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.layers import quant_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import GQAAttention, KVCache, gqa_shapes
-from repro_torch.models.common import (CacheSpec, dense_init, dtype_of,
-                                       embed_init, gather_last, paged_rows,
-                                       remat_of, rms_norm, set_leaf,
-                                       token_positions)
+from repro_torch.models.common import (CacheSpec, dense_init, dense_window,
+                                       dtype_of, embed_init, gather_last,
+                                       paged_rows, paged_window, remat_of,
+                                       rms_norm, set_leaf, token_positions)
 from repro_torch.models.mlp import MLP, mlp_shapes
 
 
@@ -64,10 +64,12 @@ class Block(nn.Module):
         self.attn = GQAAttention(cfg, params["attn"])
         self.mlp = MLP(cfg, params["mlp"])
 
-    def forward(self, x, *, positions, cache, cache_index, paged=None):
+    def forward(self, x, *, positions, cache, cache_index, paged=None,
+                window=None, n_valid=None):
         h = rms_norm(x, self.ln1, self.cfg.norm_eps)
         a, cache = self.attn(h, positions=positions, cache=cache,
-                             cache_index=cache_index, paged=paged)
+                             cache_index=cache_index, paged=paged,
+                             window=window, n_valid=n_valid)
         x = x + a
         h = rms_norm(x, self.ln2, self.cfg.norm_eps)
         return x + self.mlp(h), cache
@@ -127,16 +129,29 @@ class TransformerLM(nn.Module):
 
     # ---------------- forward ----------------
     def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
-                block_tables: torch.Tensor | None = None,
+                block_tables: torch.Tensor | None = None, n_valid=None,
                 training: bool = False):
         """Returns (hidden (B, S, D), caches).  ``block_tables``: (B, nblk)
         when ``caches`` hold paged pools (one tensor for every layer).
-        ``training`` with ``cfg.remat`` recomputes each block in the
-        backward."""
+        ``n_valid`` (B,), or per-row ``cache_index`` with S > 1: a verify
+        window (JAX's ``n_valid`` through the blocks), whose write targets
+        are computed once here for every layer.  ``training`` with
+        ``cfg.remat`` recomputes each block in the backward."""
         x = F.embedding(tokens, self.embed)
-        positions = token_positions(tokens.shape[1], cache_index, x.device)
-        paged = None
-        if block_tables is not None:
+        s = tokens.shape[1]
+        positions = token_positions(s, cache_index, x.device)
+        paged = window = None
+        per_row = (isinstance(cache_index, torch.Tensor)
+                   and cache_index.ndim == 1)
+        if caches is not None and per_row and (s > 1 or n_valid is not None):
+            # each row's write targets, once for every layer
+            if block_tables is not None:
+                window = paged_window(block_tables, cache_index, s,
+                                      caches[0].k.shape[1], n_valid)
+            else:
+                window = dense_window(cache_index, s, caches[0].k.shape[1],
+                                      n_valid)
+        elif block_tables is not None:
             # each row's write target, once for every layer
             paged = paged_rows(block_tables, cache_index,
                                caches[0].k.shape[1])
@@ -146,7 +161,8 @@ class TransformerLM(nn.Module):
             run = remat_of(self.cfg, blk) if remat else blk
             x, c = run(x, positions=positions,
                        cache=caches[i] if caches is not None else None,
-                       cache_index=cache_index, paged=paged)
+                       cache_index=cache_index, paged=paged, window=window,
+                       n_valid=n_valid)
             if caches is not None:
                 new_caches.append(c)
         return rms_norm(x, self.ln_f, self.cfg.norm_eps), new_caches
@@ -204,6 +220,23 @@ class TransformerLM(nn.Module):
         ``QuantizedWeight``."""
         hidden, caches = self.forward(token, caches=state, cache_index=index,
                                       block_tables=tables)
+        return self.logits(hidden), caches
+
+    def decode_window(self, tokens, state, index, *, tables=None,
+                      n_valid=None, last_pos=None):
+        """Speculative verify: score a (B, W) window of already chosen
+        tokens in one forward.  ``index``: (B,) positions of window column
+        0; ``n_valid``: (B,) real tokens a row (the rest write nowhere, or
+        on the garbage block, and are masked out of attention; inactive
+        rows pass 0).  ``last_pos`` is accepted for the recurrent family's
+        signature and ignored: K/V beyond a row's rewound pointer is dead
+        weight the next writes overwrite, so the verify-pass cache is the
+        committed cache at any accept length.  The writes are in place.
+        Returns (logits (B, W, V), caches); logits[:, i] scores the token
+        after window column i."""
+        del last_pos
+        hidden, caches = self.forward(tokens, caches=state, cache_index=index,
+                                      block_tables=tables, n_valid=n_valid)
         return self.logits(hidden), caches
 
 

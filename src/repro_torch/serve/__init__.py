@@ -1,2 +1,3 @@
-"""Serving engine of the port (mirrors ``repro.serve``): the synchronous
-continuous-batching path over a dense KV slab."""
+"""Serving engine of the port (mirrors ``repro.serve``): continuous
+batching over a dense KV slab, a paged block pool or recurrent state, the
+request lifecycle and background loop, and speculative decoding."""

@@ -20,8 +20,17 @@ one owner is never written (the copy-on-write redirect of
 writes to the garbage block), a recurrent snapshot is a copy, and seeding
 copies the snapshot into the staging row.
 
-The hybrid's split substrate (``HybridComposite``) is ROADMAP queue 1
-item 7; speculation's ``rollback`` is item 6.
+Speculation's ``rollback`` is bookkeeping on every substrate, as in JAX:
+rejected K/V beyond a row's rewound pointer is dead weight the next writes
+overwrite (the draft's and the verify window's writes land at the row's
+own future positions, or on the garbage block past its reservation), and
+recurrent state is re-committed by the engine from the untouched
+pre-verify caches.  The hybrid's split substrate (``HybridComposite``) is
+ROADMAP queue 1 item 7.
+
+The engine hands over its lock (:meth:`CacheBackend.bind_lock`): pool
+accounting and the tables are mutated only while it is held, and the
+mutating entry points assert it.
 """
 from __future__ import annotations
 
@@ -60,6 +69,22 @@ class CacheBackend:
         self.max_seq = max_seq
         self.caches = model.init_cache(max_batch, max_seq, spec=spec)
         self.stage_len = max_seq
+        self._lock = None
+
+    # --- thread discipline ----------------------------------------------
+    def bind_lock(self, lock) -> None:
+        """The engine's state lock: backend state (pool accounting, slot
+        tables) is only mutated while it is held (the tick and the
+        engine's public mutators all run under it), so the backend stays
+        lock-free with one writer; mutating entry points assert it."""
+        self._lock = lock
+
+    def _assert_owned(self) -> None:
+        lock = self._lock
+        if lock is not None:
+            owned = getattr(lock, "_is_owned", None)
+            assert owned is None or owned(), \
+                "backend state mutated without holding the engine lock"
 
     # --- device bodies --------------------------------------------------
     def fresh(self, batch: int) -> list[tuple]:
@@ -111,6 +136,15 @@ class CacheBackend:
 
     def free_slot(self, slot: int) -> None:
         """Return a slot's substrate resources (no-op for dense rows)."""
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Discard the last ``n`` rejected speculative tokens of ``slot``.
+        Dense attention rows are position-indexed: the engine rewinds the
+        slot's decode pointer and the rejected K/V beyond it is dead
+        weight the next writes overwrite (``kv_len`` masks it meanwhile),
+        so this is bookkeeping: it asserts the lock discipline."""
+        self._assert_owned()
+        assert n >= 0, n
 
     @property
     def free_capacity(self) -> int:
@@ -166,6 +200,14 @@ class RecurrentState(DenseSlab):
     prefix cache snapshots (conv, ssd) rows at capture-grid boundaries."""
 
     needs_state = True
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Recurrent state has no positions to rewind: a rejected draft is
+        kept OUT of the state rather than removed from it.  The engine's
+        commit pass re-runs the window from the pre-verify caches (which
+        the verify only read) with dt masked beyond the accept boundary,
+        so rejected tokens contribute exactly zero.  Bookkeeping only."""
+        super().rollback(slot, n)
 
     def snapshot(self, caches, row: int = 0):
         return self.model.state_snapshot(caches, row)
@@ -252,6 +294,7 @@ class PagedPool(CacheBackend):
         only the tail privately; when the pool runs short,
         ``on_short(need)`` may free capacity (prefix-cache LRU eviction)
         before backpressuring.  False = pool short."""
+        self._assert_owned()
         shared = list(shared) if shared else []
         need = blocks_needed(prompt_len, max_new, self.max_seq,
                              self.block_size) - len(shared)
@@ -275,10 +318,22 @@ class PagedPool(CacheBackend):
         return True
 
     def free_slot(self, slot):
+        self._assert_owned()
         if self._slot_blocks[slot]:
             self.allocator.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
             self.block_tables[slot, :] = GARBAGE_BLOCK
+
+    def rollback(self, slot, n):
+        """Rejected drafts occupied positions beyond the rewound pointer.
+        Blocks are reserved for the request's lifetime budget at
+        admission, so nothing is freed and the table is not truncated:
+        the rewound positions stay inside the reservation (the engine's
+        window clamp) and the junk K/V there is overwritten as the row
+        re-advances.  Validates the accounting instead of mutating it."""
+        super().rollback(slot, n)
+        assert n == 0 or self._slot_blocks[slot], \
+            f"rollback({slot}, {n}) on a slot with no reservation"
 
     def slot_blocks(self, slot):
         return self._slot_blocks[slot]

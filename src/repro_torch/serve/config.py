@@ -1,12 +1,12 @@
 """EngineConfig: the serving knobs in one validated dataclass (mirrors
 ``repro.serve.config``), with the shared argparse binding.
 
-The port serves the synchronous path: a dense slab or a paged block pool
-(dense family), dense recurrent state (ssm), chunked prefill and the
-prefix cache.  Speculative decoding (``spec``) and tracing (``trace``) are
-accepted so a caller gets a clear error: :meth:`EngineConfig.validate`
-raises ``NotImplementedError`` naming ROADMAP queue 1 item 6, which ports
-them.
+Every knob of JAX's config is here and means the same: the substrate (a
+dense slab or a paged block pool for the dense family, dense recurrent
+state for ssm), chunked prefill, the prefix cache, the background loop's
+idle backoff, request tracing and speculative decoding (greedy-only).
+:meth:`EngineConfig.validate` raises ``NotImplementedError`` naming
+ROADMAP queue 1 item 7 for a family the port does not serve yet.
 """
 from __future__ import annotations
 
@@ -30,7 +30,11 @@ def model_quant(quant: str | None):
     return QuantConfig(mode=quant)
 
 
-_UNPORTED = ("spec", "trace")
+#: speculative-decoding draft proposers (EngineConfig.spec): "ngram"
+#: prompt-lookup drafting (no extra weights), "self_lut" self-speculation
+#: (the same model over pruned-LUT ``nf4p`` weights drafts, the decode
+#: precision verifies); see ``repro_torch.serve.spec``
+ENGINE_SPEC_MODES = ("ngram", "self_lut")
 
 
 @dataclass(frozen=True)
@@ -55,7 +59,17 @@ class EngineConfig:
       ``prefix_cache_nodes`` boundaries (LRU).
     * ``quant`` — decode weight quantization (``ENGINE_QUANT_MODES``);
       prefill always runs full precision; None keeps full-precision decode.
-    * ``spec`` / ``trace`` — not ported (ROADMAP queue 1 item 6).
+    * ``idle_backoff_s`` — the background serve loop (``engine.start()``)
+      sleeps this long when there is no work before re-checking (a
+      ``submit()``/``cancel()`` wakes it at once).
+    * ``trace`` / ``trace_buffer`` — record clock-stamped request and
+      engine-phase events (``repro_torch.obs``) into a ring buffer of
+      ``trace_buffer`` events, exportable as Perfetto JSON.
+    * ``spec`` / ``spec_k`` — speculative decoding: each tick drafts up to
+      ``spec_k`` tokens per active request (``ENGINE_SPEC_MODES``),
+      scores the whole window in one verify call at the decode precision,
+      emits the accepted prefix plus the verifier's correction and rolls
+      back the rest.  Greedy-only: the tokens equal plain greedy decode's.
     """
     max_batch: int = 8
     max_seq: int = 256
@@ -70,8 +84,11 @@ class EngineConfig:
     seed: int = 0
     starvation_bound: int = 8
     quant: str | None = None
-    spec: str | None = None
+    idle_backoff_s: float = 0.002
     trace: bool = False
+    trace_buffer: int = 65536
+    spec: str | None = None
+    spec_k: int = 4
 
     def __post_init__(self):
         if self.quant is not None and self.quant not in ENGINE_QUANT_MODES:
@@ -98,6 +115,25 @@ class EngineConfig:
         if self.starvation_bound < 1:
             raise ValueError(f"starvation_bound must be >= 1, "
                              f"got {self.starvation_bound}")
+        if self.idle_backoff_s < 0:
+            raise ValueError(f"idle_backoff_s must be >= 0, "
+                             f"got {self.idle_backoff_s}")
+        if self.trace_buffer < 1:
+            raise ValueError(f"trace_buffer must be >= 1, "
+                             f"got {self.trace_buffer}")
+        if self.spec is not None and self.spec not in ENGINE_SPEC_MODES:
+            raise ValueError(
+                f"spec must be one of {ENGINE_SPEC_MODES} or None, "
+                f"got {self.spec!r}")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if self.spec is not None and self.sampling is not None \
+                and self.sampling.mode != "greedy":
+            raise ValueError(
+                "speculative decoding is greedy-only (acceptance is pinned "
+                "token-identical to non-speculative greedy argmax); got "
+                f"spec={self.spec!r} with sampling mode "
+                f"{self.sampling.mode!r}")
 
     def validate(self, family: str) -> None:
         """Every family-dependent rule, in one place (JAX's cross-rules
@@ -107,11 +143,6 @@ class EngineConfig:
             raise NotImplementedError(
                 f"serving family {family!r} is not ported yet: ROADMAP "
                 "queue 1 item 7")
-        on = [name for name in _UNPORTED if getattr(self, name)]
-        if on:
-            raise NotImplementedError(
-                f"EngineConfig {', '.join(on)} not ported yet: ROADMAP "
-                "queue 1 item 6 (speculative decoding, tracing)")
         if self.paged and family not in PAGED_FAMILIES:
             raise ValueError(
                 f"paged=True is not supported for family {family!r}: "
@@ -154,10 +185,36 @@ class EngineConfig:
                              "(ssm) and prefill only the uncached tail")
         ap.add_argument("--prefix-cache-nodes", type=int, default=None,
                         help="LRU budget for cached prefix boundaries")
+        ap.add_argument("--idle-backoff-s", type=float, default=None,
+                        help="background serve loop: idle sleep between "
+                             "re-checks when no work is pending")
         ap.add_argument("--trace", action="store_true",
-                        help="not ported yet (ROADMAP queue 1 item 6)")
+                        help="record request-lifecycle + engine-phase trace "
+                             "events (ring-buffered; export with "
+                             "--trace-out)")
+        ap.add_argument("--trace-buffer", type=int, default=None,
+                        help="trace ring-buffer capacity in events "
+                             "(oldest dropped on overflow)")
+        ap.add_argument("--trace-out", default=None, metavar="PATH",
+                        help="write the trace as Perfetto/Chrome "
+                             "trace_event JSON on exit (implies --trace)")
+        ap.add_argument("--metrics-port", type=int, default=None,
+                        help="serve the metrics registry at "
+                             "http://127.0.0.1:PORT/metrics (Prometheus "
+                             "text exposition) from a background thread")
+        ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                        help="write the Prometheus text exposition to PATH "
+                             "on exit")
         ap.add_argument("--spec", default=None,
-                        help="not ported yet (ROADMAP queue 1 item 6)")
+                        choices=list(ENGINE_SPEC_MODES),
+                        help="speculative decoding draft proposer: 'ngram' "
+                             "(prompt-lookup, no extra weights) or "
+                             "'self_lut' (the same model over pruned nf4p "
+                             "LUT weights drafts, the decode precision "
+                             "verifies); greedy-only")
+        ap.add_argument("--spec-k", type=int, default=None,
+                        help="max draft tokens per request per tick "
+                             "(speculation window = spec_k + 1)")
         ap.add_argument("--sampling", default="greedy",
                         choices=["greedy", "temperature", "top_k"])
         ap.add_argument("--temperature", type=float, default=1.0)
@@ -191,6 +248,8 @@ class EngineConfig:
         q = getattr(args, "quant", None)
         if q in ENGINE_QUANT_MODES:
             vals["quant"] = q
+        if getattr(args, "trace_out", None):
+            vals["trace"] = True       # a trace sink implies recording
         mode = getattr(args, "sampling", "greedy")
         vals["sampling"] = SamplingConfig(
             mode=mode, temperature=getattr(args, "temperature", 1.0),

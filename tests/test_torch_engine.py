@@ -185,9 +185,14 @@ def test_engine_validation(setup):
         eng.serve([Request(rid=0, prompt=[1], max_new=0)])
     with pytest.raises(ValueError, match="quant"):
         EngineConfig(quant="fp3")
+    # speculation and tracing build and serve (tests/test_torch_spec.py,
+    # tests/test_torch_obs.py hold them against JAX)
     for knob in (dict(spec="ngram"), dict(trace=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            Engine(cfg, model, EngineConfig(**knob), device="cpu")
+        eng = Engine(cfg, model, EngineConfig(max_batch=1, max_seq=8, **knob),
+                     device="cpu")
+        req = Request(rid=0, prompt=[1, 2, 3], max_new=3)
+        assert eng.serve([req])["done"] and len(req.out) == 3
+        assert eng.tracer.enabled == knob.get("trace", False)
     # the cache substrate's switches serve (tests/test_torch_chunked.py);
     # a dense prefix cache is refused as JAX refuses it
     with pytest.raises(ValueError, match="prefix_cache"):
@@ -245,7 +250,10 @@ def test_cli_routes_model_quant_to_the_luna_path(capsys):
     import torch
 
     from repro_torch.launch.serve import main
-    argv = ["--device", "cpu", "--requests", "2", "--max-new", "6"]
+    # --sync: the same serve() admission as the engine below (a model-level
+    # mode calibrates activations over the whole batch, so the loop's
+    # one-at-a-time admissions give other tokens)
+    argv = ["--device", "cpu", "--requests", "2", "--max-new", "6", "--sync"]
     main(argv + ["--quant", "luna_approx2"])
     luna = _cli_tokens(capsys.readouterr().out)
     main(argv)

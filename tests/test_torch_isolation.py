@@ -57,7 +57,8 @@ def test_every_module_imports_without_jax_or_repro():
         "launch.train",
         "configs.luna_mlp", "kernels.flash_attention.ref",
         "kernels.flash_attention.flash_attention",
-        "kernels.flash_attention.ops")} <= names
+        "kernels.flash_attention.ops", "obs", "obs.registry", "obs.trace",
+        "obs.exporters", "serve.spec", "serve.engine")} <= names
 
 
 def _small_cfg():
@@ -122,16 +123,25 @@ def test_ssm_entry_points_refuse_the_cpu_unless_asked():
 
 
 def test_ssm_unported_parts_name_their_roadmap_item():
-    """Speculation's decode windows still raise naming their item; the
-    prefix cache's snapshot hooks are ported (a copy, seeded by copying),
-    and ``paged`` is refused as JAX refuses it (nothing to page)."""
+    """Speculation's decode windows are ported (logits of (B, W, V); a
+    fully masked row keeps its caches); the prefix cache's snapshot hooks
+    are ported (a copy, seeded by copying), and ``paged`` is refused as
+    JAX refuses it (nothing to page)."""
     model = get_model(get_config("mamba2-1.3b").reduced(dtype="float32"),
-                      device="cpu")
+                      device="cpu").init(torch.Generator().manual_seed(0))
     caches = model.init_cache(2, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        model.decode_window(torch.zeros(1, 2), caches, 0)
     for c in caches:
         c.state.normal_()
+        c.conv.normal_()
+    with torch.inference_mode():
+        logits, new = model.decode_window(
+            torch.ones(2, 3, dtype=torch.long), caches, torch.zeros(2),
+            last_pos=torch.tensor([-1, 2]))
+    assert logits.shape == (2, 3, model.cfg.vocab_size)
+    assert all(torch.equal(n.state[0], c.state[0])
+               and torch.equal(n.conv[0], c.conv[0])
+               and not torch.equal(n.state[1], c.state[1])
+               for n, c in zip(new, caches))
     snap = model.state_snapshot(caches, 1)
     assert all(torch.equal(s.state[0], c.state[1])
                and s.state.data_ptr() != c.state.data_ptr()
@@ -154,8 +164,9 @@ def test_unported_parts_name_their_roadmap_item():
         Trainer(get_config("mamba2-1.3b").reduced(), TrainerConfig(),
                 device="cpu")
     assert CacheSpec(block_size=16, num_blocks=8).paged   # ported
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        EngineConfig(spec="ngram").validate("dense")
+    EngineConfig(spec="ngram").validate("dense")          # ported, as JAX
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        EngineConfig(spec="ngram").validate("hybrid")
     q = torch.zeros(1, 4, 2, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         sdpa(q, q, q, impl="flash")

@@ -184,24 +184,33 @@ def test_config_accepts_what_jax_accepts():
         conf(prefill_chunk=8).validate("ssm")
         conf(paged=True, prefix_cache=True, prefill_chunk=4).validate(
             "dense")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        EngineConfig(spec="ngram").validate("dense")
+    for conf in (EngineConfig, JaxEngineConfig):
+        conf(spec="ngram").validate("dense")
+        conf(spec="self_lut", spec_k=2, trace=True).validate("ssm")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        EngineConfig(spec="ngram").validate("moe")
 
 
 def test_cli_flags_parse_as_jax():
     argv = ["--max-batch", "3", "--paged", "--block-size", "8",
             "--num-blocks", "40", "--prefill-chunk", "4", "--prefix-cache",
-            "--prefix-cache-nodes", "7"]
-    confs = []
+            "--prefix-cache-nodes", "7", "--spec", "self_lut", "--spec-k",
+            "3", "--trace-out", "t.json", "--trace-buffer", "99",
+            "--idle-backoff-s", "0.5", "--metrics-dump", "m.txt",
+            "--metrics-port", "0"]
+    confs, args = [], []
     for conf in (EngineConfig, JaxEngineConfig):
         ap = argparse.ArgumentParser()
         conf.add_cli_args(ap)
-        confs.append(conf.from_args(ap.parse_args(argv), max_seq=64))
+        args.append(ap.parse_args(argv))
+        confs.append(conf.from_args(args[-1], max_seq=64))
     names = ("max_batch", "max_seq", "paged", "block_size", "num_blocks",
-             "prefill_chunk", "prefix_cache", "prefix_cache_nodes")
+             "prefill_chunk", "prefix_cache", "prefix_cache_nodes", "spec",
+             "spec_k", "trace", "trace_buffer", "idle_backoff_s")
     assert [getattr(confs[0], n) for n in names] == \
         [getattr(confs[1], n) for n in names] == \
-        [3, 64, True, 8, 40, 4, True, 7]
+        [3, 64, True, 8, 40, 4, True, 7, "self_lut", 3, True, 99, 0.5]
+    assert vars(args[0]) == vars(args[1])
     ap = argparse.ArgumentParser()
     EngineConfig.add_cli_args(ap)
     c = EngineConfig.from_args(ap.parse_args([]))

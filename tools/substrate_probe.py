@@ -55,7 +55,7 @@ def main() -> int:
         dense = None
         for turn in ("dense", "paged", "paged", "dense"):
             if turn == "dense":
-                _, outs, _ = cs.serve_once(dev, cfg, model, prompts, "lut4",
+                _, outs, _, _ = cs.serve_once(dev, cfg, model, prompts, "lut4",
                                            "lut_gemm_dc")
                 dense = outs
             else:
@@ -65,7 +65,7 @@ def main() -> int:
                     "yi-9b paged")
                 cs.check(outs == dense, "paged tokens differ from dense")
         return 0
-    _, outs, _ = cs.serve_once(dev, cfg, model, prompts, "lut4",
+    _, outs, _, _ = cs.serve_once(dev, cfg, model, prompts, "lut4",
                                "lut_gemm_dc")
     cs.substrate_phase(dev, cfg, model, prompts, outs)
     del model
