@@ -30,7 +30,9 @@ result line):
       other M device-only (the route's edge); and at speculation's verify
       M = 40 (8 rows x 5 columns, past the tensor-core route: the public
       call on ``lut_gemm.cu``, checked and timed device-only beside its
-      bound);
+      bound); deepseek-v2-lite-16b's seven frozen projection shapes and
+      minitron-4b's four at M = 8 on both kernels and at M = 40, each
+      device-only beside its bound, summed by layer (``dc_layers``);
    b. the LUNA GEMM (``luna_mm``) in all five modes, int32 bitwise, both
       its kernels (the int8 tensor-core ``luna_mm_tc.cu`` and the __dp4a
       ``luna_mm.cu``) and the public call on a row-major and a K-major W,
@@ -90,7 +92,14 @@ result line):
    shared-head mix on 3 slots): greedy tokens on the card equal the
    CPU's and the dense, whole-prompt, cold engine's; speculation (yi-9b
    dense and paged, mamba2; ngram and self_lut; quant None, lut4, nf4p):
-   tokens on the card == the CPU's == plain greedy's; yi-9b training:
+   tokens on the card == the CPU's == plain greedy's; the rest of the
+   dense family and the moe family (starcoder2-15b, minitron-4b,
+   deepseek-67b, deepseek-v2-lite-16b, deepseek-v2-236b with
+   q_lora_rank 16): prefill and decode logits at 1e-4 (frozen codes
+   bitwise), and deepseek-v2-lite's engines under lut4 and nf4p (10
+   mixed-length requests on 8 slots, where capacity drops routed tokens,
+   on the slab and the pool; self_lut on 3 slots): tokens card == CPU ==
+   pool, self_lut == plain; yi-9b training:
    the cacheless forward under attn_impl="flash", the loss and every
    gradient under chunked attention and under luna_approx (the STE on
    luna_mm), one train step;
@@ -164,7 +173,27 @@ result line):
       free, the Perfetto trace complete, registry == EngineMetrics;
    each spec run's tokens equal the plain run's (10a's, 7's nf4p) or
    pass the ``WINDOW_FACTOR`` rule at their first divergence;
-each run of 6, 7, 9 and 10 asserting every request finished, every logit is
+11. the moe family at full width: deepseek-v2-lite-16b (27 layers, 64
+   routed experts top-6 + 2 shared, MLA; bf16, random weights from seed
+   0), after phase 10 has freed the other models, serves phase 6's 8
+   requests (32 new tokens):
+   a. quant None, lut4 and nf4p on the dense slab: each frozen run 6 LUT
+      launches a layer a tick (wq, w_dkv, wo and the shared experts'
+      three, or the dense first layer's MLP), 162 a tick, all on the
+      tensor-core kernel; the first tokens equal across the three runs;
+      a profile of 4 lut4 ticks by kernel and by labelled stage (MLA's
+      absorbed attention, the router, the capacity gather, the routed
+      experts' einsums, the combine, the shared experts);
+   b. lut4 on the paged pool (block 16): tokens bitwise 11a's lut4
+      run's; then phase 9's shared-prefix mix with ``prefix_cache`` and
+      ``prefill_chunk=128``: 7 hits, the pool free after, each warm
+      request's first-token logits bitwise a replay of its pieces;
+   c. lut4 under ``spec="self_lut", spec_k=4``: tokens 11a's lut4 run's,
+      or the ``WINDOW_FACTOR`` rule at the first divergence;
+   d. minitron-4b (32 layers, GELU, 256k vocab) under lut4: 6 LUT
+      launches a layer a tick, all on the tensor-core kernel;
+   the phase prints its seconds;
+each run of 6, 7, 9, 10 and 11 asserting every request finished, every logit is
 finite and each kernel's launch counter (all set to 0 just before the
 run, read just after) equals the launches the run made through it; then
 (after the counts are read) a torch.profiler window over 4 decode ticks
@@ -206,8 +235,31 @@ LAYER_SHAPES = [(4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
                 (4096, 11008), (4096, 11008), (11008, 4096)]
 #: (K, N) of mamba2-1.3b's decode projections: w_in, w_out
 MAMBA2_SHAPES = [(2048, 8512), (4096, 2048)]
-#: frozen decode projections per layer, by family
-PROJECTIONS = {"dense": 7, "ssm": 2}
+#: (K, N) of deepseek-v2-lite-16b's frozen decode projections: wq, w_dkv,
+#: wo; the shared experts' w_gate / w_up and w_down; the dense block's MLP
+#: w_gate / w_up and w_down (the routed experts are never frozen)
+DSV2_LITE_SHAPES = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 2816),
+                    (2816, 2048), (2048, 10944), (10944, 2048)]
+#: a deepseek-v2-lite MoE layer's 6 frozen projections, and its dense
+#: (first) layer's 6, in layer order
+DSV2_MOE_LAYER = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 2816),
+                  (2048, 2816), (2816, 2048)]
+DSV2_DENSE_LAYER = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 10944),
+                    (2048, 10944), (10944, 2048)]
+#: minitron-4b's decode projections, in layer order wq wk wv wo w_up w_down
+MINITRON_SHAPES = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072),
+                   (3072, 9216), (9216, 3072)]
+
+
+def projections(cfg) -> int:
+    """Frozen decode projections a layer (LUT GEMM launches a layer of a
+    decode tick): attention's 4 (MLA's wq or w_dq + w_uq, w_dkv, wo), and
+    the MLP's (the moe family's shared experts and dense blocks: SwiGLU's
+    3, GELU's 2); mamba2's w_in and w_out."""
+    if cfg.family == "ssm":
+        return 2
+    attn = 4 if cfg.mla is None or cfg.mla.q_lora_rank else 3
+    return attn + (3 if cfg.mlp_type == "swiglu" else 2)
 COLD_BYTES = 256 << 20       # rotate code copies past the 50 MB L2
 #: the wrappers that count their tensor-core route's launches
 #: (``launches_tc``; lut_gemm's prefill kernel's in ``launches_wgmma``)
@@ -491,12 +543,16 @@ def kernel_phase(dev, device_times: bool = True):
             max_err = max(max_err, hold(x, q, "ragged"))
 
         per_shape = []
-        for k, n in sorted(set(LAYER_SHAPES) | set(MAMBA2_SHAPES)):
+        # yi-9b's and mamba2's shapes at every M of the route; the moe
+        # family's and minitron-4b's at decode's M = 8 (and verify's 40)
+        base = set(LAYER_SHAPES) | set(MAMBA2_SHAPES)
+        for k, n in sorted(base | set(DSV2_LITE_SHAPES)
+                           | set(MINITRON_SHAPES)):
             q = qweight(k, n)
             copies = [q] + [replace(q, codes=q.codes.clone()) for _ in
                             range(max(1, COLD_BYTES // (k * n)) - 1)]
             calls = max(20, len(copies))
-            for m in DC_TC_M:
+            for m in DC_TC_M if (k, n) in base else (8,):
                 x = torch.randn((m, k), generator=gen, device=dev,
                                 dtype=torch.bfloat16)
                 max_err = max(max_err, hold(x, q, "public call"))
@@ -508,6 +564,9 @@ def kernel_phase(dev, device_times: bool = True):
                 if m == 8:
                     xf = x.float()
                     max_err = max(max_err, hold(xf, q, "public call, f32 x"))
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        m, k, n, 2, sp["table_bytes"])
+                if m == 8 and (k, n) in base:
                     row["ms"] = cuda_ms(lambda i: wrap(
                         x, *sp["args"](copies[i % len(copies)])), 100)
                     row["simt_ms"] = cuda_ms(
@@ -515,8 +574,6 @@ def kernel_phase(dev, device_times: bool = True):
                     row["plain_ms"] = cuda_ms(
                         lambda i: sp["plain"](x, copies[i % len(copies)]),
                         10)
-                    row["bound_ms"], row["bound_by"] = bound_ms(
-                        m, k, n, 2, sp["table_bytes"])
                 if device_times:
                     row["device_ms"] = graph_ms(
                         lambda i: tc(x, copies[i % len(copies)]), calls)
@@ -551,6 +608,25 @@ def kernel_phase(dev, device_times: bool = True):
         emit({"dc_route": name, "tc_max_m": lg.TC_MAX_M,
               "layer_device_ms": route})
 
+        # deepseek-v2-lite's and minitron-4b's layers, device-only at
+        # decode's M = 8 on each kernel and at verify's M = 40 on
+        # lut_gemm.cu, beside the byte bound
+        others = {}
+        for label, shapes in (("dsv2_lite_moe_layer", DSV2_MOE_LAYER),
+                              ("dsv2_lite_dense_layer", DSV2_DENSE_LAYER),
+                              ("minitron_layer", MINITRON_SHAPES)):
+            others[label] = {f"m{m}_{k}": v for m in (8, VERIFY_M)
+                             for k, v in layer_summary(
+                                 name, per_shape, m, shapes).items()
+                             if k in ("device_ms", "simt_device_ms",
+                                      "bound_ms")}
+        emit({"dc_layers": name, **others,
+              "timed_as": "a layer's frozen decode projections, bf16 x, "
+                          "codes cold in L2, device-only (graph_ms): "
+                          "device_ms the tensor-core kernel, "
+                          "simt_device_ms lut_gemm.cu; M = 40 runs "
+                          "lut_gemm.cu (past TC_MAX_M)"})
+
         # one decoder layer's 7 projections at the main path's M = 8
         results[name] = layer_summary(
             name, [r for r in per_shape if r["m"] == 8], 8,
@@ -581,7 +657,8 @@ def kernel_phase(dev, device_times: bool = True):
                 "timed_as": "one layer's decode projections at verify's "
                             "M=40 (8 rows x 5 window columns), bf16 x, on "
                             "the f32-FMA kernel the route takes there, "
-                            "device-only (graph_ms), codes cold in L2"})
+                            "device-only (graph_ms), codes cold in L2"},
+            **others)
         gc.collect()
         torch.cuda.empty_cache()
     return results
@@ -1827,9 +1904,63 @@ def busy_ms(prof, match: str = "") -> float | None:
     return total / 1e3
 
 
-def profile_decode(eng, prompts, ticks: int = 4) -> dict:
+#: phase 11's profile ranges: label -> (module, function), each call
+#: wrapped in a ``torch.profiler.record_function`` of that label for the
+#: window only; a range's device time is its kernels'
+MOE_RANGES = {
+    "moe.route": ("repro_torch.models.moe", "route"),
+    "moe.dispatch": ("repro_torch.models.moe", "dispatch"),
+    "moe.experts": ("repro_torch.models.moe", "experts"),
+    "moe.combine": ("repro_torch.models.moe", "combine"),
+    "moe.shared": ("repro_torch.models.moe", "shared_experts"),
+    "mla.absorbed": ("repro_torch.models.attention", "mla_absorbed"),
+}
+
+
+def ranged(ranges: dict):
+    """Wrap each ``ranges`` function (:data:`MOE_RANGES`' form) in a
+    ``record_function`` of its label; returns a function that restores
+    them."""
+    import importlib
+
+    import torch
+    saved = []
+    for label, (mod, fn) in ranges.items():
+        module = importlib.import_module(mod)
+        base = getattr(module, fn)
+
+        def wrapped(*a, _base=base, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _base(*a, **kw)
+        setattr(module, fn, wrapped)
+        saved.append((module, fn, base))
+
+    def restore():
+        for module, fn, base in saved:
+            setattr(module, fn, base)
+    return restore
+
+
+def range_ms(prof, labels) -> dict:
+    """Device ms of each ``record_function`` range in ``labels``: the
+    summed durations of the kernels launched inside it (the host-side
+    range's device time; the trace's device-side copy of a range spans
+    the gaps between its kernels too), "not measured" where the trace has
+    none."""
+    import torch
+    out = dict.fromkeys(labels, 0.0)
+    for e in prof.events():
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] += e.device_time_total / 1e3
+    return {k: v if v > 0 else "not measured" for k, v in out.items()}
+
+
+def profile_decode(eng, prompts, ticks: int = 4,
+                   ranges: dict | None = None) -> dict:
     """Device time by kernel over ``ticks`` steady decode ticks of a fresh
-    batch (torch.profiler; admission and drain run outside the window)."""
+    batch (torch.profiler; admission and drain run outside the window);
+    with ``ranges`` (:data:`MOE_RANGES`' form) also the device time of
+    each labelled range."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1844,26 +1975,34 @@ def profile_decode(eng, prompts, ticks: int = 4) -> dict:
     while eng._chunked or eng.scheduler.pending:
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    restore = ranged(ranges or {})
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
     eng.serve([])                          # drain
-    rows = kernel_rows(prof)
+    # the ranges' device-side copies are no kernels
+    rows = [r for r in kernel_rows(prof) if r[0] not in (ranges or {})]
     device_ms = sum(r[1] for r in rows)
     ours_ms = sum(r[1] for r in rows
                   if any(t in r[0] for t in ("lut_gemm", "luna_mm",
                                              "splitk_reduce", "ssd_")))
-    return {"profile": "decode ticks", "ticks": ticks, "wall_ms": wall_ms,
-            "device_ms": device_ms if rows else "not measured",
-            "port_kernels_ms": ours_ms if rows else "not measured",
-            "device_idle_share": (1 - device_ms / wall_ms) if rows
-            else "not measured",
-            "top": [{"kernel": k[:90], "ms": ms, "calls": n}
-                    for k, ms, n in rows[:12]]}
+    out = {"profile": "decode ticks", "ticks": ticks, "wall_ms": wall_ms,
+           "device_ms": device_ms if rows else "not measured",
+           "port_kernels_ms": ours_ms if rows else "not measured",
+           "device_idle_share": (1 - device_ms / wall_ms) if rows
+           else "not measured",
+           "top": [{"kernel": k[:90], "ms": ms, "calls": n}
+                   for k, ms, n in rows[:12]]}
+    if ranges:
+        out["ranges_ms"] = range_ms(prof, ranges)
+    return out
 
 
 def watch_logits(eng) -> tuple[list, list]:
@@ -2010,7 +2149,8 @@ def profile_prefill(eng, prompt) -> dict:
 
 
 def serve_once(dev, cfg, model, prompts, quant: str | None,
-               kern: str | None, record: bool = False, profile: bool = True
+               kern: str | None, record: bool = False, profile: bool = True,
+               ranges: dict | None = None
                ) -> tuple[dict, list, dict, dict]:
     """One main-path run: the engine serves the request mix; every kernel
     counter is set to 0 just before and read just after.  Returns the
@@ -2031,7 +2171,8 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     decode ticks after (and, for mamba2, one prefill call).  The fourth
     value: the run's decode tok/s and, with ``record``, each decode step's
     logits by (rid, step) (:func:`record_logits`; phase 10's reference).
-    ``profile=False`` leaves the profiles out."""
+    ``profile=False`` leaves the profiles out; ``ranges`` labels stages
+    of the decode profile (:func:`profile_decode`)."""
     from dataclasses import replace
 
     import torch
@@ -2076,7 +2217,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     want = dict.fromkeys(wrappers, 0)
     if kern is not None:
         want[kern] = ((ticks + model_level * stats["prefill_calls"])
-                      * layers * PROJECTIONS[cfg.family])
+                      * layers * projections(cfg))
     if cfg.family == "ssm":
         want["ssd_scan"] = stats["prefill_calls"] * layers
     check(stats["done"] and all(len(r.out) == 32 for r in reqs),
@@ -2122,7 +2263,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
               "the tensor-core kernel")
     prof = {}
     if profile:                            # after the counts are read
-        prof = profile_decode(eng, prompts)
+        prof = profile_decode(eng, prompts, ranges=ranges)
         if cfg.family == "ssm":
             prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
     emit({"main_path": quant or "bf16", "model": cfg.name,
@@ -2239,7 +2380,8 @@ def shared_prefix_mix(vocab: int) -> list:
 
 
 def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
-                  batches: list, label: str, warm_check: bool = False
+                  batches: list, label: str, warm_check: bool = False,
+                  exact: bool = True, profile: bool = True
                   ) -> tuple[dict, list, dict, dict]:
     """One phase-9 run: the engine under ``EngineConfig(quant, max_batch=8,
     max_seq=1024, **knobs)`` serves ``batches`` (lists of prompts, one
@@ -2253,9 +2395,13 @@ def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
     first-token logits (the engine's own, from its final prefill piece)
     bitwise equal to :func:`replay_staged`'s and within ``WARM_FACTOR``
     times the bf16 model's own distance from f32 of the same prompt
-    prefilled whole on a fresh cache.  Emits wall, prefill/decode tok/s, the engine's chunk and
-    prefix counts and a 4-tick decode profile; returns (launches, tokens,
-    launches by tensor-core route, the emitted line)."""
+    prefilled whole on a fresh cache (``exact=False``: no f32 copy, for a
+    model whose f32 weights would not fit beside it; the distance from
+    cold is reported, unchecked: a moe model's warm and cold prefills
+    route in different groups).  Emits wall, prefill/decode tok/s, the
+    engine's chunk and prefix counts and (``profile``) a 4-tick decode
+    profile; returns (launches, tokens, launches by tensor-core route,
+    the emitted line)."""
     import torch
 
     from repro_torch.serve.config import EngineConfig
@@ -2301,7 +2447,7 @@ def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
     stats = eng.metrics.since(start).summary(eng.max_batch)
     layers = cfg.num_layers
     want = dict.fromkeys(wrappers, 0)
-    want[kern] = stats["ticks"] * layers * PROJECTIONS[cfg.family]
+    want[kern] = stats["ticks"] * layers * projections(cfg)
     if cfg.family == "ssm":
         want["ssd_scan"] = stats["prefill_calls"] * layers
     check(all(r.done and len(r.out) == 32 for r in reqs),
@@ -2337,7 +2483,7 @@ def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
               f"phase 9 {label}: {len(firsts)} final prefill pieces for "
               f"{len(reqs)} requests")
         rows = []
-        exact = f32_copy(model)
+        f32 = f32_copy(model) if exact else None
         with torch.inference_mode():
             for req, warm in zip(reqs[1:], firsts[1:]):
                 check(int(warm.argmax()) == req.out[0],
@@ -2348,31 +2494,35 @@ def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
                                        req.prompt)
                 toks = torch.as_tensor([req.prompt], device=dev)
                 cold, _ = model.prefill(toks, model.init_cache(1, 1024))
-                ref, _ = exact.prefill(toks, exact.init_cache(1, 1024))
-                cold, ref = cold[0, 0].float(), ref[0, 0]
+                cold = cold[0, 0].float()
                 scale = cold.abs().max()
-                rows.append({
-                    "replay_bitwise": bool(torch.equal(warm, replay)),
-                    "warm_vs_cold": ((warm - cold).abs().max()
-                                     / scale).item(),
-                    "cold_vs_f32": ((cold - ref).abs().max()
-                                    / scale).item(),
-                    "argmax_equal": int(cold.argmax()) == req.out[0]})
-        del exact
-        out["warm"] = {"factor": WARM_FACTOR, "per_request": rows,
+                row = {"replay_bitwise": bool(torch.equal(warm, replay)),
+                       "warm_vs_cold": ((warm - cold).abs().max()
+                                        / scale).item(),
+                       "argmax_equal": int(cold.argmax()) == req.out[0]}
+                if f32 is not None:
+                    ref, _ = f32.prefill(toks, f32.init_cache(1, 1024))
+                    row["cold_vs_f32"] = ((cold - ref[0, 0]).abs().max()
+                                          / scale).item()
+                rows.append(row)
+        del f32
+        out["warm"] = {"factor": WARM_FACTOR if exact else None,
+                       "per_request": rows,
                        "max_warm_vs_cold": max(r["warm_vs_cold"]
                                                for r in rows)}
         for r, req in zip(rows, reqs[1:]):
             check(r["replay_bitwise"],
                   f"phase 9 {label}: rid {req.rid}'s warm logits differ "
                   "from a replay of its pieces on a fresh cache")
-            check(r["warm_vs_cold"] <= WARM_FACTOR * r["cold_vs_f32"],
-                  f"phase 9 {label}: rid {req.rid}'s warm logits "
-                  f"{r['warm_vs_cold']} of the scale from cold, above "
-                  f"{WARM_FACTOR} x the cold ones' {r['cold_vs_f32']} "
-                  "from f32")
-    prof = profile_decode(eng, batches[-1])   # after the counts are read
-    out.update({f"profile_{k}": v for k, v in prof.items()})
+            if exact:
+                check(r["warm_vs_cold"] <= WARM_FACTOR * r["cold_vs_f32"],
+                      f"phase 9 {label}: rid {req.rid}'s warm logits "
+                      f"{r['warm_vs_cold']} of the scale from cold, above "
+                      f"{WARM_FACTOR} x the cold ones' {r['cold_vs_f32']} "
+                      "from f32")
+    if profile:                               # after the counts are read
+        prof = profile_decode(eng, batches[-1])
+        out.update({f"profile_{k}": v for k, v in prof.items()})
     emit(out)
     tokens = [r.out for r in reqs]
     del eng, reqs
@@ -2599,7 +2749,8 @@ DC_KERNEL = {"lut4": "lut_gemm_dc", "nf4p": "lut_gemm_dc_res"}
 
 
 def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
-             plain_extra: dict, label: str) -> tuple[dict, dict]:
+             plain_extra: dict, label: str, profile: bool = True
+             ) -> tuple[dict, dict]:
     """One phase-10 run: the engine under ``EngineConfig(quant, spec=mode,
     spec_k=4, max_batch=8, max_seq=1024)`` serves the request mix (32 new
     tokens each), every kernel counter set to 0 just before and read just
@@ -2613,7 +2764,8 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
     ``ssd_scan`` once per layer of each verify, commit and prefill call;
     tokens against ``plain`` by the WINDOW_FACTOR rule.  Reports
     acceptance per window, tokens per tick, decode tok/s against the plain
-    run's and a profile of 4 ticks.  Returns (launches, by route)."""
+    run's and (``profile``) a profile of 4 ticks.  Returns (launches, by
+    route)."""
     import torch
 
     from repro_torch.kernels.lut_gemm.lut_gemm import takes_tc
@@ -2651,13 +2803,14 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
     unhook()
     for name in ("_draft", "_spec_commit"):
         delattr(eng, name)
-    layers, proj = cfg.num_layers, PROJECTIONS[cfg.family]
+    layers, proj = cfg.num_layers, projections(cfg)
     m = eng.metrics.snapshot()             # before the profile's ticks
     verify_ticks, plain_ticks = m.spec_ticks, m.ticks - m.spec_ticks
     kern = DC_KERNEL[quant]
     want = dict.fromkeys(wrappers, 0)
     want_tc = dict.fromkeys(("lut_gemm_dc", "lut_gemm_dc_res"), 0)
-    k, n = (LAYER_SHAPES if cfg.family == "dense" else MAMBA2_SHAPES)[0]
+    k, n = {"dense": LAYER_SHAPES, "ssm": MAMBA2_SHAPES,
+            "moe": DSV2_LITE_SHAPES}[cfg.family][0]
     verify_tc = takes_tc(eng.max_batch * 5, k, n, torch.bfloat16, True)
     want[kern] += (verify_ticks + calls["_spec_commit"]
                    + plain_ticks) * layers * proj
@@ -2683,9 +2836,11 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
     check(all(v.get("equal") or v.get("passed") for v in rules),
           f"phase 10 {label}: tokens fail the WINDOW_FACTOR rule: {rules}")
     window = eng.registry.dump()["engine_spec_accepted_per_window"]
-    t_prof = time.perf_counter()
-    prof = profile_decode(eng, prompts)    # after the counts are read
-    prof["s"] = time.perf_counter() - t_prof
+    prof = {}
+    if profile:                            # after the counts are read
+        t_prof = time.perf_counter()
+        prof = profile_decode(eng, prompts)
+        prof["s"] = time.perf_counter() - t_prof
     out = {"phase10": label, "model": cfg.name, "quant": quant,
            "spec": mode, "spec_k": 4, "layers": layers, "wall_s": wall,
            "engine_build_s": build_s,
@@ -2853,7 +3008,7 @@ def loop_phase(dev, cfg, model, prompts, plain) -> tuple[dict, dict]:
     m = eng.metrics
     layers = cfg.num_layers
     want = dict.fromkeys(wrappers, 0)
-    want["lut_gemm_dc"] = m.ticks * layers * PROJECTIONS["dense"]
+    want["lut_gemm_dc"] = m.ticks * layers * projections(cfg)
     check(counts == want, f"phase 10c: launches {counts}, want {want}")
     check(tc["lut_gemm_dc"] == counts["lut_gemm_dc"],
           f"phase 10c: {tc['lut_gemm_dc']} of {counts['lut_gemm_dc']} "
@@ -3117,7 +3272,7 @@ def train_phase(dev) -> tuple[dict, int, int]:
     qcfg = replace(cfg, quant=QuantConfig(mode="luna_approx"))
     qmodel = type(model).from_params(qcfg, model.params_tree(),
                                      device=dev).requires_grad_(True)
-    qat = QAT_STEPS * PROJECTIONS["dense"] * cfg.num_layers * 2
+    qat = QAT_STEPS * projections(cfg) * cfg.num_layers * 2
     run("QAT luna_approx (STE on luna_mm)", QAT_STEPS,
         make_train_step(qcfg, opt), qmodel,
         SyntheticLM(cfg.vocab_size, QAT_S, TRAIN_B, seed=0),
@@ -3303,6 +3458,227 @@ def trainer_phase(dev) -> None:
     emit({"trainer": cfg.name, "dtype": cfg.dtype, "runs": out})
 
 
+def frozen_pairs(a, b, path=()):
+    """(path, a's QuantizedWeight, b's) of every frozen leaf of two trees
+    of the same structure."""
+    from repro_torch.core.quant import QuantizedWeight
+    if isinstance(a, QuantizedWeight):
+        return [(path, a, b)]
+    if isinstance(a, dict):
+        return [p for k in a for p in frozen_pairs(a[k], b[k], path + (k,))]
+    if isinstance(a, list):
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in frozen_pairs(x, y, path + (i,))]
+    return []
+
+
+#: phase 4's reduced models of the moe family and the rest of the dense
+#: family: (arch, config overrides, quant modes of the decode step)
+SMALL_FAMILY = [
+    ("starcoder2-15b", {}, (None, "lut4")),
+    ("minitron-4b", {}, (None, "lut4")),
+    ("deepseek-67b", {}, (None, "lut4")),
+    ("deepseek-v2-lite-16b", {}, (None, "lut4", "nf4p")),
+    ("deepseek-v2-236b", {"q_lora_rank": 16}, (None, "lut4")),
+]
+
+
+def small_moe_phase(dev):
+    """Phase 4, the moe family and the rest of the dense family: reduced
+    f32 models (seed 1 weights, the same on both devices), card against
+    CPU.  Logits of a 12-token prefill and one per-row decode step at 1e-4
+    for starcoder2-15b, minitron-4b, deepseek-67b, deepseek-v2-lite-16b and
+    deepseek-v2-236b with ``q_lora_rank=16`` (the decode step also on the
+    frozen trees, whose codes are bitwise the CPU's); deepseek-v2-lite's
+    engines under lut4 and nf4p: 10 mixed-length requests on 8 slots
+    (capacity 4 of a decode tick's 8 rows) on the dense slab and the paged
+    pool (block 8), and 3 prompts on 3 slots under ``spec="self_lut"``:
+    greedy tokens on the card equal the CPU's, the pool's the slab's, and
+    self_lut's plain greedy's."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.quant import quantize_decode_params
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    out = {}
+    for arch, over, quants in SMALL_FAMILY:
+        cfg = get_config(arch).reduced(dtype="float32", attn_impl="full")
+        if over:
+            cfg = replace(cfg, mla=replace(cfg.mla, **over))
+        cpu = get_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(1))
+        gpu = type(cpu).from_params(cfg, tree_to(cpu.params_tree(), dev),
+                                    device=dev)
+        toks = torch.randint(1, cfg.vocab_size, (4, 12),
+                             generator=torch.Generator().manual_seed(2))
+        with torch.inference_mode():
+            for quant in quants:
+                logits = []
+                trees = [m.params_tree() for m in (cpu, gpu)]
+                if quant is not None:
+                    trees = [quantize_decode_params(t, quant) for t in trees]
+                    pairs = frozen_pairs(*trees)
+                    check(pairs and all(
+                        torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+                        for _, a, b in pairs
+                        for f in ("codes", "scale", "zero_point")),
+                        f"phase 4 {arch} {quant}: card quantization differs "
+                        "from the CPU's")
+                for model, tree, device in ((cpu, trees[0], "cpu"),
+                                            (gpu, trees[1], dev)):
+                    caches = model.init_cache(4, 32)
+                    pre, caches = model.prefill(toks.to(device), caches)
+                    m = type(model).from_params(cfg, tree, device=device)
+                    dec, _ = m.decode_step(
+                        toks[:, -1:].to(device), caches,
+                        torch.full((4,), 12, device=device))
+                    logits.append(torch.cat([pre, dec], 1).float().cpu())
+                torch.testing.assert_close(logits[1], logits[0], rtol=1e-4,
+                                           atol=1e-4)
+                out[f"{arch} {quant or 'f32'}"] = (
+                    logits[1] - logits[0]).abs().max().item()
+        if cfg.family != "moe" or over:
+            continue
+        rng = np.random.default_rng(4)
+        mixed = [(rng.integers(1, cfg.vocab_size, n).tolist(), m) for n, m in
+                 zip((3, 9, 5, 17, 2, 12, 7, 4, 6, 10),
+                     (4, 9, 6, 3, 8, 5, 7, 2, 6, 5))]
+        rng = np.random.default_rng(0)
+        three = [(rng.integers(1, cfg.vocab_size, n).tolist(), 8)
+                 for n in (5, 11, 3)]
+
+        def serve(model, device, reqs, **knobs):
+            eng = Engine(cfg, model, EngineConfig(max_seq=48, **knobs),
+                         device=device)
+            rs = [Request(rid=i, prompt=list(p), max_new=n)
+                  for i, (p, n) in enumerate(reqs)]
+            check(eng.serve(rs)["done"], f"phase 4 {arch} {knobs}: not done")
+            return [r.out for r in rs]
+
+        for quant in ("lut4", "nf4p"):
+            what = f"phase 4 {arch} {quant}"
+            slab = serve(cpu, "cpu", mixed, max_batch=8, quant=quant)
+            for knobs in ({}, dict(paged=True, block_size=8)):
+                got = serve(gpu, dev, mixed, max_batch=8, quant=quant,
+                            **knobs)
+                check(got == slab, f"{what} {knobs}: card tokens on 8 "
+                      "slots differ from the CPU's slab")
+            plain = serve(cpu, "cpu", three, max_batch=3, quant=quant)
+            for device, model in (("cpu", cpu), (dev, gpu)):
+                got = serve(model, device, three, max_batch=3, quant=quant,
+                            spec="self_lut")
+                check(got == plain, f"{what} self_lut on {device}: tokens "
+                      "differ from plain greedy")
+            out[f"{arch} {quant} engines"] = "equal"
+    emit({"small_family": "reduced f32 starcoder2-15b, minitron-4b, "
+                          "deepseek-67b, deepseek-v2-lite-16b, "
+                          "deepseek-v2-236b (q_lora_rank 16): prefill + "
+                          "decode logits card vs cpu; deepseek-v2-lite "
+                          "engines (slab and pool on 8 slots, self_lut on "
+                          "3) card == cpu == plain", "max_abs_err": out,
+          "rtol": 1e-4, "atol": 1e-4})
+
+
+def build_moe_model(dev, arch: str = "deepseek-v2-lite-16b"):
+    """``arch`` at its published widths, all its layers, bf16, random
+    weights from seed 0; the request mix (8 prompts of 16-512 tokens)."""
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                            cfg.num_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "moe": vars(cfg.moe) if cfg.moe else None,
+          "mla": vars(cfg.mla) if cfg.mla else None,
+          "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    return cfg, model, request_mix(cfg.vocab_size)
+
+
+def moe_phase(dev) -> tuple[dict, dict]:
+    """Phase 11: deepseek-v2-lite-16b at its published widths (27 layers,
+    bf16, random weights from seed 0) serves phase 6's 8 requests (32 new
+    tokens each).  11a: quant None, lut4 and nf4p on the dense slab (each
+    frozen run 6 LUT launches a layer a decode tick, 162 a tick, all on
+    the tensor-core kernel; the first tokens equal across the three runs;
+    a profile of 4 lut4 ticks by kernel and by labelled stage).  11b: lut4
+    on the paged pool (block 16): tokens bitwise 11a's lut4 run's; then
+    the shared-prefix mix with ``prefix_cache`` and ``prefill_chunk=128``:
+    7 hits, the pool free after, each warm request's first-token logits
+    bitwise a replay of its pieces.  11c: lut4 under ``spec="self_lut",
+    spec_k=4``: tokens 11a's lut4 run's, or the WINDOW_FACTOR rule at the
+    first divergence.  11d: minitron-4b at its published widths (32
+    layers, GELU, 256k vocab) under lut4: 6 LUT launches a layer a tick.
+    Returns (launches, by route)."""
+    import torch
+
+    t11 = time.perf_counter()
+    launches, tc_total = {}, {}
+    cfg, model, prompts = build_moe_model(dev)
+    outs, extra = {}, {}
+    for quant, kern in ((None, None), ("lut4", "lut_gemm_dc"),
+                        ("nf4p", "lut_gemm_dc_res")):
+        counts, outs[quant], tc, extra[quant] = serve_once(
+            dev, cfg, model, prompts, quant, kern, record=quant == "lut4",
+            profile=quant == "lut4", ranges=MOE_RANGES)
+        add_launches(launches, counts)
+        add_launches(tc_total, tc)
+    firsts = {q or "bf16": [o[0] for o in out] for q, out in outs.items()}
+    check(len({tuple(f) for f in firsts.values()}) == 1,
+          f"phase 11a: first (prefill) tokens differ between runs: {firsts}")
+    counts, paged, tc, _ = substrate_run(
+        dev, cfg, model, "lut4", "lut_gemm_dc",
+        dict(paged=True, block_size=16), [prompts], "phase 11b paged",
+        profile=False)
+    check(paged == outs["lut4"],
+          "phase 11b: paged lut4 tokens differ from 11a's dense run")
+    add_launches(launches, counts)
+    add_launches(tc_total, tc)
+    mix = shared_prefix_mix(cfg.vocab_size)
+    counts, _, tc, out = substrate_run(
+        dev, cfg, model, "lut4", "lut_gemm_dc",
+        dict(paged=True, block_size=16, prefix_cache=True,
+             prefill_chunk=128), [mix[:1], mix[1:]],
+        "phase 11b paged prefix chunked", warm_check=True, exact=False,
+        profile=False)
+    check(out["prefix_hits"] == 7
+          and out["prefix_tokens_reused"] == 7 * SHARED_PREFIX,
+          f"phase 11b: {out['prefix_hits']} hits reusing "
+          f"{out['prefix_tokens_reused']} tokens")
+    add_launches(launches, counts)
+    add_launches(tc_total, tc)
+    for total, part in zip((launches, tc_total), spec_run(
+            dev, cfg, model, prompts, "lut4", "self_lut", outs["lut4"],
+            extra["lut4"], "phase 11c deepseek-v2-lite self_lut",
+            profile=False)):
+        add_launches(total, part)
+    del model, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, prompts = build_moe_model(dev, "minitron-4b")
+    counts, _, tc, _ = serve_once(dev, cfg, model, prompts, "lut4",
+                                  "lut_gemm_dc", profile=False)
+    add_launches(launches, counts)
+    add_launches(tc_total, tc)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase11_s": time.perf_counter() - t11})
+    return launches, tc_total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
@@ -3391,6 +3767,7 @@ def main() -> int:
     small_ssm_reference_phase(dev)
     small_substrate_phase(dev)
     small_spec_phase(dev)
+    small_moe_phase(dev)
     small_training_phase(dev)
     quant_matmul_phase(dev)
     cfg, model, prompts = build_model(dev, args.layers)
@@ -3423,6 +3800,8 @@ def main() -> int:
     del model, ssm_extra
     gc.collect()
     torch.cuda.empty_cache()
+    for total, part in zip((launches, tc), moe_phase(dev)):
+        add_launches(total, part)
     launches_train, flash_tc, luna_tc_train = train_phase(dev)
     add_launches(launches, launches_train)
     trainer_phase(dev)

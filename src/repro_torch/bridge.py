@@ -1,10 +1,13 @@
 """Weight bridge: the JAX package's parameter tree, already converted to
 numpy by the caller, into the port's modules.  Imports no jax.
 
-* Stacked ``(L, ...)`` block leaves are split per layer.
+* Stacked ``(L, ...)`` block leaves are split per layer; the moe
+  family's ``"dense_blocks"`` (a list of unstacked blocks) and its
+  ``"blocks"`` stack of ``num_layers - first_dense`` layers both cross.
 * A ``QuantizedWeight`` arrives as a dict of its numpy children plus its
   ``kernel`` string and becomes the port's ``QuantizedWeight``.
-* Every dense config crosses, ``luna-mlp`` (GELU, MHA 4/4) included;
+* Every dense and moe config crosses, ``luna-mlp`` (GELU, MHA 4/4)
+  included;
   trained (grad-requiring) parameters go back through
   :func:`params_to_numpy`.
 * Float leaves cross with their dtype unchanged; a bfloat16 array
@@ -46,6 +49,8 @@ def _leaf(node, device):
             for k in _QW_FIELDS if k in node})
     if isinstance(node, dict):
         return {k: _leaf(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_leaf(v, device) for v in node]
     return _tensor(node, device)
 
 
@@ -61,20 +66,22 @@ def _split_layers(node, n: int) -> list:
 
 def params_from_numpy(tree: dict, cfg, device=None):
     """Build the port's LM of ``cfg``'s family (``TransformerLM`` for
-    dense, ``SSMLM`` for ssm) over a numpy copy of the JAX tree
+    dense and moe, ``SSMLM`` for ssm) over a numpy copy of the JAX tree
     (``model.init`` output or its frozen decode tree).  Its float leaves
     are frozen; ``.requires_grad_()`` makes them trainable."""
     from repro_torch.models.registry import model_class
     device = resolve_device(device)
     params = {k: _leaf(v, device) for k, v in tree.items() if k != "blocks"}
+    n_dense = len(tree.get("dense_blocks", []))
     params["blocks"] = _split_layers(_leaf(tree["blocks"], device),
-                                     cfg.num_layers)
+                                     cfg.num_layers - n_dense)
     return model_class(cfg).from_params(cfg, params, device=device)
 
 
 def params_to_numpy(model) -> dict:
-    """The model's tree in the JAX layout (layers stacked on a leading
-    axis), bfloat16 leaves as float32 numpy arrays."""
+    """The model's tree in the JAX layout (``"blocks"`` stacked on a
+    leading axis, ``"dense_blocks"`` a list), bfloat16 leaves as float32
+    numpy arrays."""
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -86,6 +93,8 @@ def params_to_numpy(model) -> dict:
                     for k in _QW_FIELDS}
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
         return arr(node)
 
     tree = model.params_tree()

@@ -1,16 +1,37 @@
 """Config dataclasses for the port's model zoo (mirrors
 ``repro.configs.base``).
 
-The dense and SSM families are ported, so :class:`ModelConfig` carries
-the fields the dense GQA and mamba2 paths read; the MoE/MLA/hybrid/
-encdec/VLM sub-configs arrive with their families (ROADMAP queue 1
-item 7).
+The dense, moe and SSM families are ported, so :class:`ModelConfig`
+carries the fields the dense GQA, DeepSeek MoE/MLA and mamba2 paths
+read; the hybrid/encdec/VLM sub-configs arrive with their families
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
 from repro_torch.core.layers import QuantConfig
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int            # routed experts
+    num_shared: int = 0
+    top_k: int = 2
+    d_expert: int = 0           # expert FFN hidden size
+    capacity_factor: float = 1.25
+    first_dense: int = 1        # leading dense layers (deepseek-v2 style)
+    dense_ff: int = 0           # FFN width of the dense layers
+    aux_loss_coef: float = 0.001
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0        # 0 = no q compression
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -26,7 +47,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" | "ssm"
+    family: str                  # "dense" | "moe" | "ssm"
     num_layers: int
     d_model: int
     num_heads: int
@@ -39,6 +60,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
     quant: QuantConfig = field(default_factory=QuantConfig)  # model-level
     attn_impl: str = "chunked"   # full | chunked | flash (forward-only)
@@ -47,6 +70,14 @@ class ModelConfig:
     # "nothing" (full recompute, min memory); "dots" (save matmul outputs)
     # is ROADMAP queue 1 item 8
     remat_policy: str = "nothing"
+    # attention operand precision: True casts K/V/P to f32; False keeps
+    # the operands in the model dtype with f32 scores and rounds P to the
+    # operand dtype before P@V (flash-attention numerics)
+    attn_f32: bool = True
+    # fused scale+mask where() instead of mul + broadcast-bias add
+    attn_fused_mask: bool = False
+    # causal chunks attend only to keys <= the chunk's end
+    attn_causal_skip: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -64,6 +95,12 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
         )
+        if self.moe:
+            small["moe"] = replace(self.moe, num_experts=8, top_k=2,
+                                   d_expert=64, dense_ff=256)
+        if self.mla:
+            small["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                                     qk_nope_dim=16, qk_rope_dim=16, v_dim=16)
         if self.ssm:
             small["ssm"] = replace(self.ssm, state_dim=16, head_dim=16,
                                    chunk_size=32)

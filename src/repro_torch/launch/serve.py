@@ -30,13 +30,24 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --quant lut4 --spec self_lut --spec-k 4
 
+  # deepseek-v2-lite-16b (moe family: capacity-routed MoE + MLA's
+  # compressed cache; reduced widths by default), paged with the prefix
+  # cache and self-speculation:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch deepseek-v2-lite-16b --quant lut4 --paged --prefix-cache \
+      --shared-prefix 24 --spec self_lut
+
   # observability: Perfetto trace, Prometheus dump, a scrape endpoint:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --trace-out trace.json --metrics-dump metrics.txt --metrics-port 0
 
-``--arch`` is ``yi-9b`` or ``mamba2-1.3b``.  Weights are random, drawn
-from ``--seed``.  ``--quant lut4|int4|nf4|nf4p`` freezes the decode
-projections (mamba2: ``w_in``/``w_out``) to 4 bits (lut4 and nf4/nf4p run the
+``--arch`` is one of ``ARCH_IDS``: the dense ``starcoder2-15b``,
+``minitron-4b``, ``yi-9b`` (the default) and ``deepseek-67b``, the moe
+``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``, and the ssm
+``mamba2-1.3b``.  Weights are random, drawn from ``--seed``.  ``--quant
+lut4|int4|nf4|nf4p`` freezes the decode projections (mamba2:
+``w_in``/``w_out``; moe: the attention projections, the shared experts
+and the leading dense block's MLP, never the routed experts) to 4 bits (lut4 and nf4/nf4p run the
 hand-written LUT GEMM kernels on the card); prefill stays full precision.
 Any other spelling but bf16 (``luna_*``, ``lut_nf4``, ``int8``,
 ``int4_dequant``) is a model-level mode that quantizes every projection
@@ -59,10 +70,11 @@ import argparse
 
 
 def main(argv=None):
+    from repro_torch.models.registry import ARCH_IDS
     from repro_torch.serve.config import EngineConfig, model_quant
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--arch", default="yi-9b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True, help="smoke-test widths (--no-reduced: "
                                        "the published widths)")

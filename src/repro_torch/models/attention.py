@@ -1,21 +1,28 @@
-"""GQA attention over a dense KV slab or a paged block pool (mirrors
-``repro.models.attention``).
+"""GQA and MLA attention over a dense KV slab or a paged block pool
+(mirrors ``repro.models.attention``).
 
 Tensor convention: activations (B, S, D); per-head tensors (B, S, H, Dh);
-KV caches are preallocated (B, S_max, Hkv, Dh) slabs, or (num_blocks,
-block_size, Hkv, Dh) pools read through per-row block tables.  Unlike
-JAX's functional updates, the cache writes here are IN PLACE
-(``index_put_`` / slice assignment) and the returned cache holds the same
-tensors.
+GQA caches are preallocated (B, S_max, Hkv, Dh) slabs, or (num_blocks,
+block_size, Hkv, Dh) pools read through per-row block tables; MLA's
+compressed caches have no head axis: c_kv (…, R) and the shared k_rope
+(…, dr).  Unlike JAX's functional updates, the cache writes here are IN
+PLACE (``index_put_`` / slice assignment) and the returned cache holds the
+same tensors.
 
-Ported: the ``full`` and ``chunked`` SDPA impls with f32 operands (JAX's
-default ``attn_f32=True``), ``flash`` (the hand-written kernel of
-``kernels.flash_attention``, taken under JAX's condition: a cacheless
-full-sequence forward), the scalar-index and per-row cache writes, paged
-decode through a block table, and speculation's verify windows: S > 1
-tokens a row at per-row positions with ``n_valid`` real ones, on the slab
-or the pool (:class:`~repro_torch.models.common.WindowTarget`).  Sharded
-decode is ROADMAP queue 1 item 9.
+Ported: the ``full`` and ``chunked`` SDPA impls with JAX's three knobs
+(``attn_f32``: f32 operands, or f32 scores with P rounded to the operand
+dtype before P@V; ``attn_fused_mask``: one ``where`` for scale and mask at
+scalar offsets; ``attn_causal_skip``: a causal chunk reads keys up to its
+own end, as JAX's unrolled chunk loop does), ``flash`` (the hand-written
+kernel of ``kernels.flash_attention``, taken under JAX's condition: a
+cacheless full-sequence forward), the scalar-index and per-row cache
+writes, paged decode through a block table, and speculation's verify
+windows: S > 1 tokens a row at per-row positions with ``n_valid`` real
+ones, on the slab or the pool (:class:`~repro_torch.models.common.
+WindowTarget`).  MLA (DeepSeek-V2) scores the absorbed form in f32:
+``q_nope·W_uk`` against c_kv plus ``q_rope`` against k_rope, then
+``p·c_kv`` and ``·W_uv``, JAX's association.  Sharded decode is ROADMAP
+queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ from repro_torch.models.common import (PagedRows, WindowTarget, apply_rope,
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor   # (B, S_max, Hkv, Dh)
-    v: torch.Tensor   # (B, S_max, Hkv, Dh)
+    k: torch.Tensor   # (B, S_max, Hkv, Dh) [GQA] or c_kv (B, S_max, R) [MLA]
+    v: torch.Tensor   # (B, S_max, Hkv, Dh) [GQA] or k_rope (B, S_max, dr)
 
 
 def _per_row(q_offset, kv_len) -> bool:
@@ -75,13 +82,20 @@ def _bias(sq: int, sk: int, q_offset, causal: bool, kv_len=None,
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True, q_offset=0, kv_len=None, impl: str = "chunked",
-         chunk: int = 512) -> torch.Tensor:
+         chunk: int = 512, f32_operands: bool = True,
+         fused_mask: bool = False, causal_skip: bool = False
+         ) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) -> (B, Sq, H, Dh).
 
     KV heads are repeated up to H (head h reads kv head h // group), and
-    scores, softmax and the P@V product run on f32 copies.  ``impl="flash"``
-    takes the flash kernel (forward-only) for a cacheless forward of more
-    than one token, as JAX does; with a cache it runs the full path.
+    scores, softmax and the P@V product run in f32.  ``f32_operands=False``
+    rounds P to the operand dtype before P@V (the f32 scores are the same:
+    a product of two bf16 values is exact in f32).  ``fused_mask`` masks
+    with one ``where`` at scalar offsets (per-row offsets keep the bias
+    add).  ``causal_skip``: with ``q_offset == 0`` each causal chunk reads
+    keys up to its own end.  ``impl="flash"`` takes the flash kernel
+    (forward-only) for a cacheless forward of more than one token, as JAX
+    does; with a cache it runs the full path.
     """
     b, sq, h, dh = q.shape
     g = h // k.shape[2]
@@ -91,22 +105,88 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl not in ("full", "chunked", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+    scale = scale.to(q.device)
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
     kf, vf = k.float(), v.float()
 
-    def attend(qc, off):
-        s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kf)
-        s = s * scale.to(s.device) + _bias(qc.shape[1], kf.shape[1], off,
-                                           causal, kv_len, s.device)
-        p = torch.softmax(s, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    def masked(s, off):
+        sq_c, sk_c = s.shape[-2:]
+        if not fused_mask or _per_row(off, kv_len):
+            return s * scale + _bias(sq_c, sk_c, off, causal, kv_len,
+                                     s.device)
+        rows = torch.arange(sq_c, device=s.device)[:, None] + off
+        cols = torch.arange(sk_c, device=s.device)[None, :]
+        ok = (rows >= cols if causal else
+              torch.ones((sq_c, sk_c), dtype=torch.bool, device=s.device))
+        if kv_len is not None:
+            ok = ok & (cols < kv_len)
+        return torch.where(ok[None, None], s * scale, -1e30)
 
+    def attend(qc, off, kend):
+        s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kf[:, :kend])
+        p = torch.softmax(masked(s, off), dim=-1)
+        if not f32_operands:
+            p = p.to(k.dtype).float()
+        return torch.einsum("bhqk,bkhd->bqhd", p, vf[:, :kend]).to(q.dtype)
+
+    sk = kf.shape[1]
     if impl == "chunked" and sq > chunk and sq % chunk == 0:
-        return torch.cat([attend(q[:, i:i + chunk], i + q_offset)
+        skip = (causal_skip and causal and isinstance(q_offset, int)
+                and q_offset == 0)
+        return torch.cat([attend(q[:, i:i + chunk], i + q_offset,
+                                 i + chunk if skip else sk)
                           for i in range(0, sq, chunk)], dim=1)
-    return attend(q, q_offset)
+    return attend(q, q_offset, sk)
+
+
+def write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, *,
+                cache_index, paged: PagedRows | None = None,
+                window: WindowTarget | None = None, n_valid=None):
+    """Write a step's new (B, S, ...) ``k``/``v`` leaves into ``cache`` IN
+    PLACE and return what attention reads: ``(k_all, v_all, kv_len,
+    q_offset)``.  ``cache_index``: a Python int (a (B, S) block at that
+    offset of a slab) or a (B,) tensor of per-row depths (S must be 1
+    unless ``window`` is given).  ``paged``: the step's block table and
+    write targets; the leaves are then pools written at each row's logical
+    depth, and attention reads the gathered logical-order view.
+    ``window``: a verify window's targets (slab or pool); ``n_valid``
+    (B,): its real tokens a row, the rest write nowhere (or on the garbage
+    block) and are masked out through ``kv_len``.  The leaves' trailing
+    shape is free: GQA's (Hkv, Dh), MLA's (R,) and (dr,)."""
+    b, s = k.shape[:2]
+    per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+    if window is not None:
+        write_window(cache.k, k, window)
+        write_window(cache.v, v, window)
+        if window.table is not None:
+            k_all = paged_gather(cache.k, window.table)
+            v_all = paged_gather(cache.v, window.table)
+        else:
+            k_all, v_all = cache.k, cache.v
+        kv_len = cache_index + (s if n_valid is None else n_valid)
+        return k_all, v_all, kv_len, cache_index
+    if (per_row or paged is not None) and s != 1:
+        raise ValueError("a multi-token per-row write needs its window "
+                         "target (decode_window)")
+    if paged is not None:
+        # paged decode: write at the row's logical depth through the
+        # table, attend over the gathered logical-order view
+        paged_write(cache.k, k, paged)
+        paged_write(cache.v, v, paged)
+        return (paged_gather(cache.k, paged.table),
+                paged_gather(cache.v, paged.table), cache_index + 1,
+                cache_index)
+    if per_row:
+        # per-row decode: each slab row writes at its own depth
+        rows = torch.arange(b, device=k.device)
+        cache.k[rows, cache_index] = k[:, 0].to(cache.k.dtype)
+        cache.v[rows, cache_index] = v[:, 0].to(cache.v.dtype)
+    else:
+        cache.k[:, cache_index:cache_index + s] = k.to(cache.k.dtype)
+        cache.v[:, cache_index:cache_index + s] = v.to(cache.v.dtype)
+    return cache.k, cache.v, cache_index + s, cache_index
 
 
 def gqa_shapes(cfg) -> dict[str, tuple[int, int]]:
@@ -149,45 +229,117 @@ class GQAAttention(nn.Module):
 
         kv_len, q_offset = None, 0
         if cache is not None:
-            per_row = (isinstance(cache_index, torch.Tensor)
-                       and cache_index.ndim == 1)
-            if window is not None:
-                write_window(cache.k, k, window)
-                write_window(cache.v, v, window)
-                if window.table is not None:
-                    k = paged_gather(cache.k, window.table)
-                    v = paged_gather(cache.v, window.table)
-                else:
-                    k, v = cache.k, cache.v
-                kv_len = cache_index + (s if n_valid is None else n_valid)
-                q_offset = cache_index
-            elif (per_row or paged is not None) and s != 1:
-                raise ValueError("a multi-token per-row write needs its "
-                                 "window target (decode_window)")
-            elif paged is not None:
-                # paged decode: write at the row's logical depth through
-                # the table, attend over the gathered logical-order view
-                paged_write(cache.k, k, paged)
-                paged_write(cache.v, v, paged)
-                k = paged_gather(cache.k, paged.table)
-                v = paged_gather(cache.v, paged.table)
-                kv_len, q_offset = cache_index + 1, cache_index
-            else:
-                if per_row:
-                    # per-row decode: each slab row writes at its own depth
-                    rows = torch.arange(b, device=x.device)
-                    cache.k[rows, cache_index] = k[:, 0].to(cache.k.dtype)
-                    cache.v[rows, cache_index] = v[:, 0].to(cache.v.dtype)
-                else:
-                    cache.k[:, cache_index:cache_index + s] = \
-                        k.to(cache.k.dtype)
-                    cache.v[:, cache_index:cache_index + s] = \
-                        v.to(cache.v.dtype)
-                k, v = cache.k, cache.v
-                kv_len = cache_index + s
-                q_offset = cache_index
+            k, v, kv_len, q_offset = write_cache(
+                cache, k, v, cache_index=cache_index, paged=paged,
+                window=window, n_valid=n_valid)
 
         out = sdpa(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len,
-                   impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+                   impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                   f32_operands=cfg.attn_f32, fused_mask=cfg.attn_fused_mask,
+                   causal_skip=cfg.attn_causal_skip)
         out = out.reshape(b, s, h * dh)
         return quant_matmul(out, self.wo, cfg.quant, "attn"), cache
+
+
+def mla_shapes(cfg) -> dict[str, tuple[int, int]]:
+    """MLA's projections (JAX's ``init_mla``): q through ``wq``, or
+    ``w_dq``→``w_uq`` when ``q_lora_rank > 0``; ``w_dkv`` to c_kv and the
+    shared k_rope; ``w_uk``/``w_uv`` (used reshaped, never frozen); ``wo``."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    shapes = {"w_dkv": (d, m.kv_lora_rank + m.qk_rope_dim),
+              "w_uk": (m.kv_lora_rank, h * m.qk_nope_dim),
+              "w_uv": (m.kv_lora_rank, h * m.v_dim),
+              "wo": (h * m.v_dim, d)}
+    if m.q_lora_rank:
+        shapes["w_dq"] = (d, m.q_lora_rank)
+        shapes["w_uq"] = (m.q_lora_rank, h * qd)
+    else:
+        shapes["wq"] = (d, h * qd)
+    return shapes
+
+
+class MLAAttention(nn.Module):
+    """DeepSeek-V2's multi-head latent attention with the compressed
+    cache ``KVCache(k=c_kv (…, R), v=k_rope (…, dr))`` (JAX's
+    ``mla_attention``)."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name in mla_shapes(cfg):
+            set_leaf(self, name, params[name])
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: KVCache | None = None, cache_index=None,
+                paged: PagedRows | None = None,
+                window: WindowTarget | None = None, n_valid=None):
+        """Returns (out (B, S, D), cache); the arguments as
+        :meth:`GQAAttention.forward`'s."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        h, nope, rank = cfg.num_heads, m.qk_nope_dim, m.kv_lora_rank
+        qd = nope + m.qk_rope_dim
+        if m.q_lora_rank:
+            q = quant_matmul(quant_matmul(x, self.w_dq, cfg.quant, "attn"),
+                             self.w_uq, cfg.quant, "attn")
+        else:
+            q = quant_matmul(x, self.wq, cfg.quant, "attn")
+        q = q.reshape(b, s, h, qd)
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        dkv = quant_matmul(x, self.w_dkv, cfg.quant, "attn")
+        c_kv, k_rope = dkv[..., :rank], dkv[..., rank:]
+        k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+
+        kv_len, q_offset = None, 0
+        if cache is not None:
+            c_kv, k_rope, kv_len, q_offset = write_cache(
+                cache, c_kv, k_rope, cache_index=cache_index, paged=paged,
+                window=window, n_valid=n_valid)
+
+        ctx = mla_absorbed(cfg, self.w_uk, self.w_uv, q_nope, q_rope, c_kv,
+                           k_rope, q_offset, kv_len)
+        return quant_matmul(ctx, self.wo, cfg.quant, "attn"), cache
+
+
+def mla_absorbed(cfg, w_uk: torch.Tensor, w_uv: torch.Tensor,
+                 q_nope: torch.Tensor, q_rope: torch.Tensor,
+                 c_kv: torch.Tensor, k_rope: torch.Tensor, q_offset,
+                 kv_len) -> torch.Tensor:
+    """MLA's attention in the absorbed form, in f32: scores ``q_nope·W_uk``
+    against c_kv plus ``q_rope`` against k_rope, softmax, ``p·c_kv`` then
+    ``·W_uv`` (JAX's association), in ``attn_chunk`` query chunks when S
+    is a multiple of it.  Returns ctx (B, S, H * v_dim) in q's dtype."""
+    m = cfg.mla
+    b, s, h, nope = q_nope.shape
+    rank, qd = m.kv_lora_rank, nope + m.qk_rope_dim
+    # q_nope^T (W_uk c) == (q_nope W_uk^T)^T c
+    sk = c_kv.shape[1]
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(),
+                         w_uk.reshape(rank, h, nope).float())
+    q_r = q_rope.float()
+    c_f, r_f = c_kv.float(), k_rope.float()
+    dev = q_nope.device
+    inv_sqrt = (1.0 / torch.sqrt(torch.tensor(
+        float(qd), dtype=torch.float32))).to(dev)
+
+    def chunk(qa, qr, off):
+        s_c = torch.einsum("bqhr,bkr->bhqk", qa, c_f)
+        s_r = torch.einsum("bqhd,bkd->bhqk", qr, r_f)
+        bias = _bias(qa.shape[1], sk, off, True, kv_len, dev)
+        if bias.ndim == 2:            # scalar offsets: broadcast (B, H)
+            bias = bias[None, None]
+        p = torch.softmax((s_c + s_r) * inv_sqrt + bias, dim=-1)
+        return torch.einsum("bhqk,bkr->bqhr", p, c_f)        # (B, cq, H, R)
+
+    cq = cfg.attn_chunk
+    if s > cq and s % cq == 0:
+        ctx_c = torch.cat([chunk(q_abs[:, i:i + cq], q_r[:, i:i + cq],
+                                 i + q_offset) for i in range(0, s, cq)],
+                          dim=1)
+    else:
+        ctx_c = chunk(q_abs, q_r, q_offset)
+    ctx = torch.einsum("bqhr,rhd->bqhd", ctx_c,
+                       w_uv.reshape(rank, h, m.v_dim).float())
+    return ctx.reshape(b, s, h * m.v_dim).to(q_nope.dtype)

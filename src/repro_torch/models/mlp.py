@@ -13,8 +13,10 @@ from repro_torch.core.layers import quant_matmul
 from repro_torch.models.common import set_leaf
 
 
-def mlp_shapes(cfg) -> dict[str, tuple[int, int]]:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_shapes(cfg, d_ff: int | None = None) -> dict[str, tuple[int, int]]:
+    """``d_ff``: the hidden width (default ``cfg.d_ff``; the moe family's
+    leading dense blocks use ``cfg.moe.dense_ff``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     shapes = {"w_up": (d, ff), "w_down": (ff, d)}
     if cfg.mlp_type == "swiglu":
         shapes["w_gate"] = (d, ff)

@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` -> config, model.
 
-Ported: ``yi-9b`` (the dense GQA family), ``mamba2-1.3b`` (ssm) and
-``luna-mlp`` (the paper's Fig 13 network, dense; trained, not served, and
-left out of ``ARCH_IDS`` as in JAX).  Every other arch of the JAX
+Ported: the dense GQA family (``starcoder2-15b``, ``minitron-4b``,
+``yi-9b``, ``deepseek-67b``), the moe family (``deepseek-v2-lite-16b``,
+``deepseek-v2-236b``: capacity-routed MoE + MLA), ``mamba2-1.3b`` (ssm)
+and ``luna-mlp`` (the paper's Fig 13 network, dense; trained, not served,
+and left out of ``ARCH_IDS`` as in JAX).  Every other arch of the JAX
 registry raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
 """
@@ -14,18 +16,18 @@ from dataclasses import replace
 from repro_torch.configs.base import ModelConfig
 
 ARCH_MODULES = {
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "luna-mlp": "repro_torch.configs.luna_mlp",
 }
 
 #: archs of the JAX registry still to be ported -> the ROADMAP item
 UNPORTED_ARCHS = {
-    "starcoder2-15b": "queue 1 item 4 (dense GQA parity)",
-    "minitron-4b": "queue 1 item 4 (dense GQA parity)",
-    "deepseek-67b": "queue 1 item 4 (dense GQA parity)",
-    "deepseek-v2-lite-16b": "queue 1 item 7 (MoE + MLA)",
-    "deepseek-v2-236b": "queue 1 item 7 (MoE + MLA)",
     "whisper-base": "queue 1 item 7 (encdec)",
     "zamba2-1.2b": "queue 1 item 7 (hybrid)",
     "llava-next-mistral-7b": "queue 1 item 7 (vlm)",
@@ -46,7 +48,7 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 
 def model_class(cfg: ModelConfig):
     """The port's LM class for ``cfg.family``."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM
     if cfg.family == "ssm":

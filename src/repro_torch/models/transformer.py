@@ -1,21 +1,28 @@
-"""Decoder-only transformer LM, dense GQA family (mirrors
-``repro.models.transformer``).
+"""Decoder-only transformer LM: the dense GQA family and the moe family
+(DeepSeek-V2: capacity-routed MoE with shared experts, MLA attention);
+mirrors ``repro.models.transformer``.
 
 The JAX model stacks its layers on a leading L axis and runs them under
 ``lax.scan``; here the layers are an ``nn.ModuleList`` and ``forward`` is
 a Python loop.  Parameters live on the module.  ``params_tree()`` returns
 them as the JAX tree's nesting with a per-layer list in place of the
 stacked axis (``{"embed", "ln_f", "lm_head", "blocks": [{"ln1", "ln2",
-"attn": {...}, "mlp": {...}}, ...]}``), and :meth:`TransformerLM.
-from_params` builds a model over such a tree without copying, which is how
-the engine's frozen 4-bit decode model shares every other tensor with the
-full-precision one.
+"attn": {...}, "mlp": {...}}, ...]}``; the moe family's leading
+``first_dense`` blocks under ``"dense_blocks"``, its MoE blocks' feed-
+forward under ``"moe": {"router", "w_gate", "w_up", "w_down", "shared":
+{...}}``), and :meth:`TransformerLM.from_params` builds a model over such
+a tree without copying, which is how the engine's frozen 4-bit decode
+model shares every other tensor with the full-precision one.
+
+Caches are one list over all layers, the dense blocks first (JAX keeps a
+``(dense_caches, stacked_caches)`` pair).
 
 Training: ``forward(..., training=True)`` recomputes each block in the
 backward (``cfg.remat``, JAX's ``jax.checkpoint``), and :meth:`loss` is
-JAX's sequence-chunked cross entropy (:func:`chunked_xent`), which never
-holds (S, V) logits for S > 256.  ``model.requires_grad_()`` makes the
-float leaves trainable (they are frozen parameters by default).
+JAX's sequence-chunked cross entropy (:func:`chunked_xent`) plus the MoE
+blocks' summed load-balance loss, and never holds (S, V) logits for S >
+256.  ``model.requires_grad_()`` makes the float leaves trainable (they
+are frozen parameters by default).
 """
 from __future__ import annotations
 
@@ -26,32 +33,63 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layers import quant_matmul
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import GQAAttention, KVCache, gqa_shapes
+from repro_torch.models.attention import (GQAAttention, KVCache,
+                                          MLAAttention, gqa_shapes,
+                                          mla_shapes)
 from repro_torch.models.common import (CacheSpec, dense_init, dense_window,
                                        dtype_of, embed_init, gather_last,
                                        paged_rows, paged_window, remat_of,
                                        rms_norm, set_leaf, token_positions)
 from repro_torch.models.mlp import MLP, mlp_shapes
+from repro_torch.models.moe import MoE, moe_shapes
+
+#: the families this module serves
+FAMILIES = ("dense", "moe")
+
+
+def _attn_shapes(cfg) -> dict:
+    return mla_shapes(cfg) if cfg.mla else gqa_shapes(cfg)
+
+
+def _n_dense(cfg) -> int:
+    """Leading dense blocks: the moe family's ``first_dense``, else 0
+    (every block of the dense family is under ``"blocks"``)."""
+    return cfg.moe.first_dense if cfg.moe else 0
 
 
 def _empty_params(cfg, device) -> dict:
-    """Uninitialised weights (norm weights are f32 ones, as in JAX)."""
+    """Uninitialised weights (norm weights and the router are f32, as in
+    JAX)."""
     dt = dtype_of(cfg)
 
-    def mat(shape):
-        return torch.empty(shape, dtype=dt, device=device)
+    def mat(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=device)
 
     def ones():
         return torch.ones(cfg.d_model, dtype=torch.float32, device=device)
 
+    def tree(shapes):
+        return {n: tree(s) if isinstance(s, dict)
+                else mat(s, torch.float32 if n == "router" else dt)
+                for n, s in shapes.items()}
+
+    def block(use_moe: bool, d_ff=None):
+        p = {"ln1": ones(), "ln2": ones(), "attn": tree(_attn_shapes(cfg))}
+        if use_moe:
+            p["moe"] = tree(moe_shapes(cfg))
+        else:
+            p["mlp"] = tree(mlp_shapes(cfg, d_ff))
+        return p
+
     params = {"embed": mat((cfg.vocab_size, cfg.d_model)), "ln_f": ones()}
     if not cfg.tie_embeddings:
         params["lm_head"] = mat((cfg.d_model, cfg.vocab_size))
-    params["blocks"] = [
-        {"ln1": ones(), "ln2": ones(),
-         "attn": {n: mat(s) for n, s in gqa_shapes(cfg).items()},
-         "mlp": {n: mat(s) for n, s in mlp_shapes(cfg).items()}}
-        for _ in range(cfg.num_layers)]
+    n_dense = _n_dense(cfg)
+    if n_dense:
+        params["dense_blocks"] = [block(False, cfg.moe.dense_ff or cfg.d_ff)
+                                  for _ in range(n_dense)]
+    params["blocks"] = [block(cfg.moe is not None)
+                        for _ in range(cfg.num_layers - n_dense)]
     return params
 
 
@@ -61,31 +99,52 @@ class Block(nn.Module):
         self.cfg = cfg
         set_leaf(self, "ln1", params["ln1"])
         set_leaf(self, "ln2", params["ln2"])
-        self.attn = GQAAttention(cfg, params["attn"])
-        self.mlp = MLP(cfg, params["mlp"])
+        attn = MLAAttention if cfg.mla else GQAAttention
+        self.attn = attn(cfg, params["attn"])
+        self.use_moe = "moe" in params
+        if self.use_moe:
+            self.moe = MoE(cfg, params["moe"])
+        else:
+            self.mlp = MLP(cfg, params["mlp"])
 
     def forward(self, x, *, positions, cache, cache_index, paged=None,
                 window=None, n_valid=None):
+        """Returns (x, cache, aux): ``aux`` is the MoE load-balance loss
+        (None for a dense block)."""
         h = rms_norm(x, self.ln1, self.cfg.norm_eps)
         a, cache = self.attn(h, positions=positions, cache=cache,
                              cache_index=cache_index, paged=paged,
                              window=window, n_valid=n_valid)
         x = x + a
         h = rms_norm(x, self.ln2, self.cfg.norm_eps)
-        return x + self.mlp(h), cache
+        if self.use_moe:
+            # a verify window groups the routing by column (JAX passes
+            # window = n_valid is not None)
+            f, aux = self.moe(h, window=n_valid is not None)
+        else:
+            f, aux = self.mlp(h), None
+        return x + f, cache, aux
 
     def params_tree(self) -> dict:
-        return {"ln1": self.ln1, "ln2": self.ln2,
-                "attn": {n: getattr(self.attn, n) for n in gqa_shapes(self.cfg)},
-                "mlp": {n: getattr(self.mlp, n) for n in mlp_shapes(self.cfg)}}
+        tree = {"ln1": self.ln1, "ln2": self.ln2,
+                "attn": {n: getattr(self.attn, n)
+                         for n in _attn_shapes(self.cfg)}}
+        if self.use_moe:
+            tree["moe"] = self.moe.params_tree()
+        else:
+            tree["mlp"] = {n: getattr(self.mlp, n)
+                           for n in mlp_shapes(self.cfg)}
+        return tree
 
 
 class TransformerLM(nn.Module):
-    """Dense GQA decoder LM on ``device`` (the card unless ``"cpu"``)."""
+    """Dense GQA or moe (MoE + MLA) decoder LM on ``device`` (the card
+    unless ``"cpu"``).  ``blocks`` holds every layer in order, the moe
+    family's ``first_dense`` dense blocks first."""
 
     def __init__(self, cfg, device=None, params: dict | None = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 "
                 "item 7")
@@ -97,7 +156,10 @@ class TransformerLM(nn.Module):
         set_leaf(self, "ln_f", params["ln_f"])
         if not cfg.tie_embeddings:
             set_leaf(self, "lm_head", params["lm_head"])
-        self.blocks = nn.ModuleList(Block(cfg, p) for p in params["blocks"])
+        self.n_dense = len(params.get("dense_blocks", []))
+        self.blocks = nn.ModuleList(
+            Block(cfg, p) for p in (params.get("dense_blocks", [])
+                                    + list(params["blocks"])))
 
     @classmethod
     def from_params(cls, cfg, params: dict, device=None) -> "TransformerLM":
@@ -108,7 +170,10 @@ class TransformerLM(nn.Module):
         tree = {"embed": self.embed, "ln_f": self.ln_f}
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
-        tree["blocks"] = [blk.params_tree() for blk in self.blocks]
+        per = [blk.params_tree() for blk in self.blocks]
+        if self.n_dense:
+            tree["dense_blocks"] = per[:self.n_dense]
+        tree["blocks"] = per[self.n_dense:]
         return tree
 
     # ---------------- params ----------------
@@ -121,18 +186,49 @@ class TransformerLM(nn.Module):
         if not self.cfg.tie_embeddings:
             dense_init(gen, self.lm_head)
         for blk in self.blocks:
-            for name in gqa_shapes(self.cfg):
+            for name in _attn_shapes(self.cfg):
                 dense_init(gen, getattr(blk.attn, name))
-            for name in mlp_shapes(self.cfg):
-                dense_init(gen, getattr(blk.mlp, name))
+            if not blk.use_moe:
+                for name in mlp_shapes(self.cfg):
+                    dense_init(gen, getattr(blk.mlp, name))
+                continue
+            moe = blk.moe
+            dense_init(gen, moe.router)
+            d, ff = self.cfg.d_model, self.cfg.moe.d_expert
+            for name, fan_in in (("w_gate", d), ("w_up", d),
+                                 ("w_down", ff)):
+                dense_init(gen, getattr(moe, name), scale=1.0 / fan_in ** 0.5)
+            if self.cfg.moe.num_shared:
+                for name in ("w_gate", "w_up", "w_down"):
+                    dense_init(gen, getattr(moe.shared, name))
         return self
 
     # ---------------- forward ----------------
     def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
                 block_tables: torch.Tensor | None = None, n_valid=None,
                 training: bool = False):
-        """Returns (hidden (B, S, D), caches).  ``block_tables``: (B, nblk)
-        when ``caches`` hold paged pools (one tensor for every layer).
+        """Returns (hidden (B, S, D), caches); :meth:`forward_aux` also
+        returns the MoE blocks' summed load-balance loss."""
+        hidden, _, caches = self._run(
+            tokens, caches=caches, cache_index=cache_index,
+            block_tables=block_tables, n_valid=n_valid, training=training)
+        return hidden, caches
+
+    def forward_aux(self, tokens: torch.Tensor, **kw):
+        """Returns (hidden (B, S, D), aux, caches): :meth:`forward`'s, and
+        the MoE blocks' summed load-balance loss (0 for the dense
+        family)."""
+        hidden, aux, caches = self._run(tokens, **kw)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return hidden, aux, caches
+
+    def _run(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
+             block_tables: torch.Tensor | None = None, n_valid=None,
+             training: bool = False):
+        """Returns (hidden (B, S, D), aux or None, caches).
+        ``block_tables``: (B, nblk) when ``caches`` hold paged pools (one
+        tensor for every layer).
         ``n_valid`` (B,), or per-row ``cache_index`` with S > 1: a verify
         window (JAX's ``n_valid`` through the blocks), whose write targets
         are computed once here for every layer.  ``training`` with
@@ -157,15 +253,18 @@ class TransformerLM(nn.Module):
                                caches[0].k.shape[1])
         new_caches = [] if caches is not None else None
         remat = training and self.cfg.remat and torch.is_grad_enabled()
+        aux = None
         for i, blk in enumerate(self.blocks):
             run = remat_of(self.cfg, blk) if remat else blk
-            x, c = run(x, positions=positions,
-                       cache=caches[i] if caches is not None else None,
-                       cache_index=cache_index, paged=paged, window=window,
-                       n_valid=n_valid)
+            x, c, aux_i = run(x, positions=positions,
+                              cache=caches[i] if caches is not None else None,
+                              cache_index=cache_index, paged=paged,
+                              window=window, n_valid=n_valid)
+            if aux_i is not None:
+                aux = aux_i if aux is None else aux + aux_i
             if caches is not None:
                 new_caches.append(c)
-        return rms_norm(x, self.ln_f, self.cfg.norm_eps), new_caches
+        return rms_norm(x, self.ln_f, self.cfg.norm_eps), aux, new_caches
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return quant_matmul(hidden, self._head(), None)
@@ -176,29 +275,32 @@ class TransformerLM(nn.Module):
     # ---------------- training ----------------
     def loss(self, batch: dict):
         """batch: tokens (B, S), labels (B, S)[, loss_mask (B, S)].
-        Returns (xent + aux, {"xent", "aux"}); aux is 0 for the dense
-        family."""
-        hidden, _ = self.forward(batch["tokens"], training=True)
+        Returns (xent + aux, {"xent", "aux"}); aux is the MoE blocks'
+        summed load-balance loss (0 for the dense family)."""
+        hidden, aux, _ = self.forward_aux(batch["tokens"], training=True)
         xent = chunked_xent(hidden, self._head(), batch["labels"],
                             batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=xent.device)
         return xent + aux, {"xent": xent, "aux": aux}
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, s_max: int, *,
                    spec: CacheSpec | None = None) -> list[KVCache]:
         """Dense slab caches by default: one KVCache of (batch, s_max, Hkv,
-        Dh) zeros per layer.  With a paged ``spec`` every leaf is a pool
-        of (num_blocks, block_size, Hkv, Dh) zeros shared by all slots and
+        Dh) zeros per layer (MLA: c_kv (batch, s_max, R) and k_rope
+        (batch, s_max, dr)).  With a paged ``spec`` every leaf is a pool
+        of (num_blocks, block_size, ...) zeros shared by all slots and
         read through per-row block tables (``batch``/``s_max`` then size
         nothing)."""
         cfg = self.cfg
         lead = ((spec.num_blocks, spec.block_size)
                 if spec is not None and spec.paged else (batch, s_max))
-        shape = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
+        if cfg.mla:
+            tails = ((cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_dim,))
+        else:
+            tails = ((cfg.num_kv_heads, cfg.resolved_head_dim),) * 2
         dt = dtype_of(cfg)
-        return [KVCache(torch.zeros(shape, dtype=dt, device=self.device),
-                        torch.zeros(shape, dtype=dt, device=self.device))
+        return [KVCache(*(torch.zeros(lead + t, dtype=dt, device=self.device)
+                          for t in tails))
                 for _ in range(cfg.num_layers)]
 
     def prefill(self, tokens, caches, *, last_pos=None, cache_index=0):

@@ -41,14 +41,15 @@ from repro_torch.models.common import CacheSpec, paged_gather
 from repro_torch.serve.paged import (GARBAGE_BLOCK, BlockAllocator,
                                      blocks_needed, ceil_div)
 
-#: families the port's engine serves; both tolerate right-padded prefill
+#: families the port's engine serves; all tolerate right-padded prefill
 #: rows (attention masks pad columns causally, the ssm family masks them
 #: out of the carried state)
-SERVED_FAMILIES = ("dense", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm")
 
-#: served families with attention KV leaves a block pool can back ("ssm"
-#: is excluded: its whole cache is O(1) recurrent state per slot)
-PAGED_FAMILIES = ("dense",)
+#: served families with attention KV leaves a block pool can back (moe's
+#: MLA leaves are (…, R) and (…, dr), with no head axis; "ssm" is
+#: excluded: its whole cache is O(1) recurrent state per slot)
+PAGED_FAMILIES = ("dense", "moe")
 
 #: served families whose cache is recurrent state the prefix cache
 #: snapshots

@@ -2,8 +2,8 @@
 ``repro.serve.config``), with the shared argparse binding.
 
 Every knob of JAX's config is here and means the same: the substrate (a
-dense slab or a paged block pool for the dense family, dense recurrent
-state for ssm), chunked prefill, the prefix cache, the background loop's
+dense slab or a paged block pool for the dense and moe families, dense
+recurrent state for ssm), chunked prefill, the prefix cache, the background loop's
 idle backoff, request tracing and speculative decoding (greedy-only).
 :meth:`EngineConfig.validate` raises ``NotImplementedError`` naming
 ROADMAP queue 1 item 7 for a family the port does not serve yet.
