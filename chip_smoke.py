@@ -30,9 +30,10 @@ result line):
       other M device-only (the route's edge); and at speculation's verify
       M = 40 (8 rows x 5 columns, past the tensor-core route: the public
       call on ``lut_gemm.cu``, checked and timed device-only beside its
-      bound); deepseek-v2-lite-16b's seven frozen projection shapes and
-      minitron-4b's four at M = 8 on both kernels and at M = 40, each
-      device-only beside its bound, summed by layer (``dc_layers``);
+      bound); deepseek-v2-lite-16b's seven frozen projection shapes,
+      minitron-4b's four and zamba2-1.2b's five at M = 8 on both kernels
+      and at M = 40, each device-only beside its bound, summed by layer
+      and, for zamba2, by decode tick (``dc_layers``);
    b. the LUNA GEMM (``luna_mm``) in all five modes, int32 bitwise, both
       its kernels (the int8 tensor-core ``luna_mm_tc.cu`` and the __dp4a
       ``luna_mm.cu``) and the public call on a row-major and a K-major W,
@@ -63,8 +64,10 @@ result line):
       (B = 8, S = 5 from a random state, each row masked at its own valid
       length in {0, 1, 2, 3, 5}: a fully masked row's final state must
       equal its initial state bitwise) and a small G = 2 case, within the
-      tolerance stated in ``kernels/ssd_scan/ssd_scan.py``; the S = 448
-      call, every resumed piece and the windows also within
+      tolerance stated in ``kernels/ssd_scan/ssd_scan.py``; at zamba2-
+      1.2b's widths (N = 64) its S = 448 prefill call (masked, zero
+      state), a resumed 128-token piece and an (8, 5) masked window; the
+      S = 448 calls, every resumed piece and the windows also within
       ``ref.EMULATE_TOL`` of the CPU emulation (run on the card); each
       timed device-only (``graph_ms``) and by events beside its bound
       (bytes, or three TF32
@@ -99,7 +102,10 @@ result line):
    bitwise), and deepseek-v2-lite's engines under lut4 and nf4p (10
    mixed-length requests on 8 slots, where capacity drops routed tokens,
    on the slab and the pool; self_lut on 3 slots): tokens card == CPU ==
-   pool, self_lut == plain; yi-9b training:
+   pool, self_lut == plain; zamba2 (hybrid): prefill and decode logits
+   at 1e-4 under None, lut4, nf4p (codes bitwise), engines under the
+   three on the slab and the split substrate and self_lut on both:
+   tokens card == CPU == slab, self_lut == plain; yi-9b training:
    the cacheless forward under attn_impl="flash", the loss and every
    gradient under chunked attention and under luna_approx (the STE on
    luna_mm), one train step;
@@ -111,7 +117,8 @@ result line):
    a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
       decode projections on the D&C kernels, every launch on the
       tensor-core kernel);
-   b. on the first 24 of those layers, under the model-level modes
+   b. on the first ``MODEL_LEVEL_LAYERS`` (12) of those layers, under the
+      model-level modes
       luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm: prefill calls at M >= 32 on its
       tensor-core kernel, decode's M = 8 on the __dp4a kernel, each count
@@ -157,8 +164,8 @@ result line):
    an f32 copy of its weights;
 10. the rest of the serving stack at full width (bf16, random weights
    from seed 0), on phase 6's and phase 7's models:
-   a. yi-9b on the first ``MODEL_LEVEL_LAYERS`` (24) of its layers, as
-      6b, under lut4: a plain run of phase 6's 8 requests (32 new
+   a. yi-9b on the first ``SPEC_LAYERS`` (24) of its layers, under
+      lut4: a plain run of phase 6's 8 requests (32 new
       tokens), then the same under ``spec="self_lut", spec_k=4`` (drafts
       on ``lut_gemm_dc_res``'s tensor-core kernel at M = 8, verify
       windows at M = 40 on ``lut_gemm.cu``) and ``spec="ngram"``;
@@ -193,15 +200,36 @@ result line):
    d. minitron-4b (32 layers, GELU, 256k vocab) under lut4: 6 LUT
       launches a layer a tick, all on the tensor-core kernel;
    the phase prints its seconds;
-each run of 6, 7, 9, 10 and 11 asserting every request finished, every logit is
-finite and each kernel's launch counter (all set to 0 just before the
-run, read just after) equals the launches the run made through it; then
-(after the counts are read) a torch.profiler window over 4 decode ticks
-(and for mamba2 one prefill call): device time by kernel and the idle
+12. the hybrid family at full width: zamba2-1.2b (38 Mamba2 layers,
+   d_model 2048, state 64; 7 applications of one shared 32-head
+   attention + SwiGLU block; bf16, random weights from seed 0), after
+   phase 11, serves phase 6's 8 requests (32 new tokens):
+   a. quant None, lut4 and nf4p on the slab: 125 LUT launches a frozen
+      tick (the shared block's 7, 7 times; w_in and w_out, 38 times),
+      all on the tensor-core kernel; ``ssd_scan`` once a layer a prefill
+      call; the first tokens equal across the three runs; a profile of 4
+      lut4 ticks by kernel and by labelled stage (the shared block, the
+      Mamba2 layers, the LM head) and of the 8-prompt prefill;
+   b. lut4 on the split substrate (block 16: the shared block's KV in
+      the pool, the SSM state dense): tokens bitwise 12a's lut4 run's;
+      then phase 9's shared-prefix mix with ``prefix_cache`` and
+      ``prefill_chunk=128``: at least 7 hits, the pool free after, each
+      warm request's first-token logits bitwise a replay of its pieces
+      and within ``WARM_FACTOR`` of cold's distance from an f32 copy;
+   c. lut4 under ``spec="self_lut", spec_k=4`` on the slab and on the
+      split substrate: tokens 12a's lut4 run's, or the ``WINDOW_FACTOR``
+      rule at the first divergence;
+   the phase prints its seconds;
+each run of 6, 7, 9, 10, 11 and 12 asserting every request finished,
+every logit is finite and each kernel's launch counter (all set to 0
+just before the run, read just after) equals the launches the run made
+through it; then (after the counts are read) a torch.profiler window
+over 4 decode ticks (and for mamba2 one prefill call, for zamba2 the
+8-prompt prefill): device time by kernel and the idle
 share (for the prefill call, device time as the union of the kernels'
 intervals: ``ssd_scan``'s side stream overlaps its other kernels).
 ``--layers N`` cuts yi-9b's depth in phases 6, 9a and 10c (and 10a's
-to at most ``MODEL_LEVEL_LAYERS``).
+to at most ``SPEC_LAYERS``).
 
 Every line is one JSON object (``t_s``: seconds since the start); the
 ``{"kernels": [...]}`` line comes just before the last, which is
@@ -249,6 +277,13 @@ DSV2_DENSE_LAYER = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 10944),
 #: minitron-4b's decode projections, in layer order wq wk wv wo w_up w_down
 MINITRON_SHAPES = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072),
                    (3072, 9216), (9216, 3072)]
+#: zamba2-1.2b's frozen decode projections: the shared block's wq wk wv wo
+#: (32 heads and 32 KV heads of 64) and its SwiGLU MLP's w_gate w_up
+#: w_down, once a group (7 groups a tick); a Mamba2 layer's w_in (2 x 4096
+#: + 2 x 64 + 64 = 8384 columns) and w_out (38 layers a tick)
+ZAMBA2_SHARED = [(2048, 2048)] * 4 + [(2048, 8192), (2048, 8192),
+                                      (8192, 2048)]
+ZAMBA2_MAMBA = [(2048, 8384), (4096, 2048)]
 
 
 def projections(cfg) -> int:
@@ -260,6 +295,23 @@ def projections(cfg) -> int:
         return 2
     attn = 4 if cfg.mla is None or cfg.mla.q_lora_rank else 3
     return attn + (3 if cfg.mlp_type == "swiglu" else 2)
+
+
+def tick_launches(cfg) -> int:
+    """LUT GEMM launches of one decode step of the frozen tree:
+    :func:`projections` a layer; the hybrid's shared block 7 a group
+    (SwiGLU) and w_in / w_out a Mamba2 layer (zamba2-1.2b: 7 x 7 + 38 x 2
+    = 125)."""
+    if cfg.family == "hybrid":
+        groups = -(-cfg.num_layers // cfg.hybrid.period)
+        return groups * 7 + cfg.num_layers * 2
+    return cfg.num_layers * projections(cfg)
+
+
+def scan_calls(cfg) -> int:
+    """``ssd_scan`` launches of one multi-token forward (a prefill call, a
+    piece, a verify or commit window): one a Mamba2 layer (ssm, hybrid)."""
+    return cfg.num_layers if cfg.ssm is not None else 0
 COLD_BYTES = 256 << 20       # rotate code copies past the 50 MB L2
 #: the wrappers that count their tensor-core route's launches
 #: (``launches_tc``; lut_gemm's prefill kernel's in ``launches_wgmma``)
@@ -544,10 +596,12 @@ def kernel_phase(dev, device_times: bool = True):
 
         per_shape = []
         # yi-9b's and mamba2's shapes at every M of the route; the moe
-        # family's and minitron-4b's at decode's M = 8 (and verify's 40)
+        # family's, minitron-4b's and zamba2-1.2b's at decode's M = 8 (and
+        # verify's 40)
         base = set(LAYER_SHAPES) | set(MAMBA2_SHAPES)
         for k, n in sorted(base | set(DSV2_LITE_SHAPES)
-                           | set(MINITRON_SHAPES)):
+                           | set(MINITRON_SHAPES) | set(ZAMBA2_SHARED)
+                           | set(ZAMBA2_MAMBA)):
             q = qweight(k, n)
             copies = [q] + [replace(q, codes=q.codes.clone()) for _ in
                             range(max(1, COLD_BYTES // (k * n)) - 1)]
@@ -608,24 +662,33 @@ def kernel_phase(dev, device_times: bool = True):
         emit({"dc_route": name, "tc_max_m": lg.TC_MAX_M,
               "layer_device_ms": route})
 
-        # deepseek-v2-lite's and minitron-4b's layers, device-only at
-        # decode's M = 8 on each kernel and at verify's M = 40 on
-        # lut_gemm.cu, beside the byte bound
+        # deepseek-v2-lite's, minitron-4b's and zamba2-1.2b's layers,
+        # device-only at decode's M = 8 on each kernel and at verify's M =
+        # 40 on lut_gemm.cu, beside the byte bound
         others = {}
         for label, shapes in (("dsv2_lite_moe_layer", DSV2_MOE_LAYER),
                               ("dsv2_lite_dense_layer", DSV2_DENSE_LAYER),
-                              ("minitron_layer", MINITRON_SHAPES)):
+                              ("minitron_layer", MINITRON_SHAPES),
+                              ("zamba2_shared_block", ZAMBA2_SHARED),
+                              ("zamba2_mamba_layer", ZAMBA2_MAMBA)):
             others[label] = {f"m{m}_{k}": v for m in (8, VERIFY_M)
                              for k, v in layer_summary(
                                  name, per_shape, m, shapes).items()
                              if k in ("device_ms", "simt_device_ms",
                                       "bound_ms")}
+        # a zamba2 decode tick's 125: the shared block 7 times, 38 layers
+        others["zamba2_tick"] = {
+            key: 7 * others["zamba2_shared_block"][key]
+            + 38 * others["zamba2_mamba_layer"][key]
+            for key in others["zamba2_shared_block"]
+            if others["zamba2_shared_block"][key] is not None}
         emit({"dc_layers": name, **others,
               "timed_as": "a layer's frozen decode projections, bf16 x, "
                           "codes cold in L2, device-only (graph_ms): "
                           "device_ms the tensor-core kernel, "
                           "simt_device_ms lut_gemm.cu; M = 40 runs "
-                          "lut_gemm.cu (past TC_MAX_M)"})
+                          "lut_gemm.cu (past TC_MAX_M); zamba2_tick: 7 "
+                          "shared blocks + 38 Mamba2 layers (125 calls)"})
 
         # one decoder layer's 7 projections at the main path's M = 8
         results[name] = layer_summary(
@@ -1110,6 +1173,13 @@ SSD_WIDTHS = dict(h=64, p=64, g=1, n=128)
 #: row masked at its own valid length (0: a fully masked row, whose state
 #: must pass through bitwise)
 SSD_WINDOW_VALID = (0, 1, 2, 3, 5, 0, 5, 3)
+#: phase 3d at zamba2-1.2b's widths (state dim 64): (label, B, S, valid)
+#: of its largest prefill call (masked, from the zero state), a resumed
+#: 128-token piece (phase 12b's chunk, from a non-zero state) and a
+#: speculation window (each row masked at SSD_WINDOW_VALID)
+SSD_ZAMBA2_WIDTHS = dict(h=64, p=64, g=1, n=64)
+SSD_ZAMBA2_CASES = [("prefill", 1, 448, 438), ("resumed", 1, 128, None),
+                    ("window", len(SSD_WINDOW_VALID), 5, SSD_WINDOW_VALID)]
 
 
 def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
@@ -1274,6 +1344,11 @@ def ssd_kernel_phase(dev):
               **ssd_bound_ms(b, s, w["h"], w["p"], w["g"], w["n"], s, True,
                              "random")}
     del args, kw, y, fs, ye, fse
+    zamba2 = ssd_zamba2_cases(dev, gen, compare)
+    max_err = max([max_err] + [r["scaled_err"] for r in zamba2])
+    max_abs = max([max_abs] + [r["max_abs_err"] for r in zamba2])
+    emulate_err = max([emulate_err] + [r["emulate_scaled_err"]
+                                       for r in zamba2])
     buckets = [r for r in per_shape
                if (r["b"], r["s"], r["valid"], r["initial_state"])
                in SSD_BUCKETS]
@@ -1292,7 +1367,7 @@ def ssd_kernel_phase(dev):
           "per_shape": per_shape,
           "layer_prefill_calls": {"calls": len(buckets), **layer},
           "resumed_pieces": {"calls": len(pieces), **piece_sums},
-          "spec_window": window})
+          "spec_window": window, "zamba2": zamba2})
     head = next(r for r in per_shape if r["s"] == 448)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1316,7 +1391,68 @@ def ssd_kernel_phase(dev):
                     "TF32 products each at 494.7 TFLOP/s; no single "
                     "PyTorch call computes it",
         "layer_prefill_calls": {"calls": len(buckets), **layer},
-        "spec_window": window, "per_shape": per_shape}}
+        "spec_window": window, "zamba2": zamba2, "per_shape": per_shape}}
+
+
+def ssd_zamba2_cases(dev, gen, compare) -> list:
+    """Phase 3d at zamba2-1.2b's widths (H 64, P 64, G 1, N 64, chunk
+    min(256, S)): :data:`SSD_ZAMBA2_CASES`, each within ``KERNEL_TOL`` of
+    the plain version and ``ref.EMULATE_TOL`` of the emulation, a window's
+    fully masked rows' final state bitwise its initial state; each timed
+    device-only (``graph_ms``) and by events beside its bound."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.ssm import _ssd_chunked
+
+    w = SSD_ZAMBA2_WIDTHS
+    rows = []
+    for label, b, s, valid in SSD_ZAMBA2_CASES:
+        init = "zero" if label == "prefill" else "random"
+        window = label == "window"
+        args, kw = ssd_inputs(dev, gen, b, s, w["h"], w["p"], w["g"],
+                              w["n"], None if window else valid, init)
+        if window:
+            kw["mask"] = (torch.arange(s, device=dev)[None] < torch.as_tensor(
+                valid, device=dev)[:, None]).contiguous()
+        chunk = min(256, s)
+        err, abs_err = compare(args, kw, chunk)
+        what = f"ssd_scan zamba2 {label} ({b}, {s}) valid={valid}"
+        check(err <= sk.KERNEL_TOL,
+              f"{what}: scaled error {err} > {sk.KERNEL_TOL}")
+        y, fs = sk.ssd_scan(*args, chunk=chunk, **kw)
+        ye, fse = sref.ssd_scan_tc_emulate(*args, chunk=chunk, **kw)
+        emulated = max(sk.scaled_err(y, ye), sk.scaled_err(fs, fse))
+        check(emulated <= sref.EMULATE_TOL,
+              f"{what} against ssd_scan_tc_emulate: {emulated} > "
+              f"{sref.EMULATE_TOL}")
+        if window:
+            check(all(torch.equal(fs[i], kw["initial_state"][i])
+                      for i, v in enumerate(valid) if v == 0),
+                  f"{what}: a fully masked row's final state is not its "
+                  "initial state bitwise")
+        del y, fs, ye, fse
+
+        def call(i):
+            return sk.ssd_scan(*args, chunk=chunk, **kw)
+        rows.append({
+            "case": label, "b": b, "s": s, "chunk": chunk,
+            "valid": list(valid) if window else valid,
+            "initial_state": init, "scaled_err": err,
+            "emulate_scaled_err": emulated, "max_abs_err": abs_err,
+            "masked_rows_bitwise": True if window else None,
+            "device_ms": graph_ms(call, 20), "ms": cuda_ms(call, 20),
+            "plain_ms": cuda_ms(lambda i: _ssd_chunked(*args, chunk, **kw),
+                                5),
+            **ssd_bound_ms(b, s, w["h"], w["p"], w["g"], w["n"], chunk,
+                           valid is not None, init),
+            "gflop": ssd_flops(b, s, w["h"], w["p"], w["g"], w["n"], chunk,
+                               init == "random") / 1e9})
+        del args, kw
+    emit({"ssd_zamba2": "ssd_scan at zamba2-1.2b's widths", **w,
+          "per_shape": rows})
+    return rows
 
 
 def ssd_kernel_us(call, calls: int = 10) -> dict:
@@ -1917,6 +2053,16 @@ MOE_RANGES = {
 }
 
 
+#: phase 12's profile ranges (:data:`MOE_RANGES`' form; a dotted name is
+#: a method, wrapped on its class)
+HYBRID_RANGES = {
+    "hybrid.shared_block": ("repro_torch.models.hybrid",
+                            "SharedBlock.forward"),
+    "hybrid.mamba2_layer": ("repro_torch.models.ssm_lm", "SSMBlock.forward"),
+    "hybrid.lm_head": ("repro_torch.models.hybrid", "HybridLM.logits"),
+}
+
+
 def ranged(ranges: dict):
     """Wrap each ``ranges`` function (:data:`MOE_RANGES`' form) in a
     ``record_function`` of its label; returns a function that restores
@@ -1926,18 +2072,21 @@ def ranged(ranges: dict):
     import torch
     saved = []
     for label, (mod, fn) in ranges.items():
-        module = importlib.import_module(mod)
-        base = getattr(module, fn)
+        owner = importlib.import_module(mod)
+        *path, name = fn.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        base = getattr(owner, name)
 
         def wrapped(*a, _base=base, _label=label, **kw):
             with torch.profiler.record_function(_label):
                 return _base(*a, **kw)
-        setattr(module, fn, wrapped)
-        saved.append((module, fn, base))
+        setattr(owner, name, wrapped)
+        saved.append((owner, name, base))
 
     def restore():
-        for module, fn, base in saved:
-            setattr(module, fn, base)
+        for owner, name, base in saved:
+            setattr(owner, name, base)
     return restore
 
 
@@ -2110,21 +2259,22 @@ def build_ssm_model(dev):
     return cfg, model, request_mix(cfg.vocab_size)
 
 
-def profile_prefill(eng, prompt) -> dict:
-    """Device time by kernel over one prefill call of ``prompt`` alone
-    (torch.profiler; the request is admitted, then drained outside the
-    window)."""
+def profile_prefill(eng, prompts: list) -> dict:
+    """Device time by kernel over the admission of ``prompts`` together
+    (one prefill call per length bucket; torch.profiler; each request is
+    done at admission)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
 
-    req = Request(rid=200, prompt=prompt, max_new=1)   # done at admission
+    reqs = [Request(rid=200 + i, prompt=p, max_new=1)
+            for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.serve([req])
+        eng.serve(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = kernel_rows(prof)
@@ -2132,7 +2282,8 @@ def profile_prefill(eng, prompt) -> dict:
     # beside its other kernels: device time is the union of the kernels'
     # intervals; the summed durations are kept beside it
     busy, ssd_busy = busy_ms(prof), busy_ms(prof, "ssd_")
-    return {"profile": f"one prefill call, {len(prompt)} tokens",
+    return {"profile": f"prefill of {len(prompts)} prompts, "
+                       f"{sum(map(len, prompts))} tokens",
             "wall_ms": wall_ms,
             "device_ms": busy if busy is not None else "not measured",
             "kernel_ms_summed": sum(r[1] for r in rows) if rows
@@ -2217,9 +2368,8 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     want = dict.fromkeys(wrappers, 0)
     if kern is not None:
         want[kern] = ((ticks + model_level * stats["prefill_calls"])
-                      * layers * projections(cfg))
-    if cfg.family == "ssm":
-        want["ssd_scan"] = stats["prefill_calls"] * layers
+                      * tick_launches(cfg))
+    want["ssd_scan"] = stats["prefill_calls"] * scan_calls(cfg)
     check(stats["done"] and all(len(r.out) == 32 for r in reqs),
           f"{cfg.name} {quant}: not every request finished")
     check(finite and bool(torch.stack(finite).all()),
@@ -2265,11 +2415,14 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     if profile:                            # after the counts are read
         prof = profile_decode(eng, prompts, ranges=ranges)
         if cfg.family == "ssm":
-            prof["prefill"] = profile_prefill(eng, max(prompts, key=len))
+            prof["prefill"] = profile_prefill(eng, [max(prompts, key=len)])
+        if cfg.family == "hybrid":
+            prof["prefill"] = profile_prefill(eng, prompts)
     emit({"main_path": quant or "bf16", "model": cfg.name,
           "requests": len(reqs),
           "prompt_lens": [len(p) for p in prompts], "max_new": 32,
           "layers": layers, "decode_ticks": ticks,
+          "lut_launches_per_tick": tick_launches(cfg) if kern else None,
           "prefill_calls": stats["prefill_calls"], "launches": counts,
           "launches_tc": tc, "prefill_m": prefill_m,
           "prefill_tok_s": stats["prefill_tok_s"],
@@ -2294,10 +2447,12 @@ def add_launches(total: dict, counts: dict) -> None:
 
 
 #: phase 6b's model-level runs repeat phase 6a's serving path, host-bound
-#: (re-quantizing every weight each call): on the first 24 of the model's
+#: (re-quantizing every weight each call): on the first 12 of the model's
 #: layers (the same weights), which keeps the whole script near half its
-#: time limit now that phase 9 runs too
-MODEL_LEVEL_LAYERS = 24
+#: time limit (24 from PR 20, when phase 9 came; 12 since phase 12)
+MODEL_LEVEL_LAYERS = 12
+#: phase 10a's depth (yi-9b's first 24 layers, the same weights)
+SPEC_LAYERS = 24
 
 
 def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict, dict]:
@@ -2447,9 +2602,8 @@ def substrate_run(dev, cfg, model, quant: str, kern: str, knobs: dict,
     stats = eng.metrics.since(start).summary(eng.max_batch)
     layers = cfg.num_layers
     want = dict.fromkeys(wrappers, 0)
-    want[kern] = stats["ticks"] * layers * projections(cfg)
-    if cfg.family == "ssm":
-        want["ssd_scan"] = stats["prefill_calls"] * layers
+    want[kern] = stats["ticks"] * tick_launches(cfg)
+    want["ssd_scan"] = stats["prefill_calls"] * scan_calls(cfg)
     check(all(r.done and len(r.out) == 32 for r in reqs),
           f"phase 9 {label}: not every request finished")
     check(finite and bool(torch.stack(finite).all()),
@@ -2749,8 +2903,8 @@ DC_KERNEL = {"lut4": "lut_gemm_dc", "nf4p": "lut_gemm_dc_res"}
 
 
 def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
-             plain_extra: dict, label: str, profile: bool = True
-             ) -> tuple[dict, dict]:
+             plain_extra: dict, label: str, profile: bool = True,
+             knobs: dict | None = None) -> tuple[dict, dict]:
     """One phase-10 run: the engine under ``EngineConfig(quant, spec=mode,
     spec_k=4, max_batch=8, max_seq=1024)`` serves the request mix (32 new
     tokens each), every kernel counter set to 0 just before and read just
@@ -2764,8 +2918,8 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
     ``ssd_scan`` once per layer of each verify, commit and prefill call;
     tokens against ``plain`` by the WINDOW_FACTOR rule.  Reports
     acceptance per window, tokens per tick, decode tok/s against the plain
-    run's and (``profile``) a profile of 4 ticks.  Returns (launches, by
-    route)."""
+    run's and (``profile``) a profile of 4 ticks.  ``knobs``: more
+    EngineConfig fields (the substrate).  Returns (launches, by route)."""
     import torch
 
     from repro_torch.kernels.lut_gemm.lut_gemm import takes_tc
@@ -2774,7 +2928,8 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
 
     t_build = time.perf_counter()
     eng = Engine(cfg, model, EngineConfig(quant=quant, spec=mode, spec_k=4,
-                                          max_batch=8, max_seq=1024),
+                                          max_batch=8, max_seq=1024,
+                                          **(knobs or {})),
                  device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
@@ -2803,23 +2958,22 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
     unhook()
     for name in ("_draft", "_spec_commit"):
         delattr(eng, name)
-    layers, proj = cfg.num_layers, projections(cfg)
+    layers, tick = cfg.num_layers, tick_launches(cfg)
     m = eng.metrics.snapshot()             # before the profile's ticks
     verify_ticks, plain_ticks = m.spec_ticks, m.ticks - m.spec_ticks
     kern = DC_KERNEL[quant]
     want = dict.fromkeys(wrappers, 0)
     want_tc = dict.fromkeys(("lut_gemm_dc", "lut_gemm_dc_res"), 0)
     k, n = {"dense": LAYER_SHAPES, "ssm": MAMBA2_SHAPES,
-            "moe": DSV2_LITE_SHAPES}[cfg.family][0]
+            "moe": DSV2_LITE_SHAPES, "hybrid": ZAMBA2_SHARED}[cfg.family][0]
     verify_tc = takes_tc(eng.max_batch * 5, k, n, torch.bfloat16, True)
     want[kern] += (verify_ticks + calls["_spec_commit"]
-                   + plain_ticks) * layers * proj
-    want_tc[kern] += (plain_ticks + verify_tc * verify_ticks) * layers * proj
-    want["lut_gemm_dc_res"] += calls["_draft"] * layers * proj
-    want_tc["lut_gemm_dc_res"] += calls["_draft"] * layers * proj
-    if cfg.family == "ssm":
-        want["ssd_scan"] = (verify_ticks + calls["_spec_commit"]
-                            + stats["prefill_calls"]) * layers
+                   + plain_ticks) * tick
+    want_tc[kern] += (plain_ticks + verify_tc * verify_ticks) * tick
+    want["lut_gemm_dc_res"] += calls["_draft"] * tick
+    want_tc["lut_gemm_dc_res"] += calls["_draft"] * tick
+    want["ssd_scan"] = (verify_ticks + calls["_spec_commit"]
+                        + stats["prefill_calls"]) * scan_calls(cfg)
     check(stats["done"] and all(len(r.out) == 32 for r in reqs),
           f"phase 10 {label}: not every request finished")
     check(finite and bool(torch.stack(finite).all()),
@@ -2842,7 +2996,8 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
         prof = profile_decode(eng, prompts)
         prof["s"] = time.perf_counter() - t_prof
     out = {"phase10": label, "model": cfg.name, "quant": quant,
-           "spec": mode, "spec_k": 4, "layers": layers, "wall_s": wall,
+           "spec": mode, "spec_k": 4, "knobs": knobs or {},
+           "layers": layers, "wall_s": wall,
            "engine_build_s": build_s,
            "ticks": m.ticks, "spec_ticks": verify_ticks,
            "plain_ticks": plain_ticks, "draft_steps": calls["_draft"],
@@ -2869,12 +3024,12 @@ def spec_run(dev, cfg, model, prompts, quant: str, mode: str, plain: list,
 
 def spec_phase(dev, cfg, model, prompts) -> tuple[dict, dict]:
     """Phase 10a (after phase 9a, on phase 6's model cut to its first
-    ``MODEL_LEVEL_LAYERS`` layers, as phase 6b is, to keep the script near
-    half its time limit): the plain lut4 run on that depth (logits
-    recorded, no profile), then self_lut and ngram held to it."""
+    ``SPEC_LAYERS`` layers, to keep the script near half its time limit):
+    the plain lut4 run on that depth (logits recorded, no profile), then
+    self_lut and ngram held to it."""
     from dataclasses import replace
 
-    cut = replace(cfg, num_layers=min(MODEL_LEVEL_LAYERS, cfg.num_layers))
+    cut = replace(cfg, num_layers=min(SPEC_LAYERS, cfg.num_layers))
     tree = model.params_tree()
     cut_model = type(model).from_params(
         cut, {**tree, "blocks": tree["blocks"][:cut.num_layers]}, device=dev)
@@ -3679,6 +3834,190 @@ def moe_phase(dev) -> tuple[dict, dict]:
     return launches, tc_total
 
 
+def small_hybrid_phase(dev):
+    """Phase 4, the hybrid family: reduced f32 zamba2 (seed 1 weights, the
+    same on both devices), card against CPU.  Logits of a right-padded
+    prefill (the card's scans on ``ssd_scan``) and one per-row decode step
+    at 1e-4 under quant None, lut4 and nf4p (the frozen codes bitwise the
+    CPU's); engines under None, lut4 and nf4p: 5 mixed-length requests on
+    3 slots on the slab and on the split substrate (block 8), and 3
+    prompts on 3 slots under ``spec="self_lut"`` on both: greedy tokens on
+    the card equal the CPU's, the split substrate's the slab's, and
+    self_lut's plain greedy's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.quant import quantize_decode_params
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.config import EngineConfig
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_config("zamba2-1.2b").reduced(dtype="float32",
+                                            attn_impl="full")
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    gpu = type(cpu).from_params(cfg, tree_to(cpu.params_tree(), dev),
+                                device=dev)
+    lens = torch.tensor([48, 30, 17, 5])
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(1, cfg.vocab_size, (4, 48), generator=gen)
+    toks[torch.arange(48)[None, :] >= lens[:, None]] = 0
+    nxt = torch.randint(1, cfg.vocab_size, (4, 1), generator=gen)
+    out = {}
+    with torch.inference_mode():
+        runs = []
+        for model, device in ((cpu, "cpu"), (gpu, dev)):
+            lg, caches = model.prefill(toks.to(device),
+                                       model.init_cache(4, 64),
+                                       last_pos=(lens - 1).to(device))
+            runs.append((lg.float().cpu(), caches))
+        torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4,
+                                   atol=1e-4)
+        out["prefill"] = (runs[1][0] - runs[0][0]).abs().max().item()
+        for quant in (None, "lut4", "nf4p"):
+            trees = [m.params_tree() for m in (cpu, gpu)]
+            if quant is not None:
+                trees = [quantize_decode_params(t, quant) for t in trees]
+                pairs = frozen_pairs(*trees)
+                check(len(pairs) == 7 + 2 * cfg.num_layers and all(
+                    torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+                    for _, a, b in pairs
+                    for f in ("codes", "scale", "zero_point")),
+                    f"phase 4 zamba2 {quant}: card quantization differs "
+                    "from the CPU's")
+            logits = []
+            for (_, caches), tree, device in ((runs[0], trees[0], "cpu"),
+                                              (runs[1], trees[1], dev)):
+                m = type(cpu).from_params(cfg, tree, device=device)
+                lg, _ = m.decode_step(nxt.to(device), list(caches),
+                                      lens.to(device))
+                logits.append(lg.float().cpu())
+            torch.testing.assert_close(logits[1], logits[0], rtol=1e-4,
+                                       atol=1e-4)
+            out[f"{quant or 'f32'} decode"] = (
+                logits[1] - logits[0]).abs().max().item()
+    rng = np.random.default_rng(0)
+    mixed = [rng.integers(1, cfg.vocab_size, n).tolist()
+             for n in (3, 9, 5, 17, 2)]
+    three = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 11, 3)]
+
+    def serve(model, device, prompts, max_new, **knobs):
+        eng = Engine(cfg, model, EngineConfig(max_batch=3, max_seq=48,
+                                              **knobs), device=device)
+        reqs = [Request(rid=i, prompt=list(p), max_new=max_new)
+                for i, p in enumerate(prompts)]
+        check(eng.serve(reqs)["done"], f"phase 4 zamba2 {knobs}: not done")
+        return [r.out for r in reqs]
+
+    split = dict(paged=True, block_size=8)
+    for quant in (None, "lut4", "nf4p"):
+        what = f"phase 4 zamba2 {quant}"
+        slab = serve(cpu, "cpu", mixed, 6, quant=quant)
+        for knobs in ({}, split):
+            check(serve(gpu, dev, mixed, 6, quant=quant, **knobs) == slab,
+                  f"{what} {knobs}: card tokens differ from the CPU's slab")
+        plain = serve(cpu, "cpu", three, 8, quant=quant)
+        for knobs in ({}, split):
+            got = serve(gpu, dev, three, 8, quant=quant, spec="self_lut",
+                        **knobs)
+            check(got == plain, f"{what} self_lut {knobs} on the card: "
+                  "tokens differ from plain greedy")
+        out[f"{quant or 'f32'} engines"] = "equal"
+    emit({"small_hybrid": "reduced f32 zamba2: prefill + decode logits card "
+                          "vs cpu (None, lut4, nf4p; codes bitwise); "
+                          "engines (slab and split on 3 slots, self_lut on "
+                          "both) card == cpu == slab == plain",
+          "max_abs_err": out, "rtol": 1e-4, "atol": 1e-4})
+
+
+def build_hybrid_model(dev):
+    """zamba2-1.2b at its published widths, all 38 layers, bf16, random
+    weights from seed 0; the request mix (8 prompts of 16-512 tokens)."""
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = get_config("zamba2-1.2b")
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "hybrid": vars(cfg.hybrid),
+          "ssm": vars(cfg.ssm), "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+          "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    return cfg, model, request_mix(cfg.vocab_size)
+
+
+def hybrid_phase(dev) -> tuple[dict, dict]:
+    """Phase 12: zamba2-1.2b at its published widths (38 Mamba2 layers, 7
+    applications of one shared attention + MLP block, bf16, random weights
+    from seed 0) serves phase 6's 8 requests (32 new tokens each).  12a:
+    quant None, lut4 and nf4p on the slab (each frozen run 125 LUT
+    launches a tick, 7 x 7 shared + 38 x 2 Mamba2, all on the tensor-core
+    kernel; ``ssd_scan`` once a layer a prefill call; the first tokens
+    equal across the three runs; a profile of 4 lut4 ticks by kernel and
+    by labelled stage, and of the 8-prompt prefill).  12b: lut4 on the
+    split substrate (block 16): tokens bitwise 12a's lut4 run's; then the
+    shared-prefix mix with ``prefix_cache`` and ``prefill_chunk=128``:
+    at least 7 hits, the pool free after, each warm request's first-token
+    logits bitwise a replay of its pieces and within ``WARM_FACTOR`` of
+    cold's distance from an f32 copy.  12c: lut4 under ``spec="self_lut",
+    spec_k=4`` on the slab and on the split substrate: tokens 12a's lut4
+    run's, or the WINDOW_FACTOR rule at the first divergence.  Returns
+    (launches, by route)."""
+    import torch
+
+    t12 = time.perf_counter()
+    launches, tc_total = {}, {}
+    cfg, model, prompts = build_hybrid_model(dev)
+    check(tick_launches(cfg) == 125,
+          f"zamba2: {tick_launches(cfg)} LUT launches a tick, want 125")
+    outs, extra = {}, {}
+    for quant, kern in ((None, None), ("lut4", "lut_gemm_dc"),
+                        ("nf4p", "lut_gemm_dc_res")):
+        counts, outs[quant], tc, extra[quant] = serve_once(
+            dev, cfg, model, prompts, quant, kern, record=quant == "lut4",
+            profile=quant == "lut4", ranges=HYBRID_RANGES)
+        add_launches(launches, counts)
+        add_launches(tc_total, tc)
+    firsts = {q or "bf16": [o[0] for o in out] for q, out in outs.items()}
+    check(len({tuple(f) for f in firsts.values()}) == 1,
+          f"phase 12a: first (prefill) tokens differ between runs: {firsts}")
+    split = dict(paged=True, block_size=16)
+    counts, paged, tc, _ = substrate_run(
+        dev, cfg, model, "lut4", "lut_gemm_dc", split, [prompts],
+        "phase 12b split", profile=False)
+    check(paged == outs["lut4"],
+          "phase 12b: split-substrate lut4 tokens differ from 12a's slab run")
+    add_launches(launches, counts)
+    add_launches(tc_total, tc)
+    mix = shared_prefix_mix(cfg.vocab_size)
+    counts, _, tc, out = substrate_run(
+        dev, cfg, model, "lut4", "lut_gemm_dc",
+        dict(split, prefix_cache=True, prefill_chunk=128),
+        [mix[:1], mix[1:]], "phase 12b split prefix chunked",
+        warm_check=True, profile=False)
+    check(out["prefix_hits"] >= 7
+          and out["prefix_tokens_reused"] >= 7 * SHARED_PREFIX,
+          f"phase 12b: {out['prefix_hits']} hits reusing "
+          f"{out['prefix_tokens_reused']} tokens")
+    add_launches(launches, counts)
+    add_launches(tc_total, tc)
+    for knobs in ({}, split):
+        for total, part in zip((launches, tc_total), spec_run(
+                dev, cfg, model, prompts, "lut4", "self_lut", outs["lut4"],
+                extra["lut4"],
+                f"phase 12c zamba2 self_lut {'split' if knobs else 'slab'}",
+                profile=False, knobs=knobs)):
+            add_launches(total, part)
+    del model, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase12_s": time.perf_counter() - t12})
+    return launches, tc_total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
@@ -3768,6 +4107,7 @@ def main() -> int:
     small_substrate_phase(dev)
     small_spec_phase(dev)
     small_moe_phase(dev)
+    small_hybrid_phase(dev)
     small_training_phase(dev)
     quant_matmul_phase(dev)
     cfg, model, prompts = build_model(dev, args.layers)
@@ -3801,6 +4141,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for total, part in zip((launches, tc), moe_phase(dev)):
+        add_launches(total, part)
+    for total, part in zip((launches, tc), hybrid_phase(dev)):
         add_launches(total, part)
     launches_train, flash_tc, luna_tc_train = train_phase(dev)
     add_launches(launches, launches_train)

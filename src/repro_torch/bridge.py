@@ -3,11 +3,13 @@ numpy by the caller, into the port's modules.  Imports no jax.
 
 * Stacked ``(L, ...)`` block leaves are split per layer; the moe
   family's ``"dense_blocks"`` (a list of unstacked blocks) and its
-  ``"blocks"`` stack of ``num_layers - first_dense`` layers both cross.
+  ``"blocks"`` stack of ``num_layers - first_dense`` layers both cross,
+  and so do the hybrid's unstacked ``"shared"`` block and its
+  ``"mamba"`` stack of ``num_layers`` layers.
 * A ``QuantizedWeight`` arrives as a dict of its numpy children plus its
   ``kernel`` string and becomes the port's ``QuantizedWeight``.
-* Every dense and moe config crosses, ``luna-mlp`` (GELU, MHA 4/4)
-  included;
+* Every dense, moe, ssm and hybrid config crosses, ``luna-mlp`` (GELU,
+  MHA 4/4) included;
   trained (grad-requiring) parameters go back through
   :func:`params_to_numpy`.
 * Float leaves cross with their dtype unchanged; a bfloat16 array
@@ -64,24 +66,33 @@ def _split_layers(node, n: int) -> list:
     return list(node.unbind(0))
 
 
+#: the JAX trees' layer stacks: ``"blocks"`` (dense, moe, ssm) and the
+#: hybrid's ``"mamba"``
+_STACKS = ("blocks", "mamba")
+
+
 def params_from_numpy(tree: dict, cfg, device=None):
     """Build the port's LM of ``cfg``'s family (``TransformerLM`` for
-    dense and moe, ``SSMLM`` for ssm) over a numpy copy of the JAX tree
-    (``model.init`` output or its frozen decode tree).  Its float leaves
-    are frozen; ``.requires_grad_()`` makes them trainable."""
+    dense and moe, ``SSMLM`` for ssm, ``HybridLM`` for hybrid) over a
+    numpy copy of the JAX tree (``model.init`` output or its frozen
+    decode tree).  Its float leaves are frozen; ``.requires_grad_()``
+    makes them trainable."""
     from repro_torch.models.registry import model_class
     device = resolve_device(device)
-    params = {k: _leaf(v, device) for k, v in tree.items() if k != "blocks"}
+    params = {k: _leaf(v, device) for k, v in tree.items()
+              if k not in _STACKS}
     n_dense = len(tree.get("dense_blocks", []))
-    params["blocks"] = _split_layers(_leaf(tree["blocks"], device),
-                                     cfg.num_layers - n_dense)
+    for key in _STACKS:
+        if key in tree:
+            params[key] = _split_layers(_leaf(tree[key], device),
+                                        cfg.num_layers - n_dense)
     return model_class(cfg).from_params(cfg, params, device=device)
 
 
 def params_to_numpy(model) -> dict:
-    """The model's tree in the JAX layout (``"blocks"`` stacked on a
-    leading axis, ``"dense_blocks"`` a list), bfloat16 leaves as float32
-    numpy arrays."""
+    """The model's tree in the JAX layout (``"blocks"`` and ``"mamba"``
+    stacked on a leading axis, ``"dense_blocks"`` a list), bfloat16
+    leaves as float32 numpy arrays."""
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -97,10 +108,6 @@ def params_to_numpy(model) -> dict:
             return [conv(v) for v in node]
         return arr(node)
 
-    tree = model.params_tree()
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    per = [conv(b) for b in tree["blocks"]]
-
     def stack(nodes):
         if isinstance(nodes[0], dict):
             return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
@@ -108,5 +115,6 @@ def params_to_numpy(model) -> dict:
             return nodes[0]
         return np.stack(nodes)
 
-    out["blocks"] = stack(per)
-    return out
+    tree = model.params_tree()
+    return {k: stack([conv(b) for b in v]) if k in _STACKS else conv(v)
+            for k, v in tree.items()}

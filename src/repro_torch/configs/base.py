@@ -1,10 +1,10 @@
 """Config dataclasses for the port's model zoo (mirrors
 ``repro.configs.base``).
 
-The dense, moe and SSM families are ported, so :class:`ModelConfig`
-carries the fields the dense GQA, DeepSeek MoE/MLA and mamba2 paths
-read; the hybrid/encdec/VLM sub-configs arrive with their families
-(ROADMAP queue 1 item 7).
+The dense, moe, SSM and hybrid families are ported, so
+:class:`ModelConfig` carries the fields the dense GQA, DeepSeek MoE/MLA,
+mamba2 and zamba2 paths read; the encdec/VLM sub-configs arrive with
+their families (ROADMAP queue 1 item 7, trained under item 8).
 """
 from __future__ import annotations
 
@@ -45,9 +45,19 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: one weight-shared attention+MLP block applied every
+    ``period`` SSM layers."""
+    period: int = 6
+    shared_num_heads: int = 32
+    shared_num_kv_heads: int = 32
+    shared_d_ff: int = 8192
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" | "moe" | "ssm"
+    family: str                  # "dense" | "moe" | "ssm" | "hybrid"
     num_layers: int
     d_model: int
     num_heads: int
@@ -63,6 +73,7 @@ class ModelConfig:
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
+    hybrid: HybridConfig | None = None
     quant: QuantConfig = field(default_factory=QuantConfig)  # model-level
     attn_impl: str = "chunked"   # full | chunked | flash (forward-only)
     attn_chunk: int = 512
@@ -104,5 +115,10 @@ class ModelConfig:
         if self.ssm:
             small["ssm"] = replace(self.ssm, state_dim=16, head_dim=16,
                                    chunk_size=32)
+        if self.hybrid:
+            small["hybrid"] = replace(self.hybrid, period=2,
+                                      shared_num_heads=4,
+                                      shared_num_kv_heads=2, shared_d_ff=256)
+            small["num_layers"] = 4
         small.update(overrides)
         return replace(self, **small)

@@ -37,16 +37,23 @@
       --arch deepseek-v2-lite-16b --quant lut4 --paged --prefix-cache \
       --shared-prefix 24 --spec self_lut
 
+  # zamba2-1.2b (hybrid family: Mamba2 with a shared attention block),
+  # on the split substrate (paged shared-attention KV, dense SSM state):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch zamba2-1.2b --paged --block-size 8 --prefix-cache \
+      --prefill-chunk 16 --shared-prefix 24 --spec self_lut
+
   # observability: Perfetto trace, Prometheus dump, a scrape endpoint:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --trace-out trace.json --metrics-dump metrics.txt --metrics-port 0
 
 ``--arch`` is one of ``ARCH_IDS``: the dense ``starcoder2-15b``,
 ``minitron-4b``, ``yi-9b`` (the default) and ``deepseek-67b``, the moe
-``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``, and the ssm
-``mamba2-1.3b``.  Weights are random, drawn from ``--seed``.  ``--quant
-lut4|int4|nf4|nf4p`` freezes the decode projections (mamba2:
-``w_in``/``w_out``; moe: the attention projections, the shared experts
+``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``, the hybrid
+``zamba2-1.2b`` and the ssm ``mamba2-1.3b``.  Weights are random, drawn
+from ``--seed``.  ``--quant lut4|int4|nf4|nf4p`` freezes the decode
+projections (mamba2: ``w_in``/``w_out``; zamba2: those and the shared
+block's seven; moe: the attention projections, the shared experts
 and the leading dense block's MLP, never the routed experts) to 4 bits (lut4 and nf4/nf4p run the
 hand-written LUT GEMM kernels on the card); prefill stays full precision.
 Any other spelling but bf16 (``luna_*``, ``lut_nf4``, ``int8``,

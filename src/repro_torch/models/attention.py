@@ -189,17 +189,32 @@ def write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, *,
     return cache.k, cache.v, cache_index + s, cache_index
 
 
-def gqa_shapes(cfg) -> dict[str, tuple[int, int]]:
-    d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    dh = cfg.resolved_head_dim
+def gqa_heads(cfg, num_heads=None, num_kv_heads=None, head_dim=None
+              ) -> tuple[int, int, int]:
+    """(heads, KV heads, head dim): the overrides where given, else
+    ``cfg``'s (JAX's ``gqa_attention`` keywords; the hybrid's shared block
+    passes its own)."""
+    return (num_heads or cfg.num_heads, num_kv_heads or cfg.num_kv_heads,
+            head_dim or cfg.resolved_head_dim)
+
+
+def gqa_shapes(cfg, num_heads=None, num_kv_heads=None, head_dim=None
+               ) -> dict[str, tuple[int, int]]:
+    d = cfg.d_model
+    h, hkv, dh = gqa_heads(cfg, num_heads, num_kv_heads, head_dim)
     return {"wq": (d, h * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
             "wo": (h * dh, d)}
 
 
 class GQAAttention(nn.Module):
-    def __init__(self, cfg, params: dict):
+    """``num_heads``, ``num_kv_heads``, ``head_dim``: overrides of
+    ``cfg``'s (the hybrid's shared block)."""
+
+    def __init__(self, cfg, params: dict, *, num_heads=None,
+                 num_kv_heads=None, head_dim=None):
         super().__init__()
         self.cfg = cfg
+        self.heads = gqa_heads(cfg, num_heads, num_kv_heads, head_dim)
         for name in gqa_shapes(cfg):
             set_leaf(self, name, params[name])
 
@@ -220,7 +235,7 @@ class GQAAttention(nn.Module):
         attention through ``kv_len``."""
         cfg = self.cfg
         b, s, _ = x.shape
-        h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        h, hkv, dh = self.heads
         q = quant_matmul(x, self.wq, cfg.quant, "attn").reshape(b, s, h, dh)
         k = quant_matmul(x, self.wk, cfg.quant, "attn").reshape(b, s, hkv, dh)
         v = quant_matmul(x, self.wv, cfg.quant, "attn").reshape(b, s, hkv, dh)

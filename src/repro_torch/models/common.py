@@ -124,6 +124,30 @@ def paged_window(block_table: torch.Tensor, index: torch.Tensor, s: int,
     return WindowTarget(phys, idx % block_size, None, block_table)
 
 
+def cache_targets(cache, s: int, cache_index, block_tables=None,
+                  n_valid=None) -> tuple[PagedRows | None,
+                                         WindowTarget | None]:
+    """A step's write targets, computed once for every attention layer:
+    ``(paged, window)``.  ``cache``: the first attention layer's cache (a
+    slab of (B, S_max, ...) or a pool of (num_blocks, block_size, ...)
+    leaves), or None for a cacheless forward.  A verify window (per-row
+    ``cache_index`` with S > 1, or ``n_valid``) gets its
+    :class:`WindowTarget`; a paged decode step its :class:`PagedRows`;
+    anything else (a scalar-index slab write) neither."""
+    if cache is None:
+        return None, None
+    per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+    width = cache[0].shape[1]
+    if per_row and (s > 1 or n_valid is not None):
+        if block_tables is not None:
+            return None, paged_window(block_tables, cache_index, s, width,
+                                      n_valid)
+        return None, dense_window(cache_index, s, width, n_valid)
+    if block_tables is not None:
+        return paged_rows(block_tables, cache_index, width), None
+    return None, None
+
+
 def write_window(cache: torch.Tensor, new: torch.Tensor,
                  target: WindowTarget) -> torch.Tensor:
     """Write a (B, W, ...) window into a slab or pool IN PLACE at

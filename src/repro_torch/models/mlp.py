@@ -13,27 +13,34 @@ from repro_torch.core.layers import quant_matmul
 from repro_torch.models.common import set_leaf
 
 
-def mlp_shapes(cfg, d_ff: int | None = None) -> dict[str, tuple[int, int]]:
+def mlp_shapes(cfg, d_ff: int | None = None, mlp_type: str | None = None
+               ) -> dict[str, tuple[int, int]]:
     """``d_ff``: the hidden width (default ``cfg.d_ff``; the moe family's
-    leading dense blocks use ``cfg.moe.dense_ff``)."""
+    leading dense blocks use ``cfg.moe.dense_ff``, the hybrid's shared
+    block ``cfg.hybrid.shared_d_ff``); ``mlp_type``: default
+    ``cfg.mlp_type``."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     shapes = {"w_up": (d, ff), "w_down": (ff, d)}
-    if cfg.mlp_type == "swiglu":
+    if (mlp_type or cfg.mlp_type) == "swiglu":
         shapes["w_gate"] = (d, ff)
     return shapes
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, params: dict):
+    """``mlp_type``: an override of ``cfg.mlp_type`` (JAX's ``mlp``
+    keyword; the hybrid's shared block is SwiGLU)."""
+
+    def __init__(self, cfg, params: dict, *, mlp_type: str | None = None):
         super().__init__()
         self.cfg = cfg
-        for name in mlp_shapes(cfg):
+        self.mlp_type = mlp_type or cfg.mlp_type
+        for name in mlp_shapes(cfg, mlp_type=self.mlp_type):
             set_leaf(self, name, params[name])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         up = quant_matmul(x, self.w_up, cfg.quant, "mlp")
-        if cfg.mlp_type == "swiglu":
+        if self.mlp_type == "swiglu":
             gate = quant_matmul(x, self.w_gate, cfg.quant, "mlp")
             h = F.silu(gate) * up
         else:

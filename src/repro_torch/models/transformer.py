@@ -36,10 +36,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (GQAAttention, KVCache,
                                           MLAAttention, gqa_shapes,
                                           mla_shapes)
-from repro_torch.models.common import (CacheSpec, dense_init, dense_window,
-                                       dtype_of, embed_init, gather_last,
-                                       paged_rows, paged_window, remat_of,
-                                       rms_norm, set_leaf, token_positions)
+from repro_torch.models.common import (CacheSpec, cache_targets,
+                                       dense_init, dtype_of, embed_init,
+                                       gather_last, remat_of, rms_norm,
+                                       set_leaf, token_positions)
 from repro_torch.models.mlp import MLP, mlp_shapes
 from repro_torch.models.moe import MoE, moe_shapes
 
@@ -236,21 +236,9 @@ class TransformerLM(nn.Module):
         x = F.embedding(tokens, self.embed)
         s = tokens.shape[1]
         positions = token_positions(s, cache_index, x.device)
-        paged = window = None
-        per_row = (isinstance(cache_index, torch.Tensor)
-                   and cache_index.ndim == 1)
-        if caches is not None and per_row and (s > 1 or n_valid is not None):
-            # each row's write targets, once for every layer
-            if block_tables is not None:
-                window = paged_window(block_tables, cache_index, s,
-                                      caches[0].k.shape[1], n_valid)
-            else:
-                window = dense_window(cache_index, s, caches[0].k.shape[1],
-                                      n_valid)
-        elif block_tables is not None:
-            # each row's write target, once for every layer
-            paged = paged_rows(block_tables, cache_index,
-                               caches[0].k.shape[1])
+        paged, window = cache_targets(
+            caches[0] if caches is not None else None, s, cache_index,
+            block_tables, n_valid)
         new_caches = [] if caches is not None else None
         remat = training and self.cfg.remat and torch.is_grad_enabled()
         aux = None

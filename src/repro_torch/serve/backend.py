@@ -9,9 +9,14 @@ the engine never branches on family or substrate.
   the pool is short (attention families).
 * :class:`RecurrentState` — dense O(1)-per-slot recurrent state plus the
   snapshot/seed hooks the prefix cache needs (ssm).
+* :class:`HybridComposite` — the split substrate: the attention KV leaves
+  in the block pool, the recurrent state dense per slot (hybrid).
 
-The caches are a per-layer list of named tuples of tensors (``KVCache``,
+The caches are one flat list of named tuples of tensors (``KVCache``,
 ``SSMCache``) whose leading axis is the slot, or for a pool the block.
+The paged substrates tell a layer's substrate by its type, as JAX
+discovers it structurally per leaf: ``KVCache`` leaves are pools,
+``SSMCache`` leaves dense per slot.
 Unlike JAX's functional updates, every write here is IN PLACE and the
 returned tree holds the same tensors.  JAX's guarantees rest on
 immutability, so the port keeps them explicitly: a block with more than
@@ -25,8 +30,7 @@ rejected K/V beyond a row's rewound pointer is dead weight the next writes
 overwrite (the draft's and the verify window's writes land at the row's
 own future positions, or on the garbage block past its reservation), and
 recurrent state is re-committed by the engine from the untouched
-pre-verify caches.  The hybrid's split substrate (``HybridComposite``) is
-ROADMAP queue 1 item 7.
+pre-verify caches (the models return recurrent state as new tensors).
 
 The engine hands over its lock (:meth:`CacheBackend.bind_lock`): pool
 accounting and the tables are mutated only while it is held, and the
@@ -38,22 +42,24 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import CacheSpec, paged_gather
+from repro_torch.models.ssm import SSMCache
 from repro_torch.serve.paged import (GARBAGE_BLOCK, BlockAllocator,
                                      blocks_needed, ceil_div)
 
-#: families the port's engine serves; all tolerate right-padded prefill
-#: rows (attention masks pad columns causally, the ssm family masks them
-#: out of the carried state)
-SERVED_FAMILIES = ("dense", "moe", "ssm")
+#: families the port's engine serves (JAX's); all tolerate right-padded
+#: prefill rows (attention masks pad columns causally, the recurrent
+#: families mask them out of the carried state)
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 #: served families with attention KV leaves a block pool can back (moe's
-#: MLA leaves are (…, R) and (…, dr), with no head axis; "ssm" is
-#: excluded: its whole cache is O(1) recurrent state per slot)
-PAGED_FAMILIES = ("dense", "moe")
+#: MLA leaves are (…, R) and (…, dr), with no head axis; the hybrid's
+#: shared-attention KV, beside its dense SSM state; "ssm" is excluded:
+#: its whole cache is O(1) recurrent state per slot)
+PAGED_FAMILIES = ("dense", "moe", "hybrid")
 
-#: served families whose cache is recurrent state the prefix cache
+#: served families whose cache carries recurrent state the prefix cache
 #: snapshots
-RECURRENT_FAMILIES = ("ssm",)
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 class CacheBackend:
@@ -259,22 +265,33 @@ class PagedPool(CacheBackend):
         ...) blocks and written to the physical ids in ``tables`` (k,
         nblk).  Unreserved entries, and a warm admission's shared range
         (:meth:`cow_table`), point at the garbage block: their writes
-        collide there and are never read back."""
+        collide there and are never read back.  Dense recurrent leaves
+        (the split substrate's ``SSMCache`` layers) land whole rows at
+        ``slots``."""
         bs = self.block_size
         for layer, new in zip(slab, rows):
-            for pool, row in zip(layer, new):
+            for leaf, row in zip(layer, new):
+                if isinstance(layer, SSMCache):
+                    leaf.index_copy_(0, slots, row.to(leaf.dtype))
+                    continue
                 blocks = row.reshape((row.shape[0], tables.shape[1], bs)
                                      + tuple(row.shape[2:]))
-                pool[tables] = blocks.to(pool.dtype)
+                leaf[tables] = blocks.to(leaf.dtype)
         return slab
 
     def gather_staging(self, caches, tbl):
         """A 1-row staging tree of ``stage_len`` columns holding the shared
         blocks' KV in logical order (exactly what the cold prefill wrote)
         and the garbage block's beyond them, which the tail prefill
-        overwrites or masks; gathered as a copy, the pool is only read."""
-        return [type(layer)(*(paged_gather(pool, tbl) for pool in layer))
-                for layer in caches]
+        overwrites or masks; gathered as a copy, the pool is only read.
+        Dense recurrent leaves get a fresh zeroed row, for
+        :meth:`seed_snapshot` to fill."""
+        return [type(layer)(*(
+            torch.zeros((1,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                        device=leaf.device)
+            if isinstance(layer, SSMCache) else paged_gather(leaf, tbl)
+            for leaf in layer))
+            for layer in caches]
 
     # --- reservation ----------------------------------------------------
     def validate_request(self, rid, prompt_len, max_new):
@@ -410,14 +427,40 @@ class PagedPool(CacheBackend):
         return self.allocator.free_blocks
 
 
+class HybridComposite(PagedPool):
+    """Split substrate (hybrid): the shared-attention KV leaves in the
+    paged block pool, the O(1) SSM state dense per slot; each leaf gets
+    the substrate that pays off (:meth:`PagedPool.scatter` and
+    :meth:`PagedPool.gather_staging` route by leaf type).  ``rollback``
+    composes both halves' rules with no code of its own: the paged KV
+    beyond the rewound pointer is dead weight inside the slot's
+    reservation (:meth:`PagedPool.rollback`'s accounting check), and the
+    engine re-commits the recurrent half from the pre-verify caches
+    (:meth:`RecurrentState.rollback`).  A prefix boundary needs BOTH
+    halves, so payloads exist only at block-aligned prompt lengths."""
+
+    needs_state = True
+    snapshot = RecurrentState.snapshot
+    seed_snapshot = RecurrentState.seed_snapshot
+
+    def prefix_payload(self, prompt, slot, state):
+        if state is None or len(prompt) % self.block_size:
+            return None
+        nb = len(prompt) // self.block_size
+        if nb == 0:
+            return None
+        return (prompt, self._slot_blocks[slot][:nb], state)
+
+
 def make_backend(model, family: str, config) -> CacheBackend:
     """Pick the substrate for (family, config): the only place that maps
     families to cache substrates.  ``config`` must already be validated
     against the family (``EngineConfig.validate``)."""
     if config.paged:
-        return PagedPool(model, config.max_batch, config.max_seq,
-                         block_size=config.block_size,
-                         num_blocks=config.num_blocks)
+        cls = HybridComposite if family in RECURRENT_FAMILIES else PagedPool
+        return cls(model, config.max_batch, config.max_seq,
+                   block_size=config.block_size,
+                   num_blocks=config.num_blocks)
     if family in RECURRENT_FAMILIES:
         return RecurrentState(model, config.max_batch, config.max_seq)
     return DenseSlab(model, config.max_batch, config.max_seq)

@@ -3,10 +3,11 @@
 
 Every knob of JAX's config is here and means the same: the substrate (a
 dense slab or a paged block pool for the dense and moe families, dense
-recurrent state for ssm), chunked prefill, the prefix cache, the background loop's
-idle backoff, request tracing and speculative decoding (greedy-only).
-:meth:`EngineConfig.validate` raises ``NotImplementedError`` naming
-ROADMAP queue 1 item 7 for a family the port does not serve yet.
+recurrent state for ssm, either a dense slab or the split substrate for
+hybrid), chunked prefill, the prefix cache, the background loop's idle
+backoff, request tracing and speculative decoding (greedy-only).
+:meth:`EngineConfig.validate` accepts and refuses what JAX's does for
+every family.
 """
 from __future__ import annotations
 
@@ -139,10 +140,14 @@ class EngineConfig:
         """Every family-dependent rule, in one place (JAX's cross-rules
         over the families the port serves)."""
         from repro_torch.serve.backend import PAGED_FAMILIES, SERVED_FAMILIES
+        if family in ("encdec", "vlm"):
+            raise ValueError(
+                f"family {family!r} needs modality inputs the text-only "
+                "engine does not carry")
         if family not in SERVED_FAMILIES:
-            raise NotImplementedError(
-                f"serving family {family!r} is not ported yet: ROADMAP "
-                "queue 1 item 7")
+            raise ValueError(
+                f"family {family!r} is not servable by this engine "
+                f"(supported: {SERVED_FAMILIES})")
         if self.paged and family not in PAGED_FAMILIES:
             raise ValueError(
                 f"paged=True is not supported for family {family!r}: "

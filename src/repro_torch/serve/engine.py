@@ -461,8 +461,9 @@ class EngineMetricsView:
 class Engine:
     def __init__(self, cfg, params, config: EngineConfig | None = None, *,
                  device=None, clock=None):
-        """``params``: the model (``TransformerLM`` or ``SSMLM``) holding
-        the full-precision weights.  ``device``: the card unless ``"cpu"``
+        """``params``: the model (``TransformerLM``, ``SSMLM`` or
+        ``HybridLM``) holding the full-precision weights.  ``device``:
+        the card unless ``"cpu"``
         (the model must already live there).  ``clock``: the engine's
         single time base, a zero-argument callable returning monotonic
         seconds (default ``time.perf_counter``); a virtual clock makes

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models.attention import sdpa
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.common import CacheSpec
 from repro_torch.models.registry import get_config, get_model
 from repro_torch.models.ssm_lm import SSMLM
@@ -62,7 +63,8 @@ def test_every_module_imports_without_jax_or_repro():
         "obs.exporters", "serve.spec", "serve.engine", "models.moe",
         "models.attention", "configs.starcoder2_15b", "configs.minitron_4b",
         "configs.deepseek_67b", "configs.deepseek_v2_lite_16b",
-        "configs.deepseek_v2_236b")} <= names
+        "configs.deepseek_v2_236b", "models.hybrid",
+        "configs.zamba2_1p2b")} <= names
 
 
 def _small_cfg():
@@ -162,15 +164,21 @@ def test_ssm_unported_parts_name_their_roadmap_item():
 def test_unported_parts_name_their_roadmap_item():
     # starcoder2 (queue 1 item 4) is ported: it loads as JAX's config
     assert get_config("starcoder2-15b").mlp_type == "gelu"
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        get_config("zamba2-1.2b")
+    # zamba2 (the hybrid, queue 1 item 7) is ported: it loads and builds
+    zamba = get_config("zamba2-1.2b")
+    assert zamba.family == "hybrid" and zamba.hybrid.period == 6
+    assert isinstance(get_model(zamba.reduced(dtype="float32"),
+                                device="cpu"), HybridLM)
+    # whisper-base and llava-next are not: the JAX engine serves neither
+    for arch in ("whisper-base", "llava-next-mistral-7b"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            get_config(arch)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         Trainer(get_config("mamba2-1.3b").reduced(), TrainerConfig(),
                 device="cpu")
     assert CacheSpec(block_size=16, num_blocks=8).paged   # ported
     EngineConfig(spec="ngram").validate("dense")          # ported, as JAX
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        EngineConfig(spec="ngram").validate("hybrid")
+    EngineConfig(spec="ngram").validate("hybrid")         # ported, as JAX
     q = torch.zeros(1, 4, 2, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         sdpa(q, q, q, impl="flash")
@@ -178,8 +186,9 @@ def test_unported_parts_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         train_main(["--device", "cpu", "--model-parallel", "2"])
     from dataclasses import replace
-    # the moe family is ported (queue 1 item 7's first part); hybrid is not
+    # the moe family is ported (queue 1 item 7's first part); a transformer
+    # of a family it does not serve still names the item
     moe = get_config("deepseek-v2-lite-16b").reduced(dtype="float32")
     assert isinstance(TransformerLM(moe, device="cpu"), TransformerLM)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TransformerLM(replace(_small_cfg(), family="hybrid"), device="cpu")
+        TransformerLM(replace(_small_cfg(), family="encdec"), device="cpu")

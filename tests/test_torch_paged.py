@@ -187,14 +187,18 @@ def test_config_accepts_what_jax_accepts():
     for conf in (EngineConfig, JaxEngineConfig):
         conf(spec="ngram").validate("dense")
         conf(spec="self_lut", spec_k=2, trace=True).validate("ssm")
-    # the moe family is served (queue 1 item 7's first part), paged too,
-    # as JAX serves it; hybrid, encdec and vlm are not yet
+    # the moe and hybrid families are served (queue 1 item 7), paged too,
+    # as JAX serves them; encdec and vlm are refused as JAX refuses them
     for conf in (EngineConfig, JaxEngineConfig):
-        conf(spec="ngram").validate("moe")
-        conf(paged=True, prefix_cache=True, prefill_chunk=4).validate("moe")
-    for family in ("hybrid", "encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            EngineConfig(spec="ngram").validate(family)
+        for family in ("moe", "hybrid"):
+            conf(spec="ngram").validate(family)
+            conf(paged=True, prefix_cache=True, prefill_chunk=4).validate(
+                family)
+        with pytest.raises(ValueError, match="prefix_cache"):
+            conf(prefix_cache=True).validate("hybrid")
+        for family in ("encdec", "vlm"):
+            with pytest.raises(ValueError, match="modality"):
+                conf(spec="ngram").validate(family)
 
 
 def test_cli_flags_parse_as_jax():
