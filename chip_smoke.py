@@ -85,6 +85,16 @@ result line):
       both kernels (the SIMT one also on the bf16 inputs) beside the
       bounds, the plain versions and ``F.scaled_dot_product_attention``
       (timed only);
+   f. the SSD scan's backward (``ssd_scan_bwd``, the seven kernels of
+      ``ssd_scan_bwd.cu``, reading the forward's workspace) against torch
+      autograd of the plain scan (true f32), every gradient within
+      ``KERNEL_TOL`` of its scale, two calls bitwise equal: at the
+      training shape B 2 x S 4096 at mamba2's widths (N 128) and zamba2's
+      (N 64), and a ragged (1, 300) call masked at 211 from a random
+      initial state; each timed device-only and by events beside its
+      bound (bytes, or three TF32 products at 494.7 TFLOP/s; the f32
+      SIMT bound beside it), the forward on the same inputs, the plain
+      backward and each kernel's device time;
 4. reduced f32 models, card against CPU: yi-9b (quantization on the card
    equals the CPU's bitwise; decode logits through the kernels under
    lut4, nf4p; lut_nf4 prefill) and mamba2 (right-padded prefill with
@@ -108,7 +118,10 @@ result line):
    tokens card == CPU == slab, self_lut == plain; yi-9b training:
    the cacheless forward under attn_impl="flash", the loss and every
    gradient under chunked attention and under luna_approx (the STE on
-   luna_mm), one train step;
+   luna_mm), one train step; mamba2 and zamba2 training (the scan's
+   forward and backward on the kernels, 2 and 1 launches a layer): the
+   loss, every gradient and one train step; one Mamba2 layer's w_in,
+   A_log and dt_bias gradients;
 5. ``quant_matmul`` on the card against the CPU's on identical f32 inputs
    under every model-level mode: codes and LUNA int32 accumulators
    bitwise, outputs 1e-5;
@@ -117,7 +130,7 @@ result line):
    a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
       decode projections on the D&C kernels, every launch on the
       tensor-core kernel);
-   b. on the first ``MODEL_LEVEL_LAYERS`` (12) of those layers, under the
+   b. on the first ``MODEL_LEVEL_LAYERS`` (6) of those layers, under the
       model-level modes
       luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm: prefill calls at M >= 32 on its
@@ -220,6 +233,20 @@ result line):
       split substrate: tokens 12a's lut4 run's, or the ``WINDOW_FACTOR``
       rule at the first divergence;
    the phase prints its seconds;
+13. training the ssm, hybrid and moe families at their published widths
+   (bf16, random weights from seed 0, SyntheticLM seed 0, phase 8's B 2
+   x S 4096, AdamW + cosine, remat on), after phase 8b: mamba2-1.3b (48
+   layers: first one layer's w_in, A_log and dt_bias gradients through
+   the scan's backward kernel against autograd of the plain scan,
+   ``SCAN_GRAD_REL``; 4 steps; 2 QAT steps under luna_approx at S =
+   1024, luna_mm 192 launches a step, all tensor-core), zamba2-1.2b (38
+   layers, 4 steps) and deepseek-v2-lite-16b with its depth cut 27 -> 3
+   (4 steps; 27 layers need 188 GB with f32 moments): per step wall,
+   tok/s, loss, grad norm, peak memory, the last step profiled (device
+   time by kernel, the scan's share, the idle share); ``ssd_scan`` 2
+   launches a Mamba2 layer a step (forward and recompute), ``ssd_scan_bwd``
+   1, none for deepseek-v2-lite; the watched leaves moved; the phase
+   prints its seconds;
 each run of 6, 7, 9, 10, 11 and 12 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
@@ -1455,6 +1482,165 @@ def ssd_zamba2_cases(dev, gen, compare) -> list:
     return rows
 
 
+#: phase 3f's backward cases: (label, B, S, widths, valid length or None,
+#: initial state): the training shape (TRAIN_4K's S = 4096, B cut to 2) at
+#: mamba2-1.3b's and zamba2-1.2b's widths, and a ragged, masked call from a
+#: carried state over two chunks
+SSD_BWD_CASES = [("mamba2", 2, 4096, SSD_WIDTHS, None, None),
+                 ("mamba2 ragged", 1, 300, SSD_WIDTHS, 211, "random"),
+                 ("zamba2", 2, 4096, SSD_ZAMBA2_WIDTHS, None, None)]
+
+
+def ssd_bwd_flops(b: int, s: int, h: int, p: int, g: int, n: int,
+                  chunk: int, carried: bool) -> int:
+    """Operations the scan's backward needs over the real positions: per
+    chunk of q positions and head, the chunk's adjoint Σ exp(cum) dy ⊗ C
+    (2qPN), D = dy·xdtᵀ ⊙ L on the causal triangle (2·tri·P + tri), the
+    intra-chunk dxdt (2·tri·P + tri), dB and dC (2·tri·N each), the state's
+    dxdt and dB terms (2qNP each), dC's inter term (2qPN, where a state
+    enters: chunk 0 only from a carried initial state) and the reverse
+    state pass (2PN); C·Bᵀ and the states are the forward's.  A
+    multiply-add counts 2."""
+    total = 0
+    for c in range(-(-s // chunk)):
+        q = min(chunk, s - c * chunk)
+        tri = q * (q + 1) // 2
+        per_head = (2 * q * p * n + 2 * (2 * tri * p + tri) + 4 * tri * n
+                    + 4 * q * n * p + 2 * p * n)
+        if c > 0 or carried:
+            per_head += 2 * q * p * n
+        total += h * per_head
+    return b * total
+
+
+def ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
+    """Least time of one backward call: x, dt, a, B, C, dy, the final
+    state's cotangent, the mask and the initial state read once, the
+    forward's C·Bᵀ (its causal tiles) and chunk states read once, dx, ddt,
+    da, dB, dC and the initial state's gradient written once; against
+    :func:`ssd_bwd_flops` at three TF32 products each (494.7 TFLOP/s: the
+    f32-accurate tensor-core rate); and beside it the f32 SIMT bound (one
+    product each at 67 TFLOP/s), the rate this kernel's f32 FMAs run at."""
+    nc = -(-s // chunk)
+    tri = sum(min(chunk, s - c * chunk) * (min(chunk, s - c * chunk) + 1)
+              // 2 for c in range(nc))
+    floats = (3 * b * s * h * p                # x, dy; dx
+              + 2 * (b * s * h + h)              # dt, a; ddt, da
+              + 4 * b * s * g * n                # B, C; dB, dC
+              + b * h * p * n                    # the final state's cotangent
+              + b * g * tri                      # the forward's C·Bᵀ
+              + b * (nc - 1) * h * p * n         # its chunk states
+              + (2 * b * h * p * n if init is not None else 0))
+    t_bytes = (4 * floats + masked * b * s) / HBM_BYTES_S * 1e3
+    flops = ssd_bwd_flops(b, s, h, p, g, n, chunk, init == "random")
+    t_ops = 3 * flops / TF32_FLOP_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_simt_bound_ms": max(t_bytes, flops / F32_FLOP_S * 1e3),
+            "gflop": flops / 1e9}
+
+
+def ssd_bwd_kernel_phase(dev):
+    """Phase 3f: ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against torch
+    autograd of the plain scan (``_ssd_chunked`` on the card, true f32:
+    ``allow_tf32`` is off) on the same inputs and cotangents, every
+    gradient within ``KERNEL_TOL`` of its scale (``scaled_err``); two calls
+    bitwise equal; each case timed device-only (``graph_ms``, 5 calls a
+    graph) and by events (5 eager calls), beside its bound, the forward's
+    device-only time on the same inputs, the plain backward (autograd's
+    backward through the retained graph, by events) and each of the seven
+    kernels' device time (torch.profiler)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.ssm import _ssd_chunked
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 3f's plain version must run in true f32")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    names = ("dx", "ddt", "da", "db", "dc", "d_initial_state")
+    rows = []
+    for label, b, s, w, valid, init in SSD_BWD_CASES:
+        chunk = min(256, s)
+        h, p, g, n = w["h"], w["p"], w["g"], w["n"]
+        args, kw = ssd_inputs(dev, gen, b, s, h, p, g, n, valid, init)
+        dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+        df = torch.randn((b, h, p, n), generator=gen, device=dev)
+        what = f"phase 3f ssd_scan_bwd {label} ({b}, {s})"
+        _, _, ws = synced(f"{what}: forward", lambda: sk.ssd_scan(
+            *args, chunk=chunk, keep_workspace=True, **kw))
+
+        def call(i):
+            return sk.ssd_scan_bwd(*args, dy, df, chunk=chunk, workspace=ws,
+                                   **kw)
+        got = synced(what, lambda: call(0))
+        again = synced(what, lambda: call(1))
+        check(all(torch.equal(x, y) for x, y in zip(got, again)
+                  if x is not None), f"{what}: two calls differ")
+        leaves = [t.clone().requires_grad_() for t in args]
+        s0 = kw["initial_state"]
+        if s0 is not None:
+            leaves.append(s0.clone().requires_grad_())
+        y0, f0 = _ssd_chunked(*leaves[:5], chunk, initial_state=(
+            leaves[5] if s0 is not None else None), mask=kw["mask"])
+
+        def plain(i):
+            return torch.autograd.grad((y0, f0), leaves, (dy, df),
+                                       retain_graph=True)
+        want = plain(0)
+        errs, abs_err = {}, 0.0
+        for name, gg, ww in zip(names, got, want):
+            errs[name] = sk.scaled_err(gg, ww)
+            abs_err = max(abs_err, (gg - ww).abs().max().item())
+            check(errs[name] <= sk.KERNEL_TOL,
+                  f"{what}: {name} scaled error {errs[name]} > "
+                  f"{sk.KERNEL_TOL}")
+        del got, again, want
+        rows.append({
+            "case": label, "b": b, "s": s, "chunk": chunk, **w,
+            "valid": valid, "initial_state": init, "scaled_err": errs,
+            "max_abs_err": abs_err, "bitwise_repeat": True,
+            "device_ms": graph_ms(call, 5), "ms": cuda_ms(call, 5),
+            "fwd_device_ms": graph_ms(lambda i: sk.ssd_scan(
+                *args, chunk=chunk, **kw), 5),
+            "plain_ms": cuda_ms(plain, 3),
+            "kernels_us": ssd_kernel_us(call, 3),
+            **ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, valid is not None,
+                               init)})
+        del args, kw, dy, df, ws, leaves, y0, f0
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"kernel_check": "ssd_scan_bwd", "passed": True,
+          "tol": sk.KERNEL_TOL,
+          "tol_rule": "max|kernel - autograd of plain| <= tol * max(1, "
+                      "max|plain|), each gradient", "per_shape": rows})
+    head = rows[0]
+    return {"ssd_scan_bwd": {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "none: JAX differentiates its jnp scan, "
+                    "src/repro/models/ssm.py:90 _ssd_chunked (no Pallas "
+                    "backward)",
+        "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_scaled_err": max(max(r["scaled_err"].values()) for r in rows),
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "fwd_device_ms": head["fwd_device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "f32_simt_bound_ms": head["f32_simt_bound_ms"],
+        "library_ms": None,
+        "timed_as": "one mamba2-1.3b layer's scan backward at the "
+                    "training shape: B=2, S=4096, H=64, P=64, N=128, G=1, "
+                    "chunk 256, no mask, no initial state, f32; ms by CUDA "
+                    "events around 5 eager calls, device_ms by CUDA-graph "
+                    "replays (graph_ms); plain: autograd's backward of "
+                    "_ssd_chunked through its retained graph; bound: bytes "
+                    "or three TF32 products each at 494.7 TFLOP/s; no "
+                    "single PyTorch call computes it",
+        "per_shape": rows}}
+
+
 def ssd_kernel_us(call, calls: int = 10) -> dict:
     """Device microseconds a call of each ``ssd_*`` kernel of ``call``
     (torch.profiler over ``calls`` eager calls; kernels on the side stream
@@ -1977,7 +2163,9 @@ def small_training_phase(dev):
     tests use): the cacheless forward under attn_impl="flash", the STE on
     identical inputs, the loss and every gradient under chunked attention
     and under luna_approx through the STE on luna_mm, one train step's
-    params.  Beside them, the reason luna_approx's gradients have a
+    params; the same for reduced f32 mamba2 and zamba2 (the scan on
+    ``ssd_scan`` and ``ssd_scan_bwd``) and one Mamba2 layer's w_in, A_log
+    and dt_bias gradients.  Beside them, the reason luna_approx's gradients have a
     tolerance of their own: the same effect on the CPU alone under 1e-7
     relative weight noise."""
     from dataclasses import replace
@@ -2002,8 +2190,14 @@ def small_training_phase(dev):
             m.loss(batch)[0].backward()
         out[f"{name} grads, cpu vs cpu with 1e-7 weight noise (scaled)"] = \
             cc.scaled_grad_err(a, b)
-    emit({"small_reference": "reduced yi-9b f32 training, card vs cpu "
-                             "(B=2, S=256)", "max_err": out,
+    for arch in cc.SCAN_FAMILIES:
+        out[f"{arch} training (B=2, S=96)"] = \
+            cc.family_training_card_vs_cpu(dev, arch)
+    out["one mamba2 layer's w_in, A_log, dt_bias grads (scaled)"] = \
+        cc.mamba2_layer_card_vs_cpu(dev)
+    emit({"small_reference": "reduced f32 training, card vs cpu: yi-9b "
+                             "(B=2, S=256), mamba2 and zamba2 (B=2, S=96), "
+                             "one Mamba2 layer", "max_err": out,
           "rtol": cc.TOL, "atol": cc.TOL, "ste_rel": cc.STE_REL,
           "grad_tol": {"chunked": cc.GRAD_REL,
                        "luna_approx": cc.LUNA_GRAD_REL,
@@ -2204,9 +2398,10 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.luna_mm.luna_mm import luna_mm
     from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
                                                        lut_gemm_dc_res)
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
     return {f.__name__: f for f in (lut_gemm_dc, lut_gemm_dc_res, luna_mm,
-                                    lut_gemm, ssd_scan, flash_attention)}
+                                    lut_gemm, ssd_scan, ssd_scan_bwd,
+                                    flash_attention)}
 
 
 def request_mix(vocab: int) -> list:
@@ -2447,10 +2642,10 @@ def add_launches(total: dict, counts: dict) -> None:
 
 
 #: phase 6b's model-level runs repeat phase 6a's serving path, host-bound
-#: (re-quantizing every weight each call): on the first 12 of the model's
-#: layers (the same weights), which keeps the whole script near half its
-#: time limit (24 from PR 20, when phase 9 came; 12 since phase 12)
-MODEL_LEVEL_LAYERS = 12
+#: (re-quantizing every weight each call): on the first 6 of the model's
+#: layers (the same weights), which keeps the whole script in its time
+#: limit (24 when phase 9 came, 12 with phase 12, 6 with phase 13)
+MODEL_LEVEL_LAYERS = 6
 #: phase 10a's depth (yi-9b's first 24 layers, the same weights)
 SPEC_LAYERS = 24
 
@@ -3321,10 +3516,61 @@ def profile_train_step(step_fn, model, opt_state, batch) -> tuple:
         "gemm_ms": share("gemm", "cutlass", "sm90_xmma", "nvjet")
         if rows else "not measured",
         "luna_mm_ms": share("luna_mm") if rows else "not measured",
+        "ssd_scan_ms": (share("ssd_") - share("ssd_bwd")) if rows
+        else "not measured",
+        "ssd_scan_bwd_ms": share("ssd_bwd") if rows else "not measured",
         "kernels": len(rows),
         "launches": sum(r[2] for r in rows),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n}
                 for k, ms, n in rows[:14]]}
+
+
+def train_steps(dev, what, n, step_fn, model, state, data, wrappers, want,
+                want_tc=0, profile_last=False, extra=None) -> tuple:
+    """``n`` train steps (phases 8 and 13) on ``data``'s batches 0 .. n-1,
+    every launch count set to 0 just before and read after: the counts
+    must equal ``want`` and luna_mm's tensor-core launches ``want_tc``.
+    Each step's wall (synchronised), tok/s, loss and grad norm (finite),
+    the peak memory, and with ``profile_last`` the last step under
+    torch.profiler; one line, with ``extra`` in it.  Returns (the counts,
+    luna_mm's tensor-core launches)."""
+    import torch
+
+    batches = [data.batch(i, dev) for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    steps, prof = [], None
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        if profile_last and i == n - 1:
+            metrics, prof = profile_train_step(step_fn, model, state, batch)
+        else:
+            metrics = step_fn(model, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"{what} step {i}: loss {loss}, grad_norm {gn}")
+        tokens = batch["tokens"].numel()
+        steps.append({"step": int(state.step), "wall_s": wall,
+                      "tok_s": tokens / wall, "loss": loss,
+                      "grad_norm": gn, "profiled": prof is not None
+                      and i == n - 1})
+    counts, tc = read_counters(wrappers)
+    check(counts == want, f"{what}: launches {counts}, want {want}")
+    check(tc["luna_mm"] == want_tc, f"{what}: {tc['luna_mm']} luna_mm "
+          f"launches on the tensor-core kernel, want {want_tc}")
+    steady = [r["wall_s"] for r in steps[1:] if not r["profiled"]]
+    emit({"train": what, "batch": list(batches[0]["tokens"].shape),
+          "steps": steps, "launches": counts,
+          "luna_mm_launches_tc": tc["luna_mm"],
+          "steady_step_s": min(steady) if steady else None,
+          "steady_tok_s": (batches[0]["tokens"].numel() / min(steady)
+                           if steady else None),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **(extra or {}), **({"profile": prof} if prof else {})})
+    return counts, tc["luna_mm"]
 
 
 #: phase 8: yi-9b at its published widths, depth cut 48 -> 8 (the f32
@@ -3375,50 +3621,13 @@ def train_phase(dev) -> tuple[dict, int, int]:
     before = {k: v.detach()[:8, :8].float().clone() for k, v in watch.items()}
     wrappers = kernel_wrappers()
     launches = {}
-    luna = wrappers["luna_mm"]
     luna_tc = []
 
     def run(what, n, step_fn, m, data, want, want_tc=0, profile_last=False):
-        """n steps with every count set to 0 just before, read after;
-        ``want_tc`` of luna_mm's launches on its tensor-core kernel."""
-        batches = [data.batch(i, dev) for i in range(n)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for f in wrappers.values():
-            f.launches = 0
-        luna.launches_tc = 0
-        steps, prof = [], None
-        for i, batch in enumerate(batches):
-            t0 = time.perf_counter()
-            if profile_last and i == n - 1:
-                metrics, prof = profile_train_step(step_fn, m, state, batch)
-            else:
-                metrics = step_fn(m, state, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
-            check(math.isfinite(loss) and math.isfinite(gn),
-                  f"{what} step {i}: loss {loss}, grad_norm {gn}")
-            tokens = batch["tokens"].numel()
-            steps.append({"step": int(state.step), "wall_s": wall,
-                          "tok_s": tokens / wall, "loss": loss,
-                          "grad_norm": gn, "profiled": prof is not None
-                          and i == n - 1})
-        counts = {name: f.launches for name, f in wrappers.items()}
-        luna_tc.append(luna.launches_tc)
-        check(counts == want, f"{what}: launches {counts}, want {want}")
-        check(luna_tc[-1] == want_tc, f"{what}: {luna_tc[-1]} luna_mm "
-              f"launches on the tensor-core kernel, want {want_tc}")
+        counts, tc = train_steps(dev, what, n, step_fn, m, state, data,
+                                 wrappers, want, want_tc, profile_last)
+        luna_tc.append(tc)
         add_launches(launches, counts)
-        steady = [r["wall_s"] for r in steps[1:] if not r["profiled"]]
-        emit({"train": what, "batch": list(batches[0]["tokens"].shape),
-              "steps": steps, "launches": counts,
-              "luna_mm_launches_tc": luna_tc[-1],
-              "steady_step_s": min(steady) if steady else None,
-              "steady_tok_s": (batches[0]["tokens"].numel() / min(steady)
-                               if steady else None),
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              **({"profile": prof} if prof else {})})
 
     zero = dict.fromkeys(wrappers, 0)
     run("bf16, chunked attention", TRAIN_STEPS, make_train_step(cfg, opt),
@@ -3611,6 +3820,185 @@ def trainer_phase(dev) -> None:
     check(all(math.isfinite(x) for r in out.values() for x in r["loss"]),
           "non-finite trainer loss")
     emit({"trainer": cfg.name, "dtype": cfg.dtype, "runs": out})
+
+
+#: phase 13: the ssm, hybrid and moe families trained at their published
+#: widths, at phase 8's shape (TRAIN_4K's S = 4096, its batch cut to 2):
+#: (arch, depth or None for all layers).  deepseek-v2-lite-16b keeps 3 of
+#: its 27 layers (the dense first one and 2 MoE layers): its 15.7B
+#: parameters take 31 GB in bf16, as many again for the gradients and 126
+#: GB for AdamW's two f32 moments, 188 GB in all against the card's 80
+FAMILY_TRAIN = [("mamba2-1.3b", None), ("zamba2-1.2b", None),
+                ("deepseek-v2-lite-16b", 3)]
+FAMILY_STEPS = 4
+#: the leaves phase 13 requires to move (every layer's): bf16 norm
+#: weights at 1.0 take steps below their ulp and may not
+FAMILY_WATCH = ("embed", "lm_head", "w_in", "w_out", "A_log", "dt_bias",
+                "router", "wq", "w_gate")
+#: phase 13's gradient check: one mamba2 layer's w_in, A_log and dt_bias
+#: gradients on the first batch through the trainer's route (the scan's
+#: backward on ssd_scan_bwd.cu) against the same with autograd of the
+#: plain scan as the backward (:class:`KernelFwdPlainBwd`, reachable from
+#: this script alone), as a share of each leaf's max |grad|.  The two
+#: routes share every forward bit; the layer is the last, so its upstream
+#: gradient is the same bits too, and the two backwards differ by f32
+#: rounding (~1e-6 of the scale).  w_in's gradient is bf16: that rounding
+#: flips a bf16 rounding here and there, and one flip of the leaf's
+#: largest element moves it by 2^-8 of the scale, ~4e-3
+SCAN_GRAD_LAYER = -1
+SCAN_GRAD_REL = 1e-2
+
+
+def kernel_fwd_plain_bwd(x, dt, a, b, c, *, chunk, initial_state=None,
+                         mask=None):
+    """Phase 13's check-only stand-in for ``ssd_chunked_kernel`` (training
+    passes no state and no mask): the scan's forward on the kernels, its
+    backward torch autograd of the plain ``_ssd_chunked`` recomputed on the
+    saved inputs."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import _ssd_chunked
+
+    check(initial_state is None and mask is None,
+          "the check-only scan takes no state and no mask")
+
+    class KernelFwdPlainBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *ops):
+            ctx.save_for_backward(*ops)
+            return ssd_scan(*ops, chunk=chunk)
+
+        @staticmethod
+        def backward(ctx, dy, dfinal):
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                y, fs = _ssd_chunked(*leaves, chunk)
+                return torch.autograd.grad((y, fs), leaves, (dy, dfinal))
+
+    return KernelFwdPlainBwd.apply(*(t.float().contiguous()
+                                     for t in (x, dt, a, b, c)))
+
+
+def scan_grad_check(model, batch) -> dict:
+    """:data:`SCAN_GRAD_LAYER`'s gradients through the trainer's route and
+    through :func:`kernel_fwd_plain_bwd`, each within
+    :data:`SCAN_GRAD_REL` of its leaf's scale; the grads are cleared
+    after."""
+    import repro_torch.models.ssm as ssm_mod
+
+    leaves = ("w_in", "A_log", "dt_bias")
+    layer = model.blocks[SCAN_GRAD_LAYER].m
+    grads, losses = [], []
+    for route in (ssm_mod.ssd_chunked_kernel, kernel_fwd_plain_bwd):
+        saved, ssm_mod.ssd_chunked_kernel = ssm_mod.ssd_chunked_kernel, route
+        try:
+            loss, _ = model.loss(batch)
+            loss.backward()
+        finally:
+            ssm_mod.ssd_chunked_kernel = saved
+        losses.append(loss.item())
+        grads.append({k: getattr(layer, k).grad.float().clone()
+                      for k in leaves})
+        model.zero_grad(set_to_none=True)
+    errs = {k: ((grads[0][k] - grads[1][k]).abs().max()
+                / grads[1][k].abs().max().clamp_min(1e-30)).item()
+            for k in leaves}
+    check(all(e <= SCAN_GRAD_REL for e in errs.values()),
+          f"phase 13 gradient check: {errs} of the scale > {SCAN_GRAD_REL}")
+    return {"layer": SCAN_GRAD_LAYER, "scaled_err": errs,
+            "tol": SCAN_GRAD_REL, "loss_kernel_route": losses[0],
+            "loss_check_route": losses[1]}
+
+
+def family_train_phase(dev) -> tuple[dict, int]:
+    """Phase 13: the trainer's step (``make_train_step``: AdamW + cosine,
+    remat on, bf16, random weights from seed 0, SyntheticLM seed 0) at the
+    published widths of :data:`FAMILY_TRAIN`, ``FAMILY_STEPS`` steps of B
+    2 x S 4096 each, the last one profiled: every Mamba2 layer's scan 2
+    ``ssd_scan`` launches a step (the forward and remat's recompute) and 1
+    ``ssd_scan_bwd``, none for deepseek-v2-lite; parameters changed.
+    mamba2 first runs :func:`scan_grad_check` on its first batch, then
+    ``QAT_STEPS`` steps under luna_approx at S = ``QAT_S`` (w_in and w_out
+    through the STE on luna_mm: 2 launches a layer, forward and recompute,
+    all on its tensor-core kernel).  Returns the launches by kernel and
+    luna_mm's tensor-core launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero = dict.fromkeys(wrappers, 0)
+    launches, luna_tc = {}, 0
+    for arch, depth in FAMILY_TRAIN:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = replace(cfg, num_layers=depth)
+        t0 = time.perf_counter()
+        model = get_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0)).requires_grad_(True)
+        qat = arch == "mamba2-1.3b"
+        opt = AdamW(lr=3e-4, schedule=cosine_schedule(
+            1, FAMILY_STEPS + QAT_STEPS * qat))
+        state = opt.init(model.params_tree())
+        torch.cuda.synchronize()
+        watch = {n: p for n, p in model.named_parameters()
+                 if n.split(".")[-1] in FAMILY_WATCH}
+        before = {n: p.detach().clone() for n, p in watch.items()}
+        emit({"train_model": cfg.name, "family": cfg.family,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "ssm": vars(cfg.ssm) if cfg.ssm else None,
+              "moe": vars(cfg.moe) if cfg.moe else None,
+              "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+              "remat": cfg.remat,
+              "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+              "init_s": time.perf_counter() - t0})
+        data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+        extra = {}
+        if qat:
+            extra["grad_check"] = scan_grad_check(model,
+                                                  data.batch(0, dev))
+        scans = cfg.num_layers if cfg.ssm is not None else 0
+        want = zero | {"ssd_scan": 2 * scans * FAMILY_STEPS,
+                       "ssd_scan_bwd": scans * FAMILY_STEPS}
+        counts, _ = train_steps(dev, f"{cfg.name} bf16", FAMILY_STEPS,
+                                make_train_step(cfg, opt), model, state,
+                                data, wrappers, want, profile_last=True,
+                                extra=extra)
+        add_launches(launches, counts)
+        if qat:
+            qcfg = replace(cfg, quant=QuantConfig(mode="luna_approx"))
+            qmodel = type(model).from_params(
+                qcfg, model.params_tree(), device=dev).requires_grad_(True)
+            n_luna = QAT_STEPS * 2 * cfg.num_layers * 2
+            want = zero | {"ssd_scan": 2 * scans * QAT_STEPS,
+                           "ssd_scan_bwd": scans * QAT_STEPS,
+                           "luna_mm": n_luna}
+            counts, tc = train_steps(
+                dev, f"{cfg.name} QAT luna_approx (STE on luna_mm)",
+                QAT_STEPS, make_train_step(qcfg, opt), qmodel, state,
+                SyntheticLM(cfg.vocab_size, QAT_S, TRAIN_B, seed=0),
+                wrappers, want, want_tc=n_luna, profile_last=True)
+            add_launches(launches, counts)
+            luna_tc += tc
+            del qmodel
+        same = [n for n, p in watch.items()
+                if torch.equal(before[n], p.detach())]
+        check(not same, f"{cfg.name}: parameters did not change: {same}")
+        emit({"train_params_changed": cfg.name, "changed": len(watch),
+              "of": len(watch)})
+        del model, state, opt, before, watch
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase13_s": time.perf_counter() - t_phase})
+    return launches, luna_tc
 
 
 def frozen_pairs(a, b, path=()):
@@ -4095,12 +4483,14 @@ def main() -> int:
               and "0 bytes spill stores, 0 bytes spill loads" not in ln}),
           "ptxas_lut_gemm": {n: by_lib.get(n) for n in (
               "lut_gemm_tc", "lut_gemm_wgmma")},
-          "ptxas_ssd_scan_tc": by_lib.get("ssd_scan_tc")})
+          "ptxas_ssd_scan_tc": by_lib.get("ssd_scan_tc"),
+          "ptxas_ssd_scan_bwd": by_lib.get("ssd_scan_bwd")})
 
     kernels = kernel_phase(dev)
     kernels.update(luna_kernel_phase(dev))
     kernels.update(lut_full_kernel_phase(dev))
     kernels.update(ssd_kernel_phase(dev))
+    kernels.update(ssd_bwd_kernel_phase(dev))
     kernels.update(flash_kernel_phase(dev))
     small_reference_phase(dev)
     small_ssm_reference_phase(dev)
@@ -4147,6 +4537,9 @@ def main() -> int:
     launches_train, flash_tc, luna_tc_train = train_phase(dev)
     add_launches(launches, launches_train)
     trainer_phase(dev)
+    launches_family, luna_tc_family = family_train_phase(dev)
+    add_launches(launches, launches_family)
+    luna_tc_train += luna_tc_family
     emit({"script_s": time.perf_counter() - T0})
     check(set(launches) == set(kernels),
           f"kernels launched on the main path {sorted(launches)} are not "

@@ -800,6 +800,20 @@ int ssd_scan_tc_workspace(int batch, int S, int H, int P, int G, int N,
   return 0;
 }
 
+// Byte offsets in a call's workspace of what its backward (ssd_scan_bwd.cu)
+// reads: C B^T (B, G, nc, Q, Q), written on the causal 64 x 64 tiles of each
+// chunk's real rows, and the chunk states (B, nc, H, P, N), slot c > 0 the
+// state entering chunk c once the call has run (slot 0 holds chunk 0's
+// local state).  A cudaError_t.
+int ssd_scan_tc_layout(int batch, int S, int H, int P, int G, int N, int Q,
+                       long long* cb, long long* states) {
+  if (!valid(batch, S, H, P, G, N, Q)) return (int)cudaErrorInvalidValue;
+  const Plan pl = plan(1, batch, S, H, P, G, N, Q);   // sms moves no offset
+  *cb = (long long)pl.cb;
+  *states = (long long)pl.sloc;
+  return 0;
+}
+
 // ws: a 16-byte aligned buffer of ssd_scan_tc_workspace's bytes.  Launches
 // the four kernels, ordered on `stream`: ssd_cb, then chunk 0's
 // ssd_chunk_out, on a side stream forked from it, beside ssd_chunk_state

@@ -3,6 +3,10 @@
 The chunked plain version the kernel repeats is
 ``repro_torch.models.ssm._ssd_chunked``.
 
+:func:`ssd_scan_bwd_ref` is the plain version of the scan's backward (its
+vector-Jacobian product, the kernel ``csrc/ssd_scan_bwd.cu`` computes):
+the chunked formulas in f32, pass by pass as the kernel takes them.
+
 :func:`ssd_scan_tc_emulate` is the Hopper kernels' arithmetic
 (``csrc/ssd_scan_tc.cu``) on any device: its four passes, every product
 split 3xTF32 (:func:`tf32_split`), with switches for the faults its tests
@@ -157,3 +161,113 @@ def ssd_scan_tc_emulate(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = _mm3(cbh * L, xdt, lo_terms, acc=inter)               # (B,nc,H,Q,P)
     y = y.permute(0, 1, 3, 2, 4).reshape(bb, nc * chunk, h, p)[:, :s]
     return y, state
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                     dfinal: torch.Tensor | None = None, *, chunk: int,
+                     initial_state: torch.Tensor | None = None,
+                     mask: torch.Tensor | None = None):
+    """The vector-Jacobian product of ``_ssd_chunked(x, dt, a, b, c, chunk,
+    initial_state, mask)`` for the output gradients ``dy`` (B,S,H,P) and
+    ``dfinal`` (B,H,P,N) (zeros when None); f32.
+
+    Per (row, head), with dt zeroed at masked positions, cum = the
+    chunk-restarted cumsum of dt·a, xdt = x·dt, L[q,k] = exp(cum_q - cum_k)
+    (q >= k), CB = C·Bᵀ, seg_end = exp(cum_last - cum), the state S_c
+    entering chunk c and Gx_c = dL/d(state leaving chunk c):
+
+    1. Ploc_c = Σ_q exp(cum_q) dy_q ⊗ C_q, each chunk alone;
+    2. Gx_last = dfinal; Gx_{c-1} = exp(cum_last,c) Gx_c + Ploc_c, in
+       reverse; d initial_state = exp(cum_last,0) Gx_0 + Ploc_0;
+    3. per chunk, with D = (dy·xdtᵀ) ⊙ L and W = D ⊙ CB:
+       dxdt = (CB ⊙ L)ᵀ dy + seg_end ⊙ (B Gxᵀ),
+       dB_h = Dᵀ C + seg_end ⊙ (xdt Gx),
+       dC_h = D B + exp(cum) ⊙ (dy S),
+       d cum_q = Σ_k W_qk - Σ_k W_kq + C_q·dC_inter,q - xdt_q·dxdt_inter,q,
+       and the chunk's last position also takes exp(cum_last)⟨Gx, S⟩ +
+       Σ_k xdt_k·dxdt_inter,k (the state's decay and seg_end);
+    4. d(dt·a) = the reverse cumsum of d cum within each chunk; ddt = a
+       d(dt·a) + ⟨x, dxdt⟩ (0 where masked), dx = dt dxdt, da = Σ dt
+       d(dt·a); dB and dC summed over the heads of each group.
+
+    Returns (dx, ddt, da, db, dc, d_initial_state); the last is None when
+    ``initial_state`` is None.
+    """
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hg = h // g
+    x, dt, a, b, c, dy = (t.float() for t in (x, dt, a, b, c, dy))
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, torch.zeros((), device=dt.device))
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                 for t in (x, dy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b, c = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                for t in (b, c))
+    # (B, nc, H, Q, ·) streams; B and C repeated over their group's heads
+    xq = x.reshape(bb, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
+    dyq = dy.reshape(bb, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
+    dtq = dt.reshape(bb, nc, chunk, h).permute(0, 1, 3, 2)
+    bq = (b.reshape(bb, nc, chunk, g, n).permute(0, 1, 3, 2, 4)
+          .repeat_interleave(hg, dim=2))
+    cq = (c.reshape(bb, nc, chunk, g, n).permute(0, 1, 3, 2, 4)
+          .repeat_interleave(hg, dim=2))
+    cum = torch.cumsum(dtq * a[None, None, :, None], dim=-1)  # (B,nc,H,Q)
+    decay = torch.exp(cum[..., -1])                           # (B,nc,H)
+    seg_end = torch.exp(cum[..., -1:] - cum)
+    xdt = xq * dtq[..., None]
+    # the states entering each chunk (the forward's state pass)
+    sloc = (xdt * seg_end[..., None]).transpose(-1, -2) @ bq  # (B,nc,H,P,N)
+    state = (torch.zeros((bb, h, p, n), device=x.device)
+             if initial_state is None else initial_state.float())
+    enter = []
+    for ci in range(nc):
+        enter.append(state)
+        state = decay[:, ci, :, None, None] * state + sloc[:, ci]
+    s_in = torch.stack(enter, 1)                              # (B,nc,H,P,N)
+    # 1: each chunk's own adjoint; 2: carried in reverse
+    ploc = (dyq * torch.exp(cum)[..., None]).transpose(-1, -2) @ cq
+    g_state = (torch.zeros((bb, h, p, n), device=x.device)
+               if dfinal is None else dfinal.float())
+    exits = [None] * nc
+    for ci in reversed(range(nc)):
+        exits[ci] = g_state
+        g_state = decay[:, ci, :, None, None] * g_state + ploc[:, ci]
+    gx = torch.stack(exits, 1)                                # (B,nc,H,P,N)
+    d_init = g_state if initial_state is not None else None
+    # 3: within each chunk
+    rows = torch.arange(chunk, device=x.device)
+    causal = rows[:, None] >= rows[None, :]
+    L = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                              torch.full((), -torch.inf, device=x.device)))
+    cb = cq @ bq.transpose(-1, -2)                            # (B,nc,H,Q,Q)
+    D = (dyq @ xdt.transpose(-1, -2)) * L
+    W = D * cb
+    dxdt_inter = seg_end[..., None] * (bq @ gx.transpose(-1, -2))
+    dxdt = (cb * L).transpose(-1, -2) @ dyq + dxdt_inter
+    db_h = D.transpose(-1, -2) @ cq + seg_end[..., None] * (xdt @ gx)
+    dc_inter = torch.exp(cum)[..., None] * (dyq @ s_in)
+    dc_h = D @ bq + dc_inter
+    t_k = (xdt * dxdt_inter).sum(-1)
+    dcum = (W.sum(-1) - W.sum(-2) + (cq * dc_inter).sum(-1) - t_k)
+    last = decay * (gx * s_in).sum((-1, -2)) + t_k.sum(-1)
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], -1)
+    # 4: the reverse cumsum, dt, x, a, and the group sums
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = a[None, None, :, None] * dda + (xq * dxdt).sum(-1)
+    dx = dxdt * dtq[..., None]
+    da = (dtq * dda).sum((0, 1, 3))
+
+    def unchunk(t):                     # (B,nc,H,Q,·) -> (B,S,H,·)
+        t = t.permute(0, 1, 3, 2, *range(4, t.ndim))
+        return t.reshape(bb, nc * chunk, *t.shape[3:])[:, :s]
+    ddt = unchunk(ddt)
+    if mask is not None:
+        ddt = torch.where(mask[..., None], ddt, torch.zeros((), device=x.device))
+    db = unchunk(db_h).reshape(bb, s, g, hg, n).sum(3)
+    dc = unchunk(dc_h).reshape(bb, s, g, hg, n).sum(3)
+    return unchunk(dx), ddt, da, db, dc, d_init

@@ -21,11 +21,25 @@ split, f32 accuracy).  The workspace (one buffer) comes from
 wrapper counts its public calls that launch the kernels in a plain integer
 attribute, ``launches`` (one a call).
 
+:func:`ssd_scan_bwd` — the scan's backward (its vector-Jacobian
+product), which no TPU kernel has: JAX differentiates its jnp scan.  A
+CUDA call is seven kernels of ``csrc/ssd_scan_bwd.cu`` (f32 FMAs; built on
+first use) that read the forward's C·Bᵀ and chunk states from the
+workspace ``ssd_scan(..., keep_workspace=True)`` returns; a CPU call takes
+its plain version, ``ref.ssd_scan_bwd_ref``.  Nothing falls back; it
+counts its CUDA calls in ``ssd_scan_bwd.launches``.  Under autograd,
+``ops.SSDScanFn`` runs the two; ``ssd_scan`` itself raises on CUDA tensors
+that require grad (it would return a detached result).
+
 Tolerance of kernel against plain version on the card: ``KERNEL_TOL``
 = 1e-4 of the output's scale, ``max|kernel - plain| <= KERNEL_TOL *
 max(1, max|plain|)`` (:func:`scaled_err`), for y and the final state
-alike; 1e-4 is the bound JAX holds its Pallas kernel to against the jnp
-scan (``tests/test_ssd_kernel.py``).  The kernels' products split each
+alike, and for every gradient of :func:`ssd_scan_bwd` against autograd
+of the plain version; 1e-4 is the bound JAX holds its Pallas kernel to
+against the jnp scan (``tests/test_ssd_kernel.py``).  The backward sums
+true f32 products in another order than the plain version's library
+calls (and takes the forward's 3xTF32 C·Bᵀ): ~1e-6 of the scale.  The
+forward's products split each
 f32 operand into two TF32 parts (hi·hi + hi·lo + lo·hi, lo·lo dropped:
 each product within ~2^-21 of the f32 one) and sum them in the tensor
 cores' order; the plain version sums true f32 products with the
@@ -43,9 +57,11 @@ import torch
 
 KERNEL_TOL = 1e-4
 
-#: the kernels' limits (mirrors the constants in csrc/ssd_scan_tc.cu)
+#: the kernels' limits (mirrors the constants in csrc/ssd_scan_tc.cu;
+#: the backward, csrc/ssd_scan_bwd.cu, also takes head dims up to PMAX)
 QMAX = 256
 NMAX = 128
+PMAX = 64
 
 
 def scaled_err(out: torch.Tensor, plain: torch.Tensor) -> float:
@@ -66,10 +82,32 @@ def _lib():
         lib.ssd_scan_tc_workspace.restype = ctypes.c_int
         lib.ssd_scan_tc_launch.argtypes = [p] * 10 + [i] * 7 + [p]
         lib.ssd_scan_tc_launch.restype = ctypes.c_int
+        lib.ssd_scan_tc_layout.argtypes = [i] * 7 + [
+            ctypes.POINTER(ctypes.c_longlong)] * 2
+        lib.ssd_scan_tc_layout.restype = ctypes.c_int
         limits = (lib.ssd_scan_tc_qmax(), lib.ssd_scan_tc_nmax())
         if limits != (QMAX, NMAX):
             raise RuntimeError(f"ssd_scan_tc.cu limits {limits} differ from "
                                "the wrapper's")
+    return lib
+
+
+def _bwd_lib():
+    """The backward's built library, typed on first use."""
+    from repro_torch.kernels._build import load_library
+    lib = load_library("ssd_scan_bwd")
+    if lib.ssd_scan_bwd_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_scan_bwd_workspace.argtypes = [i] * 7 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ssd_scan_bwd_workspace.restype = ctypes.c_int
+        lib.ssd_scan_bwd_launch.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+        limits = (lib.ssd_scan_bwd_qmax(), lib.ssd_scan_bwd_pmax(),
+                  lib.ssd_scan_bwd_nmax())
+        if limits != (QMAX, PMAX, NMAX):
+            raise RuntimeError(f"ssd_scan_bwd.cu limits {limits} differ "
+                               "from the wrapper's")
     return lib
 
 
@@ -103,6 +141,7 @@ def _check(x, dt, a, b, c, chunk, initial_state, mask):
 
 
 def _launch(x, dt, a, b, c, chunk, initial_state, mask):
+    """(y, final state, the workspace: C·Bᵀ and the chunk states)."""
     ops = (x, dt, a, b, c, initial_state, mask)
     if not all(t.is_contiguous() for t in ops if t is not None):
         raise ValueError("ssd_scan takes contiguous operands")
@@ -127,13 +166,14 @@ def _launch(x, dt, a, b, c, chunk, initial_state, mask):
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t "
                            f"{err}")
-    return y, final
+    return y, final, ws
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int,
              initial_state: torch.Tensor | None = None,
-             mask: torch.Tensor | None = None):
+             mask: torch.Tensor | None = None,
+             keep_workspace: bool = False):
     """SSD over (B, S, H, P) streams in chunks of ``chunk`` positions.
 
     x: (B,S,H,P) f32; dt: (B,S,H) f32; a: (H,) f32 negative decay rates;
@@ -141,18 +181,125 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``initial_state``: optional (B,H,P,N) f32 carried state (zeros when
     None); ``mask``: optional (B,S) bool validity mask (invalid positions
     are inert: dt is zeroed).  S need not be a multiple of ``chunk``.
-    Returns (y (B,S,H,P) f32, final_state (B,H,P,N) f32).
+    Returns (y (B,S,H,P) f32, final_state (B,H,P,N) f32), and with
+    ``keep_workspace`` a third item for :func:`ssd_scan_bwd`: the CUDA
+    call's workspace (its C·Bᵀ and chunk states), None on the CPU.  On
+    CUDA tensors that require grad (grad enabled) it raises: the kernels'
+    result has no ``grad_fn``; ``ops.ssd_chunked_kernel`` differentiates
+    the scan through ``ops.SSDScanFn``.
     """
     _check(x, dt, a, b, c, chunk, initial_state, mask)
     if x.device.type == "cpu":
         from repro_torch.models.ssm import _ssd_chunked
-        return _ssd_chunked(x, dt, a, b, c, chunk,
-                            initial_state=initial_state, mask=mask)
+        out = _ssd_chunked(x, dt, a, b, c, chunk,
+                           initial_state=initial_state, mask=mask)
+        return (*out, None) if keep_workspace else out
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
-    out = _launch(x, dt, a, b, c, chunk, initial_state, mask)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, initial_state)):
+        raise RuntimeError(
+            "ssd_scan's kernels return no grad_fn: differentiate the scan "
+            "through repro_torch.kernels.ssd_scan.ops.ssd_chunked_kernel "
+            "(SSDScanFn, whose backward is ssd_scan_bwd)")
+    y, final, ws = _launch(x, dt, a, b, c, chunk, initial_state, mask)
     ssd_scan.launches += 1
-    return out
+    return (y, final, ws) if keep_workspace else (y, final)
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                 dfinal: torch.Tensor | None = None, *, chunk: int,
+                 initial_state: torch.Tensor | None = None,
+                 mask: torch.Tensor | None = None,
+                 workspace: torch.Tensor | None = None):
+    """The backward of ``ssd_scan(x, dt, a, b, c, chunk=chunk,
+    initial_state=initial_state, mask=mask)`` for the output gradients
+    ``dy`` (B,S,H,P) f32 and ``dfinal`` (B,H,P,N) f32 (zeros when None).
+
+    CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` (head dim at most
+    ``PMAX``) on ``torch.cuda.current_stream()`` and need ``workspace``,
+    the third item of ``ssd_scan(..., keep_workspace=True)`` on the same
+    inputs; CPU tensors take ``ref.ssd_scan_bwd_ref``.  Returns (dx, ddt,
+    da, db, dc, d_initial_state), f32 in the inputs' shapes;
+    d_initial_state is None when ``initial_state`` is.
+    """
+    _check(x, dt, a, b, c, chunk, initial_state, mask)
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    grads = {"dy": (dy, (bb, s, h, p))}
+    if dfinal is not None:
+        grads["dfinal"] = (dfinal, (bb, h, p, n))
+    for name, (t, shape) in grads.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != x.device):
+            raise ValueError(f"{name} must be float32 of shape {shape} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    if x.device.type == "cpu":
+        from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+        return ssd_scan_bwd_ref(x, dt, a, b, c, dy, dfinal, chunk=chunk,
+                                initial_state=initial_state, mask=mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu, not {x.device}")
+    if p > PMAX:
+        raise ValueError(f"ssd_scan_bwd takes head dims up to {PMAX}, not "
+                         f"{p}")
+    ops = (x, dt, a, b, c, dy, dfinal, initial_state, mask)
+    if not all(t.is_contiguous() for t in ops if t is not None):
+        raise ValueError("ssd_scan_bwd takes contiguous operands")
+    sizes = (bb, s, h, p, g, n, chunk)
+    with torch.cuda.device(x.device):
+        fwd = _lib()
+        cb_at, st_at = ctypes.c_longlong(), ctypes.c_longlong()
+        fwd_bytes = ctypes.c_longlong()
+        err = fwd.ssd_scan_tc_workspace(*sizes, ctypes.byref(fwd_bytes))
+        if err == 0:
+            err = fwd.ssd_scan_tc_layout(*sizes, ctypes.byref(cb_at),
+                                         ctypes.byref(st_at))
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_tc layout failed: cudaError_t "
+                               f"{err}")
+        if (workspace is None or workspace.dtype != torch.uint8
+                or workspace.numel() != fwd_bytes.value
+                or workspace.device != x.device):
+            raise ValueError(
+                "ssd_scan_bwd on CUDA needs the forward's workspace: "
+                "ssd_scan(..., keep_workspace=True) on the same inputs")
+        lib = _bwd_lib()
+        nbytes = ctypes.c_longlong()
+        err = lib.ssd_scan_bwd_workspace(*sizes, ctypes.byref(nbytes))
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd workspace failed: cudaError_t "
+                               f"{err}")
+        ws = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+        dx = torch.empty_like(x)
+        ddt = torch.empty_like(dt)
+        da = torch.empty_like(a)
+        db = torch.empty_like(b)
+        dc = torch.empty_like(c)
+        d_init = (None if initial_state is None
+                  else torch.empty_like(initial_state))
+        base = workspace.data_ptr()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), ptr(mask), ptr(initial_state), base + cb_at.value,
+            base + st_at.value, dy.data_ptr(), ptr(dfinal), ws.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), ptr(d_init), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError_t "
+                           f"{err}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, db, dc, d_init
+
+
+ssd_scan_bwd.launches = 0

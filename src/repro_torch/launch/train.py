@@ -7,13 +7,23 @@
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 5 --quant luna_approx
 
+  # the ssm, hybrid and moe families (reduced widths), on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 5 --arch mamba2-1.3b     # or zamba2-1.2b, deepseek-v2-lite-16b
+
   # on the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.train --steps 100
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+      --no-reduced --seq 4096 --batch 2 --steps 4
 
 ``--reduced`` (the default) trains the smoke-test widths; ``--no-reduced``
-the published ones.  ``--arch`` is ``yi-9b`` or ``luna-mlp`` (the paper's
-Fig 13 network).  ``--quant`` takes the model-level modes that train:
-``bf16`` and ``luna_*``.  Checkpoints go to ``--ckpt-dir`` and a rerun
+the published ones.  ``--arch`` is any config of the dense (``yi-9b``,
+``starcoder2-15b``, ``minitron-4b``, ``deepseek-67b``), moe
+(``deepseek-v2-lite-16b``, ``deepseek-v2-236b``), ssm (``mamba2-1.3b``)
+or hybrid (``zamba2-1.2b``) family, or ``luna-mlp`` (the paper's Fig 13
+network); on the card the Mamba2 layers' SSD scan runs forward and
+backward on the hand-written kernels.  ``--quant`` takes the model-level
+modes that train: ``bf16`` and ``luna_*``.  Checkpoints go to ``--ckpt-dir`` and a rerun
 resumes from the latest.  The mesh flags of the JAX CLI
 (``--model-parallel``, ``--host-devices``, ``--distributed``) and
 ``--grad-compression`` raise: ROADMAP queue 1 item 9.

@@ -2,8 +2,8 @@
 
 The same engine-facing interface as :class:`~repro_torch.models.
 transformer.TransformerLM`: ``init(gen)``, ``from_params``,
-``params_tree``, ``forward``, ``logits``, ``init_cache``, ``prefill``,
-``decode_step`` and ``decode_window``, so the engine and
+``params_tree``, ``forward``, ``logits``, ``loss``, ``init_cache``,
+``prefill``, ``decode_step`` and ``decode_window``, so the engine and
 ``DenseSlab.prepare_decode_params`` serve it unchanged.  The JAX model
 stacks its layers on a leading L axis under ``lax.scan``; here they are
 an ``nn.ModuleList`` and the tree's ``blocks`` is a per-layer list of
@@ -24,10 +24,12 @@ from repro_torch.core.layers import quant_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (CacheSpec, dense_init, dtype_of,
                                        embed_init, gather_last,
-                                       reject_paged_spec, rms_norm, set_leaf)
+                                       reject_paged_spec, remat_of, rms_norm,
+                                       set_leaf)
 from repro_torch.models.ssm import (Mamba2, SSMCache, init_mamba2,
                                     mamba2_shapes, snapshot_row,
                                     ssm_cache_shape)
+from repro_torch.models.transformer import chunked_xent
 
 
 def _empty_params(cfg, device) -> dict:
@@ -106,14 +108,18 @@ class SSMLM(nn.Module):
         return self
 
     # ---------------- forward ----------------
-    def forward(self, tokens: torch.Tensor, *, caches=None, last_pos=None):
+    def forward(self, tokens: torch.Tensor, *, caches=None, last_pos=None,
+                training: bool = False):
         """Returns (hidden (B, S, D), caches).  ``last_pos``: (B,) index of
         each row's last REAL token; pad columns past it are masked out of
-        the recurrent state."""
+        the recurrent state.  ``training`` with ``cfg.remat`` recomputes
+        each block in the backward (JAX checkpoints its scan body)."""
         x = F.embedding(tokens, self.embed)
+        remat = training and self.cfg.remat and torch.is_grad_enabled()
         new_caches = [] if caches is not None else None
         for i, blk in enumerate(self.blocks):
-            x, c = blk(x, caches[i] if caches is not None else None,
+            run = remat_of(self.cfg, blk) if remat else blk
+            x, c = run(x, caches[i] if caches is not None else None,
                        last_pos)
             if caches is not None:
                 new_caches.append(c)
@@ -121,6 +127,16 @@ class SSMLM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return quant_matmul(hidden, self.lm_head, None)
+
+    # ---------------- training ----------------
+    def loss(self, batch: dict):
+        """batch: tokens (B, S), labels (B, S)[, loss_mask (B, S)].
+        Returns (xent, {"xent"}), JAX's sequence-chunked cross entropy
+        over the LM head."""
+        hidden, _ = self.forward(batch["tokens"], training=True)
+        xent = chunked_xent(hidden, self.lm_head, batch["labels"],
+                            batch.get("loss_mask"))
+        return xent, {"xent": xent}
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, s_max: int, *,

@@ -1,4 +1,8 @@
-"""Reduced f32 yi-9b training on the card against the same on the CPU.
+"""Reduced f32 training on the card against the same on the CPU: yi-9b
+(:func:`training_card_vs_cpu`), the ssm and hybrid families
+(:func:`family_training_card_vs_cpu`: mamba2-1.3b, zamba2-1.2b, the SSD
+scan forward and backward on the kernels) and one Mamba2 layer
+(:func:`mamba2_layer_card_vs_cpu`).
 
 ``chip_smoke.py`` (phase 4) and ``tests/test_torch_cuda.py`` both run
 these checks.  Each raises ``AssertionError`` past its tolerance and
@@ -14,6 +18,7 @@ import torch
 
 from repro_torch.core.layers import QuantConfig
 from repro_torch.core.quant import ste_luna_matmul
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.models.registry import get_config, get_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.train_step import make_train_step
@@ -115,6 +120,14 @@ def training_card_vs_cpu(dev) -> dict:
                             f"leaf's scale (> {rel})")
         out[f"{name} loss"] = abs(lb.item() - la.item())
         out[f"{name} grads (scaled)"] = err
+    out["train_step params"] = train_step_err(cpu, cfg, dev, batch, gbatch)
+    return out
+
+
+def train_step_err(cpu, cfg, dev, batch, gbatch) -> float:
+    """One ``make_train_step`` step (AdamW, lr 1e-3) from ``cpu``'s weights
+    on the CPU and on ``dev``: every param within ``TOL``; returns the
+    largest difference."""
     a, b = model_pair(cpu, cfg, dev)
     for m, batch_d in ((a, batch), (b, gbatch)):
         opt = AdamW(lr=1e-3)
@@ -124,5 +137,77 @@ def training_card_vs_cpu(dev) -> dict:
         torch.testing.assert_close(pb.detach().cpu(), pa.detach(),
                                    rtol=TOL, atol=TOL)
         err = max(err, (pb.detach().cpu() - pa.detach()).abs().max().item())
-    out["train_step params"] = err
-    return out
+    return err
+
+
+#: the families whose SSD scan trains on the kernels (``ssd_scan_tc.cu``
+#: forward, ``ssd_scan_bwd.cu`` backward)
+SCAN_FAMILIES = ("mamba2-1.3b", "zamba2-1.2b")
+
+
+def family_training_card_vs_cpu(dev, arch: str) -> dict:
+    """Reduced f32 ``arch`` (seed 1; B = 2, S = 96: three of the reduced
+    32-position chunks) on the card against the CPU: the loss (``TOL``),
+    every gradient (``GRAD_REL`` of its leaf's scale) and one train step's
+    params (``TOL``); on the card the scan runs 2 forward launches a
+    Mamba2 layer (the forward and remat's recompute) and 1 backward
+    launch (a CPU ``dev``, a dry run, launches none).  Returns each check's largest error and the launches."""
+    cfg = get_config(arch).reduced(dtype="float32")
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    gbatch = {k: t.to(dev) for k, t in batch.items()}
+    a, b = model_pair(cpu, cfg, dev)
+    la, _ = a.loss(batch)
+    la.backward()
+    fwd, bwd = ssd_scan.launches, ssd_scan_bwd.launches
+    lb, _ = b.loss(gbatch)
+    lb.backward()
+    launches = {"ssd_scan": ssd_scan.launches - fwd,
+                "ssd_scan_bwd": ssd_scan_bwd.launches - bwd}
+    on_card = torch.device(dev).type == "cuda"
+    want = {"ssd_scan": 2 * cfg.num_layers * on_card,
+            "ssd_scan_bwd": cfg.num_layers * on_card}
+    assert launches == want, f"{arch}: launches {launches}, want {want}"
+    torch.testing.assert_close(lb.detach().cpu(), la.detach(), rtol=TOL,
+                               atol=TOL)
+    err = scaled_grad_err(a, b)
+    assert err <= GRAD_REL, (f"{arch}: gradients differ by {err} of their "
+                             f"leaf's scale (> {GRAD_REL})")
+    return {"loss": abs(lb.item() - la.item()), "grads (scaled)": err,
+            "launches": launches,
+            "train_step params": train_step_err(cpu, cfg, dev, batch, gbatch)}
+
+
+def mamba2_layer_card_vs_cpu(dev) -> dict:
+    """One Mamba2 layer at reduced mamba2-1.3b's widths (f32, seed 1; x of
+    (2, 96, 128)): the gradients of ``w_in``, ``A_log`` and ``dt_bias``
+    for the same output cotangent on the card (the scan on the kernels)
+    and on the CPU, each within ``GRAD_REL`` of its CPU scale; ``A_log``
+    and ``dt_bias`` reach the loss only through the scan.  Returns the
+    errors."""
+    from repro_torch.models.ssm import init_mamba2, mamba2_block, \
+        mamba2_shapes
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    p = init_mamba2(torch.Generator().manual_seed(1), {
+        name: torch.empty(shape, dtype=dtype)
+        for name, (shape, dtype) in mamba2_shapes(cfg).items()})
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 96, cfg.d_model), generator=gen)
+    g = torch.randn((2, 96, cfg.d_model), generator=gen)
+    grads = []
+    for d in ("cpu", dev):
+        pd = {k: v.to(d, copy=True).requires_grad_() for k, v in p.items()}
+        out, _ = mamba2_block(pd, x.to(d), cfg)
+        (out * g.to(d)).sum().backward()
+        grads.append({k: pd[k].grad for k in ("w_in", "A_log", "dt_bias")})
+    errs = {}
+    for k, want in grads[0].items():
+        got = grads[1][k].cpu()
+        errs[k] = ((got - want).abs().max().item()
+                   / max(want.abs().max().item(), 1e-30))
+    assert all(e <= GRAD_REL for e in errs.values()), (
+        f"one Mamba2 layer's gradients, card vs cpu: {errs} of their "
+        f"scale (> {GRAD_REL})")
+    return errs

@@ -9,6 +9,10 @@ checkpoint/restart, preemption handling, straggler detection.
   signal; here it logs and counts events);
 * a deterministic data stream keyed by step, so a restart replays nothing.
 
+The dense, moe, ssm and hybrid families train (``TRAINED_FAMILIES``;
+the ssm and hybrid families' SSD scan differentiates through
+``kernels.ssd_scan.ops.SSDScanFn``, on the card the kernels
+``ssd_scan_tc.cu`` forward and ``ssd_scan_bwd.cu`` backward).
 ``Trainer(cfg, tcfg, device=None)`` takes the place of JAX's ``mesh``:
 one device, the card unless ``device="cpu"``.  Weights start random from
 ``torch.Generator(device).manual_seed(tcfg.seed)``; JAX's PRNG stream is
@@ -52,9 +56,14 @@ class TrainerConfig:
     seed: int = 0
 
 
+#: the families the port trains (JAX's Trainer also trains encdec and vlm
+#: on hand-built batches)
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
                 f"training the {cfg.family!r} family is not ported yet: "
                 "ROADMAP queue 1 item 8")

@@ -38,6 +38,14 @@ machine with the card and no JAX:
   reduced f32 yi-9b training on the card against the CPU: the flash
   forward, the loss and gradients (chunked, and luna_approx through the
   STE on luna_mm) and one train step;
+* ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against torch autograd of
+  the plain scan on the card, each gradient within ``KERNEL_TOL`` of its
+  scale, at the forward's shapes and mamba2's and zamba2's widths; two
+  calls bitwise equal; ``ssd_scan`` refuses CUDA operands that require
+  grad; one reduced Mamba2 layer's ``w_in``, ``A_log`` and ``dt_bias``
+  gradients on the card equal the CPU's, and reduced f32 mamba2 and
+  zamba2 train on the card as on the CPU (loss, every gradient, one
+  step; ``repro_torch.train.card_vs_cpu``);
 * the cache substrate on the card: the engine on the paged pool emits the
   dense slab's tokens (reduced bf16 yi-9b, decode on the LUT kernels) and
   a decode step over the pool gives the slab's logits bitwise; a warm
@@ -351,6 +359,101 @@ def test_ssd_scan_matches_its_emulation_on_card(dev, S, valid, init):
     assert sref.EMULATE_TOL < skern.KERNEL_TOL
     assert skern.scaled_err(y, ye) <= sref.EMULATE_TOL
     assert skern.scaled_err(fs, fse) <= sref.EMULATE_TOL
+
+
+SSD_BWD_CASES = [
+    (1, 77, 4, 16, 2, 8, 32, None, False),     # ragged S, G = 2
+    (2, 130, 2, 40, 2, 16, 64, 70, True),      # mask, initial state, P = 40
+    (1, 300, 2, 64, 1, 128, 256, 211, True),   # two chunks of 256, masked
+    (1, 1, 2, 8, 1, 8, 1, None, True),         # one position
+    (2, 250, 4, 24, 2, 96, 100, 200, True),    # Q = 100: a partial tile
+    (2, 512, 64, 64, 1, 128, 256, None, False),   # mamba2's widths
+    (1, 448, 64, 64, 1, 64, 256, 438, "zero"),    # zamba2's N = 64
+]
+
+
+def _ssd_vjp_plain(x, dt, a, b, c, s0, mask, chunk, dy, df):
+    """Torch autograd of the plain scan (``_ssd_chunked``) on the same
+    inputs and cotangents: (dx, ddt, da, db, dc, d_initial_state)."""
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    init = None if s0 is None else s0.clone().requires_grad_()
+    y, fs = _ssd_chunked(*leaves, chunk, initial_state=init, mask=mask)
+    grads = torch.autograd.grad((y, fs), leaves + ([init] if init is not None
+                                                   else []), (dy, df))
+    return tuple(grads) + ((None,) if init is None else ())
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,valid,init", SSD_BWD_CASES)
+def test_ssd_scan_bwd_matches_plain_on_card(dev, B, S, H, P, G, N, chunk,
+                                            valid, init):
+    x, dt, a, b, c, s0, mask = _ssd_inputs(dev, B, S, H, P, G, N, valid,
+                                           init)
+    gen = torch.Generator(device=dev).manual_seed(S + 1)
+    dy = torch.randn((B, S, H, P), generator=gen, device=dev)
+    df = torch.randn((B, H, P, N), generator=gen, device=dev)
+    _, _, ws = skern.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=s0,
+                              mask=mask, keep_workspace=True)
+    before = skern.ssd_scan_bwd.launches
+    got = skern.ssd_scan_bwd(x, dt, a, b, c, dy, df, chunk=chunk,
+                             initial_state=s0, mask=mask, workspace=ws)
+    assert skern.ssd_scan_bwd.launches == before + 1
+    want = _ssd_vjp_plain(x, dt, a, b, c, s0, mask, chunk, dy, df)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dinit"), got,
+                          want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert skern.scaled_err(g, w) <= skern.KERNEL_TOL, name
+
+
+def test_ssd_scan_bwd_is_deterministic_on_card(dev):
+    """Fixed-order sums, no atomics: two backward calls bitwise equal."""
+    x, dt, a, b, c, s0, mask = _ssd_inputs(dev, 2, 300, 64, 64, 1, 128, 211,
+                                           True)
+    dy = torch.randn((2, 300, 64, 64), device=dev)
+    _, _, ws = skern.ssd_scan(x, dt, a, b, c, chunk=256, initial_state=s0,
+                              mask=mask, keep_workspace=True)
+    first, second = (skern.ssd_scan_bwd(x, dt, a, b, c, dy, chunk=256,
+                                        initial_state=s0, mask=mask,
+                                        workspace=ws) for _ in range(2))
+    for got, want in zip(second, first):
+        assert torch.equal(got, want)
+
+
+def test_ssd_scan_refuses_autograd_on_card(dev):
+    """The kernels' result has no grad_fn: ``ssd_scan`` raises rather than
+    detach; ``ssd_chunked_kernel`` differentiates through SSDScanFn, and
+    ``ssd_scan_bwd`` needs the forward's workspace."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+    x, dt, a, b, c, _, _ = _ssd_inputs(dev, 1, 64, 2, 8, 1, 8, None, False)
+    xg = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no grad_fn"):
+        skern.ssd_scan(xg, dt, a, b, c, chunk=32)
+    with torch.no_grad():
+        skern.ssd_scan(xg, dt, a, b, c, chunk=32)
+    y, _ = ssd_chunked_kernel(xg, dt, a, b, c, chunk=32)
+    assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
+    with pytest.raises(ValueError, match="forward's workspace"):
+        skern.ssd_scan_bwd(x, dt, a, b, c, torch.zeros_like(x), chunk=32)
+
+
+def test_mamba2_layer_grads_card_match_cpu(dev):
+    """One reduced Mamba2 layer: w_in, A_log and dt_bias gradients on the
+    card equal the CPU's (``card_vs_cpu.mamba2_layer_card_vs_cpu``).
+    Before the scan had a backward on the card, A_log and dt_bias took
+    none through it."""
+    from repro_torch.train.card_vs_cpu import mamba2_layer_card_vs_cpu
+    mamba2_layer_card_vs_cpu(dev)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_family_training_card_matches_cpu(dev, arch):
+    """Reduced f32 mamba2 / zamba2: loss, every gradient and one train step
+    on the card against the CPU (``card_vs_cpu.
+    family_training_card_vs_cpu``), the scan 2 forward and 1 backward
+    launches a layer."""
+    from repro_torch.train.card_vs_cpu import family_training_card_vs_cpu
+    family_training_card_vs_cpu(dev, arch)
 
 
 def test_mamba2_prefill_card_matches_cpu(dev):
