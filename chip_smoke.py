@@ -5,6 +5,8 @@
     python3 chip_smoke.py --layers 8  # the same with yi-9b's depth cut
     python3 chip_smoke.py --ssd-against DIR   # only ssd_scan: DIR's kernel
                                               # and this checkout's in turns
+    python3 chip_smoke.py --ssd-bwd-against DIR   # the same for
+                                                  # ssd_scan_bwd
 
 Phases, each fatal on failure (the script exits nonzero and prints no
 result line):
@@ -85,16 +87,19 @@ result line):
       both kernels (the SIMT one also on the bf16 inputs) beside the
       bounds, the plain versions and ``F.scaled_dot_product_attention``
       (timed only);
-   f. the SSD scan's backward (``ssd_scan_bwd``, the seven kernels of
-      ``ssd_scan_bwd.cu``, reading the forward's workspace) against torch
-      autograd of the plain scan (true f32), every gradient within
-      ``KERNEL_TOL`` of its scale, two calls bitwise equal: at the
+   f. the SSD scan's backward (``ssd_scan_bwd``, the eight kernels of
+      ``ssd_scan_bwd.cu``, TF32 ``mma.sync`` with the 3xTF32 split,
+      reading the forward's workspace) against torch autograd of the
+      plain scan (true f32), every gradient within ``KERNEL_TOL`` of its
+      scale, and against its emulation (``ref.ssd_scan_bwd_tc_emulate``)
+      within ``ref.EMULATE_TOL``, two calls bitwise equal: at the
       training shape B 2 x S 4096 at mamba2's widths (N 128) and zamba2's
       (N 64), and a ragged (1, 300) call masked at 211 from a random
       initial state; each timed device-only and by events beside its
       bound (bytes, or three TF32 products at 494.7 TFLOP/s; the f32
-      SIMT bound beside it), the forward on the same inputs, the plain
-      backward and each kernel's device time;
+      SIMT bound and the bound with per-head dB and dC products beside
+      it), its workspace's bytes, the forward on the same inputs, the
+      plain backward and each kernel's device time;
 4. reduced f32 models, card against CPU: yi-9b (quantization on the card
    equals the CPU's bitwise; decode logits through the kernels under
    lut4, nf4p; lut_nf4 prefill) and mamba2 (right-padded prefill with
@@ -1492,24 +1497,26 @@ SSD_BWD_CASES = [("mamba2", 2, 4096, SSD_WIDTHS, None, None),
 
 
 def ssd_bwd_flops(b: int, s: int, h: int, p: int, g: int, n: int,
-                  chunk: int, carried: bool) -> int:
+                  chunk: int, carried: bool, per_head: bool = False) -> int:
     """Operations the scan's backward needs over the real positions: per
     chunk of q positions and head, the chunk's adjoint Σ exp(cum) dy ⊗ C
     (2qPN), D = dy·xdtᵀ ⊙ L on the causal triangle (2·tri·P + tri), the
-    intra-chunk dxdt (2·tri·P + tri), dB and dC (2·tri·N each), the state's
-    dxdt and dB terms (2qNP each), dC's inter term (2qPN, where a state
-    enters: chunk 0 only from a carried initial state) and the reverse
-    state pass (2PN); C·Bᵀ and the states are the forward's.  A
-    multiply-add counts 2."""
+    intra-chunk dxdt (2·tri·P + tri), the state's dxdt and dB terms (2qNP
+    each), dC's inter term (2qPN, where a state enters: chunk 0 only from a
+    carried initial state) and the reverse state pass (2PN); per group, dB's
+    and dC's intra-chunk products (2·tri·N each) on D summed over the
+    group's heads (``per_head``: per head, as the f32-FMA kernels took
+    them).  C·Bᵀ and the states are the forward's.  A multiply-add counts
+    2."""
     total = 0
     for c in range(-(-s // chunk)):
         q = min(chunk, s - c * chunk)
         tri = q * (q + 1) // 2
-        per_head = (2 * q * p * n + 2 * (2 * tri * p + tri) + 4 * tri * n
-                    + 4 * q * n * p + 2 * p * n)
+        per = (2 * q * p * n + 2 * (2 * tri * p + tri) + 4 * q * n * p
+               + 2 * p * n)
         if c > 0 or carried:
-            per_head += 2 * q * p * n
-        total += h * per_head
+            per += 2 * q * p * n
+        total += h * per + (h if per_head else g) * 4 * tri * n
     return b * total
 
 
@@ -1519,8 +1526,9 @@ def ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
     forward's C·Bᵀ (its causal tiles) and chunk states read once, dx, ddt,
     da, dB, dC and the initial state's gradient written once; against
     :func:`ssd_bwd_flops` at three TF32 products each (494.7 TFLOP/s: the
-    f32-accurate tensor-core rate); and beside it the f32 SIMT bound (one
-    product each at 67 TFLOP/s), the rate this kernel's f32 FMAs run at."""
+    f32-accurate tensor-core rate); beside it the f32 SIMT bound (one
+    product each at 67 TFLOP/s) and the bound with dB's and dC's products
+    per head (``bound_ms_per_head``, the f32-FMA kernels' count)."""
     nc = -(-s // chunk)
     tri = sum(min(chunk, s - c * chunk) * (min(chunk, s - c * chunk) + 1)
               // 2 for c in range(nc))
@@ -1533,25 +1541,43 @@ def ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
               + (2 * b * h * p * n if init is not None else 0))
     t_bytes = (4 * floats + masked * b * s) / HBM_BYTES_S * 1e3
     flops = ssd_bwd_flops(b, s, h, p, g, n, chunk, init == "random")
+    per_head = ssd_bwd_flops(b, s, h, p, g, n, chunk, init == "random",
+                             per_head=True)
     t_ops = 3 * flops / TF32_FLOP_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "f32_simt_bound_ms": max(t_bytes, flops / F32_FLOP_S * 1e3),
-            "gflop": flops / 1e9}
+            "gflop": flops / 1e9,
+            "bound_ms_per_head": max(t_bytes,
+                                     3 * per_head / TF32_FLOP_S * 1e3),
+            "gflop_per_head": per_head / 1e9}
+
+
+def ssd_bwd_workspace_bytes(sk, b, s, h, p, g, n, chunk) -> int:
+    """``ssd_scan_bwd_workspace``'s bytes for one call of these sizes."""
+    import ctypes
+    nbytes = ctypes.c_longlong()
+    err = sk._bwd_lib().ssd_scan_bwd_workspace(b, s, h, p, g, n, chunk,
+                                               ctypes.byref(nbytes))
+    check(err == 0, f"ssd_scan_bwd_workspace failed: cudaError_t {err}")
+    return nbytes.value
 
 
 def ssd_bwd_kernel_phase(dev):
     """Phase 3f: ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against torch
     autograd of the plain scan (``_ssd_chunked`` on the card, true f32:
     ``allow_tf32`` is off) on the same inputs and cotangents, every
-    gradient within ``KERNEL_TOL`` of its scale (``scaled_err``); two calls
-    bitwise equal; each case timed device-only (``graph_ms``, 5 calls a
-    graph) and by events (5 eager calls), beside its bound, the forward's
+    gradient within ``KERNEL_TOL`` of its scale (``scaled_err``), and
+    against its CPU emulation (``ref.ssd_scan_bwd_tc_emulate``, run on the
+    card) within ``ref.EMULATE_TOL``; two calls bitwise equal; each case
+    timed device-only (``graph_ms``, 5 calls a graph) and by events (5
+    eager calls), beside its bound, its workspace's bytes, the forward's
     device-only time on the same inputs, the plain backward (autograd's
-    backward through the retained graph, by events) and each of the seven
-    kernels' device time (torch.profiler)."""
+    backward through the retained graph, by events) and each kernel's
+    device time (torch.profiler)."""
     import torch
 
+    from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models.ssm import _ssd_chunked
 
@@ -1577,6 +1603,16 @@ def ssd_bwd_kernel_phase(dev):
         again = synced(what, lambda: call(1))
         check(all(torch.equal(x, y) for x, y in zip(got, again)
                   if x is not None), f"{what}: two calls differ")
+        emu = sref.ssd_scan_bwd_tc_emulate(*args, dy, df, chunk=chunk, **kw)
+        emu_errs = {}
+        for name, gg, ee in zip(names, got, emu):
+            if gg is None:
+                continue
+            emu_errs[name] = sk.scaled_err(gg, ee)
+            check(emu_errs[name] <= sref.EMULATE_TOL,
+                  f"{what}: {name} against its emulation "
+                  f"{emu_errs[name]} > {sref.EMULATE_TOL}")
+        del emu
         leaves = [t.clone().requires_grad_() for t in args]
         s0 = kw["initial_state"]
         if s0 is not None:
@@ -1599,7 +1635,10 @@ def ssd_bwd_kernel_phase(dev):
         rows.append({
             "case": label, "b": b, "s": s, "chunk": chunk, **w,
             "valid": valid, "initial_state": init, "scaled_err": errs,
-            "max_abs_err": abs_err, "bitwise_repeat": True,
+            "emulate_err": emu_errs, "max_abs_err": abs_err,
+            "bitwise_repeat": True,
+            "workspace_bytes": ssd_bwd_workspace_bytes(sk, b, s, h, p, g, n,
+                                                       chunk),
             "device_ms": graph_ms(call, 5), "ms": cuda_ms(call, 5),
             "fwd_device_ms": graph_ms(lambda i: sk.ssd_scan(
                 *args, chunk=chunk, **kw), 5),
@@ -1611,9 +1650,11 @@ def ssd_bwd_kernel_phase(dev):
         gc.collect()
         torch.cuda.empty_cache()
     emit({"kernel_check": "ssd_scan_bwd", "passed": True,
-          "tol": sk.KERNEL_TOL,
+          "tol": sk.KERNEL_TOL, "emulate_tol": sref.EMULATE_TOL,
           "tol_rule": "max|kernel - autograd of plain| <= tol * max(1, "
-                      "max|plain|), each gradient", "per_shape": rows})
+                      "max|plain|), each gradient; against "
+                      "ssd_scan_bwd_tc_emulate at emulate_tol",
+          "per_shape": rows})
     head = rows[0]
     return {"ssd_scan_bwd": {
         "name": "ssd_scan_bwd", "route": "cuda",
@@ -1624,11 +1665,15 @@ def ssd_bwd_kernel_phase(dev):
         "launches": None,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_scaled_err": max(max(r["scaled_err"].values()) for r in rows),
+        "max_emulate_err": max(max(r["emulate_err"].values())
+                               for r in rows),
+        "workspace_bytes": head["workspace_bytes"],
         "ms": head["ms"], "device_ms": head["device_ms"],
         "fwd_device_ms": head["fwd_device_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "f32_simt_bound_ms": head["f32_simt_bound_ms"],
+        "bound_ms_per_head": head["bound_ms_per_head"],
         "library_ms": None,
         "timed_as": "one mamba2-1.3b layer's scan backward at the "
                     "training shape: B=2, S=4096, H=64, P=64, N=128, G=1, "
@@ -1636,8 +1681,9 @@ def ssd_bwd_kernel_phase(dev):
                     "events around 5 eager calls, device_ms by CUDA-graph "
                     "replays (graph_ms); plain: autograd's backward of "
                     "_ssd_chunked through its retained graph; bound: bytes "
-                    "or three TF32 products each at 494.7 TFLOP/s; no "
-                    "single PyTorch call computes it",
+                    "or three TF32 products each at 494.7 TFLOP/s, dB's "
+                    "and dC's products per group (bound_ms_per_head: per "
+                    "head); no single PyTorch call computes it",
         "per_shape": rows}}
 
 
@@ -1742,6 +1788,96 @@ def ssd_against(other: str) -> dict:
             "faster_everywhere": all(r["this_device_ms"]
                                      < r["other_device_ms"]
                                      for r in per_shape)}
+
+
+def ssd_bwd_bench(root: str) -> dict:
+    """``--ssd-bwd-bench ROOT``: ROOT's ``ssd_scan_bwd`` (the checkout's
+    ``src/repro_torch``) at phase 3f's cases (:data:`SSD_BWD_CASES`, seed
+    5, the forward's workspace from ROOT's ``ssd_scan``): checked against
+    autograd of that tree's ``_ssd_chunked`` at ``KERNEL_TOL``, timed
+    device-only (``graph_ms``, 5 calls) and by events (5 eager calls), each
+    kernel by torch.profiler, with its workspace's bytes."""
+    sys.path.insert(0, os.path.join(os.path.abspath(root), "src"))
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.ssm import _ssd_chunked
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for label, b, s, w, valid, init in SSD_BWD_CASES:
+        chunk = min(256, s)
+        h, p, g, n = w["h"], w["p"], w["g"], w["n"]
+        args, kw = ssd_inputs(dev, gen, b, s, h, p, g, n, valid, init)
+        dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+        df = torch.randn((b, h, p, n), generator=gen, device=dev)
+        _, _, ws = sk.ssd_scan(*args, chunk=chunk, keep_workspace=True, **kw)
+
+        def call(i):
+            return sk.ssd_scan_bwd(*args, dy, df, chunk=chunk, workspace=ws,
+                                   **kw)
+        got = call(0)
+        leaves = [t.clone().requires_grad_() for t in args]
+        s0 = kw["initial_state"]
+        if s0 is not None:
+            leaves.append(s0.clone().requires_grad_())
+        y0, f0 = _ssd_chunked(*leaves[:5], chunk, initial_state=(
+            leaves[5] if s0 is not None else None), mask=kw["mask"])
+        want = torch.autograd.grad((y0, f0), leaves, (dy, df))
+        err = max(sk.scaled_err(gg, ww) for gg, ww in zip(got, want))
+        check(err <= sk.KERNEL_TOL,
+              f"{root}: ssd_scan_bwd {label} scaled error {err}")
+        rows.append({"case": label, "b": b, "s": s, "scaled_err": err,
+                     "workspace_bytes": ssd_bwd_workspace_bytes(
+                         sk, b, s, h, p, g, n, chunk),
+                     "device_ms": graph_ms(call, 5), "ms": cuda_ms(call, 5),
+                     "kernels_us": ssd_kernel_us(call, 3)})
+        del args, kw, dy, df, ws, got, want, leaves, y0, f0
+        gc.collect()
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    return {"root": root, "kernel": sk.__file__, "nvidia_smi": smi,
+            "shapes": rows}
+
+
+def ssd_bwd_against(other: str) -> dict:
+    """``--ssd-bwd-against DIR``: DIR's ``ssd_scan_bwd`` and this
+    checkout's in turns (DIR, this, this, DIR; a process each, the two
+    packages share a name), each run printed; per case the faster of each
+    tree's two times, their ratio and both workspaces' bytes."""
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ssd-bwd-bench", root], capture_output=True,
+                             text=True)
+        check(out.returncode == 0,
+              f"--ssd-bwd-bench {root} failed:\n{out.stderr[-4000:]}")
+        run = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(run), flush=True)
+        runs.append(run)
+    per_shape = []
+    for i, row in enumerate(runs[1]["shapes"]):
+        best = {side: {k: min(r["shapes"][i][k] for r in pair)
+                       for k in ("device_ms", "ms")}
+                for side, pair in (("other", (runs[0], runs[3])),
+                                   ("this", (runs[1], runs[2])))}
+        per_shape.append({"case": row["case"], "b": row["b"], "s": row["s"],
+                          "other_device_ms": best["other"]["device_ms"],
+                          "this_device_ms": best["this"]["device_ms"],
+                          "other_ms": best["other"]["ms"],
+                          "this_ms": best["this"]["ms"],
+                          "speedup_device": best["other"]["device_ms"]
+                          / best["this"]["device_ms"],
+                          "other_workspace_bytes":
+                              runs[0]["shapes"][i]["workspace_bytes"],
+                          "this_workspace_bytes": row["workspace_bytes"]})
+    return {"against": other, "nvidia_smi": runs[1]["nvidia_smi"],
+            "per_shape": per_shape}
 
 
 #: phase 3e: JAX's test_flash_vs_ref shapes (B, S, H, Hkv, D), causal and
@@ -4418,10 +4554,20 @@ def main() -> int:
     bench.add_argument("--ssd-against", metavar="DIR",
                        help="only time DIR's ssd_scan and this checkout's "
                             "in turns (ssd_against)")
+    bench.add_argument("--ssd-bwd-bench", metavar="ROOT",
+                       help="only time ROOT's ssd_scan_bwd (ssd_bwd_bench)")
+    bench.add_argument("--ssd-bwd-against", metavar="DIR",
+                       help="only time DIR's ssd_scan_bwd and this "
+                            "checkout's in turns (ssd_bwd_against)")
     args = ap.parse_args()
     if args.ssd_bench or args.ssd_against:
         print(json.dumps(ssd_bench(args.ssd_bench) if args.ssd_bench
                          else ssd_against(args.ssd_against)))
+        return 0
+    if args.ssd_bwd_bench or args.ssd_bwd_against:
+        print(json.dumps(ssd_bwd_bench(args.ssd_bwd_bench)
+                         if args.ssd_bwd_bench
+                         else ssd_bwd_against(args.ssd_bwd_against)))
         return 0
 
     import torch

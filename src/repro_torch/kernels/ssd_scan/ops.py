@@ -11,9 +11,10 @@ f32 and calls :func:`~repro_torch.kernels.ssd_scan.ssd_scan.ssd_scan`
 Under autograd (grad enabled and an operand that requires grad) the call
 goes through :class:`SSDScanFn`: forward ``ssd_scan``, backward
 ``ssd_scan_bwd`` (on the card the kernels ``ssd_scan_tc.cu`` and
-``ssd_scan_bwd.cu``; on the CPU ``_ssd_chunked`` and ``ref.
-ssd_scan_bwd_ref``).  JAX differentiates its jnp scan with ``jax.grad``;
-the port's gradient is the same vector-Jacobian product.
+``ssd_scan_bwd.cu``, the latter redesigned for the TF32 tensor cores; on
+the CPU ``_ssd_chunked`` and ``ref.ssd_scan_bwd_ref``).  JAX
+differentiates its jnp scan with ``jax.grad``; the port's gradient is the
+same vector-Jacobian product.
 """
 from __future__ import annotations
 

@@ -10,9 +10,12 @@ the chunked formulas in f32, pass by pass as the kernel takes them.
 :func:`ssd_scan_tc_emulate` is the Hopper kernels' arithmetic
 (``csrc/ssd_scan_tc.cu``) on any device: its four passes, every product
 split 3xTF32 (:func:`tf32_split`), with switches for the faults its tests
-must catch.
+must catch.  :func:`ssd_scan_bwd_tc_emulate` is the same for the
+backward's kernels (``csrc/ssd_scan_bwd.cu``).
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -94,7 +97,8 @@ def ssd_scan_tc_emulate(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     :func:`~repro_torch.kernels.ssd_scan.ssd_scan.ssd_scan`.  The passes:
 
     1. ``ssd_cb``: CB = C·Bᵀ per (b, group, chunk);
-    2. ``ssd_chunk_state``: masked dt, da = cumsum(dt·a) per chunk,
+    2. ``ssd_chunk_state``: masked dt, da = cumsum(dt·a) per chunk (in the
+       kernels' scan order, :func:`_kernel_cumsum`),
        seg_end = exp(da[-1] - da), Sloc = ((x·dt)ᵀ (seg_end ⊙ B)) (P x N)
        and the chunk decay exp(da[-1]);
     3. ``ssd_state_pass``: S_enter[c] = S; S = decay_c·S + Sloc_c, from the
@@ -109,58 +113,64 @@ def ssd_scan_tc_emulate(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     diagonal from the causal mask.  Returns (y (B,S,H,P), final (B,H,P,N)).
     """
     bb, s, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
-    hg = h // g
-    x, dt, a, b, c = (t.float() for t in (x, dt, a, b, c))
-    if mask is not None:
-        dt = torch.where(mask[..., None], dt, torch.zeros((), device=dt.device))
-    nc = -(-s // chunk)
-    pad = nc * chunk - s
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-        b = torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad))
-        c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
-    # (B, nc, group or head, Q, ·) streams
-    xq = x.reshape(bb, nc, chunk, h, p).permute(0, 1, 3, 2, 4)
-    dtq = dt.reshape(bb, nc, chunk, h).permute(0, 1, 3, 2)
-    bq = b.reshape(bb, nc, chunk, g, n).permute(0, 1, 3, 2, 4)
-    cq = c.reshape(bb, nc, chunk, g, n).permute(0, 1, 3, 2, 4)
-
-    cb = _mm3(cq, bq.transpose(-1, -2), lo_terms)             # 1: (B,nc,G,Q,Q)
-
-    da = torch.cumsum(dtq * a[None, None, :, None], dim=-1)  # 2: (B,nc,H,Q)
-    da_last = da[..., -1:]
-    seg_end = torch.exp(da_last - da)
-    xdt = xq * dtq[..., None]                                 # (B,nc,H,Q,P)
-    bh = bq.repeat_interleave(hg, dim=2)                      # (B,nc,H,Q,N)
-    sloc = _mm3(xdt.transpose(-1, -2), seg_end[..., None] * bh,
-                lo_terms)                                     # (B,nc,H,P,N)
-    decay = torch.exp(da_last[..., 0])                        # (B,nc,H)
-
-    state = (torch.zeros((bb, h, p, n), device=x.device)      # 3
-             if initial_state is None else initial_state.float())
-    enter = []
-    for ci in range(nc):
-        enter.append(state)
-        d = (torch.ones((), device=x.device) if ci == skip_decay_chunk
-             else decay[:, ci, :, None, None])
-        state = d * state + sloc[:, ci]
-
-    ch = cq.repeat_interleave(hg, dim=2)                      # 4: (B,nc,H,Q,N)
-    s_enter = torch.stack(enter, 1)                           # (B,nc,H,P,N)
-    inter = _mm3(ch, s_enter.transpose(-1, -2), lo_terms) \
-        * torch.exp(da)[..., None]                            # (B,nc,H,Q,P)
+    f = _tc_forward(x, dt, a, b, c, chunk, initial_state, mask, lo_terms,
+                    skip_decay_chunk)
+    inter = _mm3(f.ch, f.s_in.transpose(-1, -2), lo_terms) \
+        * torch.exp(f.cum)[..., None]                         # 4: (B,nc,H,Q,P)
     rows = torch.arange(chunk, device=x.device)
     causal = (rows[:, None] >= rows[None, :]) if diagonal \
         else (rows[:, None] > rows[None, :])
-    rel = da[..., :, None] - da[..., None, :]                 # (B,nc,H,Q,Q)
+    rel = f.cum[..., :, None] - f.cum[..., None, :]           # (B,nc,H,Q,Q)
     L = torch.exp(torch.where(causal, rel,
                               torch.full((), -torch.inf, device=x.device)))
-    cbh = cb.repeat_interleave(hg, dim=2)
-    y = _mm3(cbh * L, xdt, lo_terms, acc=inter)               # (B,nc,H,Q,P)
-    y = y.permute(0, 1, 3, 2, 4).reshape(bb, nc * chunk, h, p)[:, :s]
-    return y, state
+    cbh = f.cb.repeat_interleave(h // b.shape[2], dim=2)
+    y = _mm3(cbh * L, f.xdt, lo_terms, acc=inter)             # (B,nc,H,Q,P)
+    y = y.permute(0, 1, 3, 2, 4).reshape(bb, -1, h, p)[:, :s]
+    return y, f.final
+
+
+def _streams(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B,S,K[,D]) -> (B,nc,K,Q[,D]) chunk streams, S right-padded with
+    zeros to the chunk grid (the kernels' zero-filled tiles)."""
+    s = t.shape[1]
+    nc = -(-s // chunk)
+    t = torch.nn.functional.pad(t, [0, 0] * (t.ndim - 2) + [0, nc * chunk - s])
+    t = t.reshape(t.shape[0], nc, chunk, *t.shape[2:])
+    return t.permute(0, 1, 3, 2, *range(4, t.ndim))
+
+
+def _tc_forward(x, dt, a, b, c, chunk, initial_state, mask, lo_terms,
+                skip_decay_chunk=None) -> SimpleNamespace:
+    """Passes 1–3 of ``csrc/ssd_scan_tc.cu`` (C·Bᵀ, the chunk-local states
+    and the state pass, cum in the kernels' scan order), as
+    :func:`ssd_scan_tc_emulate` takes them and the backward reads them from
+    the forward's workspace: the chunk streams (xq, dtq, bq, cq and the
+    heads' bh, ch), cb, cum, seg_end, xdt, decay, the states entering each
+    chunk (s_in, (B,nc,H,P,N)) and the final state."""
+    x, dt, a, b, c = (t.float() for t in (x, dt, a, b, c))
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, torch.zeros((), device=dt.device))
+    f = SimpleNamespace()
+    f.xq, f.dtq, f.bq, f.cq = (_streams(t, chunk) for t in (x, dt, b, c))
+    hg = x.shape[2] // b.shape[2]
+    f.bh, f.ch = (t.repeat_interleave(hg, dim=2) for t in (f.bq, f.cq))
+    f.cb = _mm3(f.cq, f.bq.transpose(-1, -2), lo_terms)       # 1: (B,nc,G,Q,Q)
+    f.cum = _kernel_cumsum(f.dtq * a[None, None, :, None])    # 2: (B,nc,H,Q)
+    f.seg_end = torch.exp(f.cum[..., -1:] - f.cum)
+    f.xdt = f.xq * f.dtq[..., None]                           # (B,nc,H,Q,P)
+    sloc = _mm3(f.xdt.transpose(-1, -2), f.seg_end[..., None] * f.bh,
+                lo_terms)                                     # (B,nc,H,P,N)
+    f.decay = torch.exp(f.cum[..., -1])                       # (B,nc,H)
+    state = (torch.zeros_like(sloc[:, 0]) if initial_state is None  # 3
+             else initial_state.float())
+    enter = []
+    for ci in range(sloc.shape[1]):
+        enter.append(state)
+        d = (torch.ones((), device=x.device) if ci == skip_decay_chunk
+             else f.decay[:, ci, :, None, None])
+        state = d * state + sloc[:, ci]
+    f.s_in, f.final = torch.stack(enter, 1), state
+    return f
 
 
 def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -271,3 +281,209 @@ def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     db = unchunk(db_h).reshape(bb, s, g, hg, n).sum(3)
     dc = unchunk(dc_h).reshape(bb, s, g, hg, n).sum(3)
     return unchunk(dx), ddt, da, db, dc, d_init
+
+
+#: heads of a group whose D blocks ``ssd_bwd_dd`` sums in one block
+#: (mirrors RUN in csrc/ssd_scan_bwd.cu)
+RUN_HEADS = 16
+#: positions the kernels' block scans run over (QMAX in the sources)
+_QMAX = 256
+
+
+def _lane_shift(t: torch.Tensor, off: int, up: bool) -> torch.Tensor:
+    """``__shfl_up_sync`` (up) or ``__shfl_down_sync`` by ``off`` over the
+    last dim (32 lanes), lanes with no source taking 0: adding that 0 is
+    what the kernels' ``if (lane >= off)`` leaves out, bitwise."""
+    z = torch.zeros_like(t[..., :off])
+    return (torch.cat([z, t[..., :-off]], -1) if up
+            else torch.cat([t[..., off:], z], -1))
+
+
+def _kernel_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumsum over the last dim (at most ``_QMAX``) in the
+    kernels' order (``chunk_cumsum``: two entries a thread, a warp scan
+    over the pair sums, the warp totals added in order), bitwise."""
+    q = v.shape[-1]
+    v = torch.nn.functional.pad(v, (0, _QMAX - q)).reshape(
+        *v.shape[:-1], 4, 32, 2)
+    v0, v1 = v[..., 0], v[..., 1]
+    tot = v0 + v1
+    incl = tot
+    for off in (1, 2, 4, 8, 16):
+        incl = incl + _lane_shift(incl, off, up=True)
+    excl = _lane_shift(incl, 1, up=True)
+    wsum = incl[..., 31]
+    base = [torch.zeros_like(wsum[..., 0])]
+    for w in range(1, 4):
+        base.append(base[-1] + wsum[..., w - 1])
+    base = torch.stack(base, -1)[..., None] + excl
+    out = torch.stack([base + v0, base + tot], -1)
+    return out.reshape(*out.shape[:-3], _QMAX)[..., :q]
+
+
+def _kernel_rev_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """The reverse inclusive cumsum over the last dim (at most ``_QMAX``)
+    in ``ssd_bwd_reduce``'s order: one position a thread, warp scans, the
+    later warps' totals added from the last down, bitwise."""
+    q = v.shape[-1]
+    v = torch.nn.functional.pad(v, (0, _QMAX - q)).reshape(
+        *v.shape[:-1], 8, 32)
+    incl = v
+    for off in (1, 2, 4, 8, 16):
+        incl = incl + _lane_shift(incl, off, up=False)
+    wsum = incl[..., 0]
+    base = [torch.zeros_like(wsum[..., 0])]
+    for w in range(6, -1, -1):
+        base.insert(0, base[0] + wsum[..., w + 1])
+    out = torch.stack(base, -1)[..., None] + incl
+    return out.reshape(*out.shape[:-2], _QMAX)[..., :q]
+
+
+def _kernel_block_sum(v: torch.Tensor) -> torch.Tensor:
+    """``block_sum`` of ``_QMAX`` values (the last dim, padded with 0): xor
+    butterflies in each warp, then the warp totals in order, bitwise."""
+    v = torch.nn.functional.pad(v, (0, _QMAX - v.shape[-1])).reshape(
+        *v.shape[:-1], 8, 32)
+    lanes = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    out = v[..., 0, 0]
+    for w in range(1, 8):
+        out = out + v[..., w, 0]
+    return out
+
+
+def ssd_scan_bwd_tc_emulate(x: torch.Tensor, dt: torch.Tensor,
+                            a: torch.Tensor, b: torch.Tensor,
+                            c: torch.Tensor, dy: torch.Tensor,
+                            dfinal: torch.Tensor | None = None, *,
+                            chunk: int,
+                            initial_state: torch.Tensor | None = None,
+                            mask: torch.Tensor | None = None,
+                            lo_terms: bool = True,
+                            skip_decay_chunk: int | None = None,
+                            diagonal: bool = True):
+    """``csrc/ssd_scan_bwd.cu``'s arithmetic, pass by pass: the same
+    vector-Jacobian product as :func:`ssd_scan_bwd_ref`, every product
+    split 3xTF32 (:func:`_mm3`), every scaled operand split after its
+    scale, as the kernels stage it.
+
+    C·Bᵀ and the chunk states are the forward's (:func:`_tc_forward`, as
+    the kernels read them from the forward's workspace).  Per (row, chunk,
+    head), with the names of :func:`ssd_scan_bwd_ref`:
+
+    1. ``ssd_bwd_adj``: cum, decay, Ploc = (exp(cum) ⊙ dy)ᵀ C;
+    2. ``ssd_bwd_pass``: Gx in reverse, d initial_state;
+    3. ``ssd_bwd_dxdt``: dxdt = (seg_end ⊙ B)·Gxᵀ, then += (CB ⊙ L)ᵀ dy
+       in the same accumulator; xdot = ⟨x, dxdt⟩, dx = dt dxdt;
+    4. ``ssd_bwd_dd``: D = (dy·xdtᵀ) ⊙ L per head, W = D ⊙ CB's row and
+       column sums rintra and cintra, and D summed over each run of
+       ``RUN_HEADS`` heads of a group;
+    5. ``ssd_bwd_db`` / ``ssd_bwd_dc``: dB = Σ_runs (ΣD)ᵀ C, then + each
+       head's (seg_end ⊙ xdt)·Gx in head order, and dC = Σ_runs (ΣD)·B,
+       then + each head's (exp(cum) ⊙ dy)·S: the group sums, with no
+       per-head dB or dC kept; of each head's product its row term, T =
+       ⟨B, ·⟩ (= ⟨xdt, dxdt_inter⟩) and rinter = ⟨C, ·⟩ (= C·dC_inter);
+    6. ``ssd_bwd_reduce``: d cum = rintra + rinter − cintra − T, the last
+       position + decay ⟨Gx, S⟩ + Σ T; its reverse cumsum, ddt, da, in the
+       kernels' orders.  W's sums, the row terms and this pass run in f64,
+       as the kernels take them: where L is near diagonal (large dt·|a|)
+       d cum's terms nearly cancel, and da sums d cum's reverse cumsum
+       over every position.
+
+    Faults: ``lo_terms=False`` takes one TF32 product; ``skip_decay_chunk
+    =k`` lets the reverse state pass skip chunk k's decay;
+    ``diagonal=False`` drops the diagonal from the causal mask of D and of
+    CB ⊙ L.  Returns (dx, ddt, da, db, dc, d_initial_state) as
+    :func:`ssd_scan_bwd_ref` does.
+    """
+    bb, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hg = h // g
+    nc = -(-s // chunk)
+    zero = torch.zeros((), device=x.device)
+    # the forward's workspace: C·Bᵀ and the states entering each chunk
+    f = _tc_forward(x, dt, a, b, c, chunk, initial_state, mask, lo_terms)
+    xq, dtq, bq, cq, bh, ch = f.xq, f.dtq, f.bq, f.cq, f.bh, f.ch
+    cb, cum, seg_end, xdt, decay, s_in = (f.cb, f.cum, f.seg_end, f.xdt,
+                                          f.decay, f.s_in)
+    cbh = cb.repeat_interleave(hg, dim=2)
+    dyq = _streams(dy.float(), chunk)
+    a = a.float()
+
+    # 1: each chunk's adjoint; 2: carried in reverse
+    ec = torch.exp(cum)
+    ploc = _mm3((dyq * ec[..., None]).transpose(-1, -2), ch, lo_terms)
+    g_state = (torch.zeros((bb, h, p, n), device=x.device)
+               if dfinal is None else dfinal.float())
+    exits = [None] * nc
+    for ci in reversed(range(nc)):
+        exits[ci] = g_state
+        d = (torch.ones((), device=x.device) if ci == skip_decay_chunk
+             else decay[:, ci, :, None, None])
+        g_state = d * g_state + ploc[:, ci]
+    gx = torch.stack(exits, 1)                                # (B,nc,H,P,N)
+    d_init = g_state if initial_state is not None else None
+
+    # 3: dxdt per head
+    rows = torch.arange(chunk, device=x.device)
+    causal = (rows[:, None] >= rows[None, :]) if diagonal \
+        else (rows[:, None] > rows[None, :])
+    L = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                              torch.full((), -torch.inf, device=x.device)))
+    dxdt = _mm3(seg_end[..., None] * bh, gx.transpose(-1, -2), lo_terms)
+    dxdt = _mm3((cbh * L).transpose(-1, -2), dyq, lo_terms, acc=dxdt)
+    xdot = (xq * dxdt).sum(-1)
+
+    # 4: D per head, its row term, and its sums over runs of heads
+    dd = _mm3(dyq, xdt.transpose(-1, -2), lo_terms) * L       # (B,nc,H,Q,Q)
+    w = dd.double() * cbh.double()            # W's sums in f64, as kernel 4's
+    rintra, cintra = w.sum(-1), w.sum(-2)
+    dd = dd.reshape(bb, nc, g, hg, chunk, chunk)
+    runs = -(-hg // RUN_HEADS)
+    per = -(-hg // runs)
+    dsum = [dd[:, :, :, r * per:(r + 1) * per].sum(3) for r in range(runs)]
+
+    # 5: dB and dC of each group: the runs' products, then each head's
+    # (whose row terms T and rinter are taken before it is added)
+    db_h = _mm3(seg_end[..., None] * xdt, gx, lo_terms)       # (B,nc,H,Q,N)
+    dc_h = _mm3(ec[..., None] * dyq, s_in, lo_terms)
+    t_k = (bh.double() * db_h.double()).sum(-1)
+    rinter = (ch.double() * dc_h.double()).sum(-1)
+    db = dc = None
+    for r in range(runs):
+        db = _mm3(dsum[r].transpose(-1, -2), cq, lo_terms, acc=db)
+        dc = _mm3(dsum[r], bq, lo_terms, acc=dc)
+    db_h = db_h.reshape(bb, nc, g, hg, chunk, n)
+    dc_h = dc_h.reshape(bb, nc, g, hg, chunk, n)
+    for j in range(hg):
+        db = db + db_h[:, :, :, j]
+        dc = dc + dc_h[:, :, :, j]
+
+    # 6: d cum, its reverse cumsum, dt, a (the reduce kernel's orders, in
+    # f64: d cum's terms nearly cancel where L is near diagonal)
+    dcum = rintra + rinter - cintra - t_k
+    qc = s - (nc - 1) * chunk                 # the last chunk's real length
+    gs = (gx.double() * s_in.double()).sum((-1, -2))
+    last = decay.double() * gs + _kernel_block_sum(t_k)
+    ends = torch.full((nc,), chunk - 1, device=x.device)
+    ends[-1] = qc - 1
+    at_end = rows[None, :] == ends[:, None]                   # (nc, Q)
+    dcum = dcum + torch.where(at_end[None, :, None], last[..., None],
+                              zero.double())
+    dda = _kernel_rev_cumsum(dcum)
+    ddt = (a.double()[None, None, :, None] * dda + xdot.double()).float()
+    dx = dxdt * dtq[..., None]
+    share = _kernel_block_sum(dtq.double() * dda)             # (B,nc,H)
+    da = share[0, 0]
+    for r in range(1, bb * nc):
+        da = da + share[r // nc, r % nc]
+    da = da.float()
+
+    def unchunk(t):                     # (B,nc,K,Q,·) -> (B,S,K,·)
+        t = t.permute(0, 1, 3, 2, *range(4, t.ndim))
+        return t.reshape(bb, nc * chunk, *t.shape[3:])[:, :s]
+    ddt = unchunk(ddt)
+    if mask is not None:
+        ddt = torch.where(mask[..., None], ddt, zero)
+    return unchunk(dx), ddt, da, unchunk(db), unchunk(dc), d_init

@@ -23,23 +23,28 @@ attribute, ``launches`` (one a call).
 
 :func:`ssd_scan_bwd` — the scan's backward (its vector-Jacobian
 product), which no TPU kernel has: JAX differentiates its jnp scan.  A
-CUDA call is seven kernels of ``csrc/ssd_scan_bwd.cu`` (f32 FMAs; built on
-first use) that read the forward's C·Bᵀ and chunk states from the
-workspace ``ssd_scan(..., keep_workspace=True)`` returns; a CPU call takes
-its plain version, ``ref.ssd_scan_bwd_ref``.  Nothing falls back; it
-counts its CUDA calls in ``ssd_scan_bwd.launches``.  Under autograd,
-``ops.SSDScanFn`` runs the two; ``ssd_scan`` itself raises on CUDA tensors
-that require grad (it would return a detached result).
+CUDA call is eight kernels of ``csrc/ssd_scan_bwd.cu`` (nine where the dB
+and dC kernels split K; built on first use; redesigned for the tensor
+cores: every product on TF32 ``mma.sync`` with the 3xTF32 split, D built
+once per causal tile pair and head, dB and dC summed over a group's heads
+without a per-head workspace) that read the forward's C·Bᵀ and chunk
+states from the workspace ``ssd_scan(..., keep_workspace=True)`` returns;
+a CPU call takes its plain version, ``ref.ssd_scan_bwd_ref``.
+``ref.ssd_scan_bwd_tc_emulate`` is the kernels' arithmetic on any device.
+Nothing falls back; it counts its CUDA calls in ``ssd_scan_bwd.launches``.
+Under autograd, ``ops.SSDScanFn`` runs the two; ``ssd_scan`` itself raises
+on CUDA tensors that require grad (it would return a detached result).
 
 Tolerance of kernel against plain version on the card: ``KERNEL_TOL``
 = 1e-4 of the output's scale, ``max|kernel - plain| <= KERNEL_TOL *
 max(1, max|plain|)`` (:func:`scaled_err`), for y and the final state
 alike, and for every gradient of :func:`ssd_scan_bwd` against autograd
 of the plain version; 1e-4 is the bound JAX holds its Pallas kernel to
-against the jnp scan (``tests/test_ssd_kernel.py``).  The backward sums
-true f32 products in another order than the plain version's library
-calls (and takes the forward's 3xTF32 C·Bᵀ): ~1e-6 of the scale.  The
-forward's products split each
+against the jnp scan (``tests/test_ssd_kernel.py``).  The backward takes
+the same 3xTF32 products, summing each 64 of K on the tensor cores and
+those sums in f32, and d cum's nearly cancelling terms and da's sums in
+f64: ~4e-6 of each gradient's scale.  The forward's products split
+each
 f32 operand into two TF32 parts (hi·hi + hi·lo + lo·hi, lo·lo dropped:
 each product within ~2^-21 of the f32 one) and sum them in the tensor
 cores' order; the plain version sums true f32 products with the
@@ -222,7 +227,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``dy`` (B,S,H,P) f32 and ``dfinal`` (B,H,P,N) f32 (zeros when None).
 
     CUDA tensors launch ``csrc/ssd_scan_bwd.cu`` (head dim at most
-    ``PMAX``) on ``torch.cuda.current_stream()`` and need ``workspace``,
+    ``PMAX``; redesigned for the TF32 tensor cores) on
+    ``torch.cuda.current_stream()`` and need ``workspace``,
     the third item of ``ssd_scan(..., keep_workspace=True)`` on the same
     inputs; CPU tensors take ``ref.ssd_scan_bwd_ref``.  Returns (dx, ddt,
     da, db, dc, d_initial_state), f32 in the inputs' shapes;

@@ -41,7 +41,9 @@ machine with the card and no JAX:
 * ``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``) against torch autograd of
   the plain scan on the card, each gradient within ``KERNEL_TOL`` of its
   scale, at the forward's shapes and mamba2's and zamba2's widths; two
-  calls bitwise equal; ``ssd_scan`` refuses CUDA operands that require
+  calls bitwise equal; the kernels against their CPU emulation
+  (``ref.ssd_scan_bwd_tc_emulate``, run on the card) within
+  ``ref.EMULATE_TOL``; ``ssd_scan`` refuses CUDA operands that require
   grad; one reduced Mamba2 layer's ``w_in``, ``A_log`` and ``dt_bias``
   gradients on the card equal the CPU's, and reduced f32 mamba2 and
   zamba2 train on the card as on the CPU (loss, every gradient, one
@@ -404,6 +406,33 @@ def test_ssd_scan_bwd_matches_plain_on_card(dev, B, S, H, P, G, N, chunk,
         assert (g is None) == (w is None), name
         if g is not None:
             assert skern.scaled_err(g, w) <= skern.KERNEL_TOL, name
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,valid,init", [
+    (1, 300, 4, 64, 1, 128, 256, 211, True),   # ragged, masked, from a state
+    (2, 512, 64, 64, 1, 64, 256, None, False),  # N = 64, 64 heads: 4 runs
+])
+def test_ssd_scan_bwd_matches_its_emulation_on_card(dev, B, S, H, P, G, N,
+                                                    chunk, valid, init):
+    """The backward's kernels against ``ref.ssd_scan_bwd_tc_emulate`` (the
+    same passes and 3xTF32 split, summed in another order, on the card)
+    within ``ref.EMULATE_TOL`` of each gradient's scale."""
+    x, dt, a, b, c, s0, mask = _ssd_inputs(dev, B, S, H, P, G, N, valid,
+                                           init)
+    gen = torch.Generator(device=dev).manual_seed(S + 2)
+    dy = torch.randn((B, S, H, P), generator=gen, device=dev)
+    df = torch.randn((B, H, P, N), generator=gen, device=dev)
+    _, _, ws = skern.ssd_scan(x, dt, a, b, c, chunk=chunk, initial_state=s0,
+                              mask=mask, keep_workspace=True)
+    got = skern.ssd_scan_bwd(x, dt, a, b, c, dy, df, chunk=chunk,
+                             initial_state=s0, mask=mask, workspace=ws)
+    want = sref.ssd_scan_bwd_tc_emulate(x, dt, a, b, c, dy, df, chunk=chunk,
+                                        initial_state=s0, mask=mask)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dinit"), got,
+                          want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert skern.scaled_err(g, w) <= sref.EMULATE_TOL, name
 
 
 def test_ssd_scan_bwd_is_deterministic_on_card(dev):
