@@ -126,7 +126,9 @@ result line):
    luna_mm), one train step; mamba2 and zamba2 training (the scan's
    forward and backward on the kernels, 2 and 1 launches a layer): the
    loss, every gradient and one train step; one Mamba2 layer's w_in,
-   A_log and dt_bias gradients;
+   A_log and dt_bias gradients; whisper-base and llava-next-mistral-7b
+   (B 2, S 96): the loss, every gradient, one train step, prefill and
+   teacher-forced decode logits;
 5. ``quant_matmul`` on the card against the CPU's on identical f32 inputs
    under every model-level mode: codes and LUNA int32 accumulators
    bitwise, outputs 1e-5;
@@ -252,7 +254,34 @@ result line):
    launches a Mamba2 layer a step (forward and recompute), ``ssd_scan_bwd``
    1, none for deepseek-v2-lite; the watched leaves moved; the phase
    prints its seconds;
-each run of 6, 7, 9, 10, 11 and 12 asserting every request finished,
+14. the encdec and vlm families at their published widths (bf16, random
+   weights from seed 0; frames, patches and prompts from seeded
+   ``torch.Generator``s in ``input_specs``' shapes), after phase 13:
+   a. whisper-base (6 + 6 layers, d 512, vocab 51,865): ``lut_gemm`` at
+      every (M, K, N) its lut_nf4 run gives it and ``luna_mm`` at every
+      shape of its QAT step, against their plain versions; B 8, a
+      64-token prompt over (8, 1500, 512) frames and 32 greedy
+      ``decode_step``s in bf16 and under lut_nf4 (96 ``lut_gemm``
+      launches the prefill, 60 a step, each on the kernel ``route``
+      names: the encoder and the cross K/V at M = 12,000 on
+      ``lut_gemm_wgmma.cu``, the decode projections at M = 8 on
+      ``lut_gemm_tc.cu``), each twice, tokens bitwise equal, the decode
+      logits within ``TF_TOL`` of one forward of the whole sequence;
+      4 bf16 train steps at frames (2, 1500, 512) and tokens (2, 4096),
+      then 2 QAT steps under luna_approx at S 1024 (156 ``luna_mm``
+      launches a step, each on the kernel ``takes_tc`` names);
+   b. llava-next-mistral-7b (32 layers, 14.5 GB in bf16): B 4, 576
+      patches and a 64-token prompt, 32 greedy decode steps (the same
+      checks); the eval loss at (2, 4096) (576 patches, 3,520 tokens)
+      under ``attn_impl="flash"``, 32 launches on the tensor-core
+      kernel, within ``LLAVA_FLASH_LOSS_TOL`` of the chunked loss, every
+      call held to its plain version; 4 train steps at B 2 x S 4096
+      with the depth cut to ``LLAVA_TRAIN_LAYERS`` (8);
+   each serving run reports prefill and decode tok/s, step wall, peak
+   memory and a profile of one prefill and one decode step, each
+   training run phase 13's lines; the watched leaves moved; the phase
+   prints its seconds;
+each run of 6, 7, 9, 10, 11, 12 and 14 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
 through it; then (after the counts are read) a torch.profiler window
@@ -2329,11 +2358,16 @@ def small_training_phase(dev):
     for arch in cc.SCAN_FAMILIES:
         out[f"{arch} training (B=2, S=96)"] = \
             cc.family_training_card_vs_cpu(dev, arch)
+    for arch in cc.MODALITY_ARCHS:
+        out[f"{arch} training and serving (B=2, S=96)"] = \
+            cc.modality_card_vs_cpu(dev, arch)
     out["one mamba2 layer's w_in, A_log, dt_bias grads (scaled)"] = \
         cc.mamba2_layer_card_vs_cpu(dev)
     emit({"small_reference": "reduced f32 training, card vs cpu: yi-9b "
                              "(B=2, S=256), mamba2 and zamba2 (B=2, S=96), "
-                             "one Mamba2 layer", "max_err": out,
+                             "one Mamba2 layer, whisper-base and llava "
+                             "(B=2, S=96, with prefill and decode logits)",
+          "max_err": out,
           "rtol": cc.TOL, "atol": cc.TOL, "ste_rel": cc.STE_REL,
           "grad_tol": {"chunked": cc.GRAD_REL,
                        "luna_approx": cc.LUNA_GRAD_REL,
@@ -3688,7 +3722,7 @@ def train_steps(dev, what, n, step_fn, model, state, data, wrappers, want,
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         check(math.isfinite(loss) and math.isfinite(gn),
               f"{what} step {i}: loss {loss}, grad_norm {gn}")
-        tokens = batch["tokens"].numel()
+        tokens = batch["labels"].numel()
         steps.append({"step": int(state.step), "wall_s": wall,
                       "tok_s": tokens / wall, "loss": loss,
                       "grad_norm": gn, "profiled": prof is not None
@@ -3698,11 +3732,11 @@ def train_steps(dev, what, n, step_fn, model, state, data, wrappers, want,
     check(tc["luna_mm"] == want_tc, f"{what}: {tc['luna_mm']} luna_mm "
           f"launches on the tensor-core kernel, want {want_tc}")
     steady = [r["wall_s"] for r in steps[1:] if not r["profiled"]]
-    emit({"train": what, "batch": list(batches[0]["tokens"].shape),
+    emit({"train": what, "batch": list(batches[0]["labels"].shape),
           "steps": steps, "launches": counts,
           "luna_mm_launches_tc": tc["luna_mm"],
           "steady_step_s": min(steady) if steady else None,
-          "steady_tok_s": (batches[0]["tokens"].numel() / min(steady)
+          "steady_tok_s": (batches[0]["labels"].numel() / min(steady)
                            if steady else None),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           **(extra or {}), **({"profile": prof} if prof else {})})
@@ -4135,6 +4169,536 @@ def family_train_phase(dev) -> tuple[dict, int]:
         torch.cuda.empty_cache()
     emit({"phase13_s": time.perf_counter() - t_phase})
     return launches, luna_tc
+
+
+#: phase 14: the encdec and vlm families at their published widths.
+#: whisper-base serves WHISPER_B rows of a WHISPER_PROMPT-token prompt
+#: over (B, 1500, 512) frames for WHISPER_STEPS greedy decode steps;
+#: llava-next-mistral-7b (all 32 layers) LLAVA_B rows of 576 patches and
+#: a LLAVA_PROMPT-token prompt
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 8, 64, 32
+LLAVA_B, LLAVA_PROMPT, LLAVA_STEPS = 4, 64, 32
+#: llava trained with its depth cut 32 -> 8: 32 layers are 7.24B
+#: parameters, ~87 GB as bf16 weights and grads with f32 moments, before
+#: activations; 8 layers ~2.0B, ~24 GB (phase 8's cut of yi-9b)
+LLAVA_TRAIN_LAYERS = 8
+MODALITY_STEPS = 4
+#: each decode step's logits against the same positions of one forward of
+#: the whole sequence (no cache), max |diff| over max |logit|: the two
+#: round bf16 activations at other shapes (M = B rows against B x S)
+TF_TOL = 5e-2
+#: |llava's flash eval loss - its chunked eval loss| at (2, 4096)
+LLAVA_FLASH_LOSS_TOL = 1e-3
+
+
+class ModalityData:
+    """A train stream of an encdec or vlm config on the card:
+    ``batch(step, dev)`` is ``card_vs_cpu.modality_batch`` for (B, S),
+    seeded ``seed * 1000 + step`` (``SyntheticLM`` carries no frames or
+    patches)."""
+
+    def __init__(self, cfg, s: int, b: int, seed: int = 0):
+        self.cfg, self.s, self.b, self.seed = cfg, s, b, seed
+
+    def batch(self, step: int, dev) -> dict:
+        from repro_torch.train.card_vs_cpu import modality_batch
+        return modality_batch(self.cfg, self.s, self.seed * 1000 + step,
+                              self.b, dev)
+
+
+def modality_of(cfg) -> tuple[str, int]:
+    """(the name of the family's extra input, decode positions before the
+    first text token: llava's patches, none for whisper)."""
+    if cfg.family == "encdec":
+        return "frames", 0
+    return "patches", cfg.vlm.num_patches
+
+
+def whisper_lut_calls(cfg, b: int, s: int, encode: bool) -> list:
+    """(M, K, N) of every projection of one whisper call (``prefill`` with
+    ``encode``, else a ``decode_step``): the encoder's 6 a layer at M = B
+    x enc_seq, and a decoder layer's 10 at M = B x S but the cross K/V's,
+    projected from the encoder's output at B x enc_seq every call.  The
+    LM head is not quantized."""
+    from repro_torch.models.attention import gqa_shapes
+    from repro_torch.models.mlp import mlp_shapes
+
+    t = b * cfg.encdec.enc_seq
+    attn = [gqa_shapes(cfg)[n] for n in ("wq", "wk", "wv", "wo")]
+    mlp = list(mlp_shapes(cfg, mlp_type="gelu").values())
+    calls = []
+    if encode:
+        calls += [(t, k, n) for k, n in attn + mlp] * cfg.encdec.enc_layers
+    m = b * s
+    layer = ([(m, k, n) for k, n in attn]
+             + [(m, *attn[0]), (t, *attn[1]), (t, *attn[2]), (m, *attn[3])]
+             + [(m, k, n) for k, n in mlp])
+    return calls + layer * cfg.num_layers
+
+
+def lut_routes(calls: list) -> Counter:
+    """lut_gemm launches by kernel (``route``) of bf16 calls at ``calls``'
+    (M, K, N), 16-byte aligned."""
+    import torch
+
+    from repro_torch.kernels.lut_gemm.lut_gemm import route
+    return Counter(route(m, k, n, torch.bfloat16, True) for m, k, n in calls)
+
+
+def modality_kernel_checks(dev) -> dict:
+    """Phase 14's kernels at the shapes its path gives them, against their
+    plain versions (these launches are before the counted runs): lut_gemm
+    (NF4 codes) at every (M, K, N) of whisper's prefill and decode step
+    under lut_nf4, the public call on the kernel ``route`` names, at the
+    tolerance of ``kernels/lut_gemm/lut_gemm.py``; luna_mm (approx_dc) at
+    every (M, K, N) of a whisper QAT step, on the kernel ``takes_tc``
+    names, bitwise.  flash_attention is held call by call in llava's
+    eval (:func:`llava_flash_eval`)."""
+    import torch
+
+    from repro_torch.core.lut import NF4_CODEBOOK
+    from repro_torch.kernels.luna_mm import luna_mm as lm
+    from repro_torch.kernels.luna_mm.ref import luna_mm_ref
+    from repro_torch.kernels.lut_gemm import lut_gemm as lg
+    from repro_torch.kernels.lut_gemm import ref
+    from repro_torch.kernels.lut_gemm.ops import codebook_quantize
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("whisper-base")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    shapes = sorted(set(whisper_lut_calls(cfg, WHISPER_B, WHISPER_PROMPT,
+                                          True)
+                        + whisper_lut_calls(cfg, WHISPER_B, 1, False)))
+    lut_err, lut_ran = 0.0, Counter()
+    for m, k, n in shapes:
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        codes, scale = codebook_quantize(w.bfloat16(), cb)
+        x = torch.randn((m, k), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        before = (lg.lut_gemm.launches_tc, lg.lut_gemm.launches_wgmma)
+        out = synced(f"phase 14 lut_gemm ({m}, {k}, {n})",
+                     lambda: lg.lut_gemm(x, codes, cb, scale))
+        ran = {(1, 0): "tc", (0, 1): "wgmma", (0, 0): "fma"}[
+            (lg.lut_gemm.launches_tc - before[0],
+             lg.lut_gemm.launches_wgmma - before[1])]
+        check(ran == lg.route(m, k, n, x.dtype, True),
+              f"phase 14 lut_gemm ({m}, {k}, {n}) ran on {ran}")
+        lut_ran[ran] += 1
+        plain = ref.lut_gemm_ref(x, codes, cb, scale)
+        torch.testing.assert_close(out, plain, rtol=lg.KERNEL_RTOL,
+                                   atol=lg.KERNEL_ATOL)
+        lut_err = max(lut_err, (out - plain).abs().max().item())
+    qat = sorted(set(whisper_lut_calls(cfg, 2, QAT_S, True)))
+    for m, k, n in qat:
+        y = torch.randint(0, 16, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(0, 16, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        tc0 = lm.luna_mm.launches_tc
+        got = synced(f"phase 14 luna_mm approx_dc ({m}, {k}, {n})",
+                     lambda: lm.luna_mm(y, w, "approx_dc"))
+        check(lm.luna_mm.launches_tc - tc0 == lm.takes_tc(m, k, n, "row",
+                                                          True),
+              f"phase 14 luna_mm ({m}, {k}, {n}): not on the kernel "
+              "takes_tc names")
+        check(torch.equal(got, luna_mm_ref(y, w, "approx_dc")),
+              f"phase 14 luna_mm ({m}, {k}, {n}) is not bitwise its plain "
+              "version")
+    out = {"lut_gemm_shapes": [list(s) for s in shapes],
+           "lut_gemm_routes": dict(lut_ran), "lut_gemm_max_abs_err": lut_err,
+           "luna_mm_shapes": [list(s) for s in qat],
+           "luna_mm": "bitwise"}
+    emit({"kernel_check": "phase 14 shapes", **out})
+    return out
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall, device time, the
+    idle share and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    device_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms,
+            "device_ms": device_ms if rows else "not measured",
+            "device_idle_share": (1 - device_ms / wall_ms) if rows
+            else "not measured",
+            "top": [{"kernel": k[:90], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:10]]}
+
+
+def generate(model, prompt, extra, steps: int) -> dict:
+    """Greedy: ``prefill`` of ``prompt`` over ``extra`` (frames or
+    patches), then ``steps`` ``decode_step``s.  Returns the tokens (B,
+    steps), every call's last logits (steps + 1 of (B, V)), the prefill's
+    seconds and each step's."""
+    import torch
+
+    key, off = modality_of(model.cfg)
+    b, s = prompt.shape
+    state = model.init_cache(b, off + s + steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(prompt, state, **{key: extra})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, toks, step_s = [logits[:, -1]], [], []
+    for i in range(steps):
+        tok = out[-1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(tok, state, off + s + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out.append(logits[:, -1])
+    return {"tokens": torch.cat(toks, dim=1), "logits": out,
+            "prefill_s": prefill_s, "step_s": step_s, "state": state}
+
+
+def teacher_forced_err(model, prompt, extra, run) -> float:
+    """Each call's logits of ``run`` (:func:`generate`) against the same
+    positions of one forward of prompt + tokens with no cache (the
+    prefill's computation over the whole sequence), max |diff| over max
+    |logit|."""
+    import torch
+
+    seq = torch.cat([prompt, run["tokens"]], dim=1)
+    s = prompt.shape[1]
+    if model.cfg.family == "encdec":
+        hidden, _ = model.decode(seq, model.encode(extra))
+        logits = model.logits(hidden)
+    else:
+        hidden, _ = model.backbone.forward(
+            embeds=model._merge(extra, seq))
+        logits = model.backbone.logits(hidden)[:, extra.shape[1]:]
+    whole = logits[:, s - 1:].float()
+    steps = torch.stack(run["logits"], dim=1).float()
+    return ((steps - whole).abs().max() / whole.abs().max()).item()
+
+
+def serve_modality(dev, model, prompt, extra, steps: int, label: str,
+                   wrappers, want_calls: list | None = None,
+                   repeat: int = 1) -> tuple[dict, dict]:
+    """``repeat`` greedy runs (:func:`generate`), every launch counter set
+    to 0 just before each and read just after: lut_gemm's launches must
+    be ``want_calls``' (on the kernels their route names), nothing else
+    launched; the tokens of every run bitwise equal; every logit finite;
+    the decode logits within ``TF_TOL`` of one forward of the whole
+    sequence.  Reports the last run's prefill and decode tok/s, step wall
+    and peak GB (the first run meets each shape first), and a profile of
+    one prefill and one decode step (after the counts).  Returns the
+    launches of the counted runs and lut_gemm's by route."""
+    import torch
+
+    zero = dict.fromkeys(wrappers, 0)
+    want = zero | ({"lut_gemm": len(want_calls)} if want_calls else {})
+    routes = lut_routes(want_calls or [])
+    total, by_route, runs = {}, Counter(), []
+    b, s = prompt.shape
+    with torch.inference_mode():
+        for _ in range(repeat):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters(wrappers)
+            run = generate(model, prompt, extra, steps)
+            counts, tc = read_counters(wrappers)
+            check(counts == want, f"{label}: launches {counts}, want {want}")
+            got = {"tc": tc["lut_gemm"], "wgmma": tc["lut_gemm_wgmma"],
+                   "fma": counts["lut_gemm"] - tc["lut_gemm"]
+                   - tc["lut_gemm_wgmma"]}
+            check(got == {r: routes[r] for r in got},
+                  f"{label}: lut_gemm launches by kernel {got}, the route "
+                  f"says {dict(routes)}")
+            check(all(bool(torch.isfinite(lg).all()) for lg in run["logits"]),
+                  f"{label}: non-finite logits")
+            run["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            add_launches(total, counts)
+            by_route.update(got)
+            runs.append(run)
+        check(all(torch.equal(r["tokens"], runs[0]["tokens"]) for r in runs),
+              f"{label}: the tokens of two runs differ")
+        tf = teacher_forced_err(model, prompt, extra, runs[0])
+        check(tf <= TF_TOL, f"{label}: decode logits differ from the whole "
+              f"sequence's forward by {tf} of max |logit| (> {TF_TOL})")
+        key, off = modality_of(model.cfg)
+        state = runs[-1]["state"]
+        for run in runs:
+            del run["state"]
+        tok = runs[-1]["tokens"][:, -1:]
+        prof = {"prefill": profile_call(lambda: model.prefill(
+                    prompt, model.init_cache(b, off + s + steps),
+                    **{key: extra})),
+                "decode_step": profile_call(lambda: model.decode_step(
+                    tok, state, off + s + steps - 1))}
+    r = runs[-1]
+    decode_s = sum(r["step_s"])
+    emit({"phase14_serve": label, "model": model.cfg.name,
+          "layers": model.cfg.num_layers, "batch": b, "prompt": s,
+          key: list(extra.shape), "decode_steps": steps, "runs": repeat,
+          "launches": total, "lut_gemm_by_route": dict(by_route),
+          "prefill_s": r["prefill_s"],
+          "prefill_tok_s": b * (off + s) / r["prefill_s"],
+          "decode_step_ms": [1e3 * t for t in r["step_s"][:4]],
+          "steady_step_ms": 1e3 * min(r["step_s"][1:]),
+          "decode_tok_s": b * steps / decode_s,
+          "peak_mem_gb": r["peak_mem_gb"], "teacher_forced_err": tf,
+          "teacher_forced_tol": TF_TOL,
+          "tokens_equal_across_runs": repeat > 1 or None,
+          "first_tokens": r["tokens"][:, 0].tolist(), "profile": prof})
+    return total, dict(by_route)
+
+
+def llava_flash_eval(dev, model, wrappers) -> tuple[dict, int]:
+    """llava's eval loss at (2, 4096) (576 patches, 3,520 text tokens)
+    under attn_impl="flash" (one launch a layer, each on the tensor-core
+    kernel) against the chunked loss of the same weights
+    (``LLAVA_FLASH_LOSS_TOL``); then every attention call of the same
+    eval on its own inputs against the kernel's plain version
+    (``flash_attention.reference``) at its stated tolerance.  Returns the
+    flash run's launches and its tensor-core launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    cfg = model.cfg
+    held = ModalityData(cfg, TRAIN_S, TRAIN_B, seed=1).batch(0, dev)
+    fmodel = type(model).from_params(replace(cfg, attn_impl="flash"),
+                                     model.params_tree(), device=dev)
+    zero = dict.fromkeys(wrappers, 0)
+    evals = {}
+    for name, m in (("chunked", model), ("flash", fmodel)):
+        with torch.no_grad():
+            m.loss(held)                                    # warm-up
+            torch.cuda.synchronize()
+            reset_counters(wrappers)
+            fk.flash_attention.launches_tc = 0
+            t0 = time.perf_counter()
+            loss, _ = m.loss(held)
+            loss = float(loss)
+            wall = time.perf_counter() - t0
+        evals[name] = {"loss": loss, "wall_s": wall,
+                       "launches": read_counters(wrappers)[0],
+                       "launches_tc": fk.flash_attention.launches_tc}
+    want = zero | {"flash_attention": cfg.num_layers}
+    check(evals["flash"]["launches"] == want,
+          f"llava flash eval launches {evals['flash']['launches']}, "
+          f"want {want}")
+    check(evals["chunked"]["launches"] == zero,
+          f"llava chunked eval launched {evals['chunked']['launches']}")
+    check(evals["flash"]["launches_tc"] == cfg.num_layers,
+          f"llava flash eval: {evals['flash']['launches_tc']} launches of "
+          "the tensor-core kernel, want every one")
+    kernel, shares = fops.flash_attention, []
+
+    def call(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        plain, bound = fk.reference(q, k, v, **kw)
+        shares.append(fk.tolerance_share(out, plain, bound))
+        return out
+    fops.flash_attention = call
+    try:
+        with torch.no_grad():
+            held_loss = float(fmodel.loss(held)[0])
+    finally:
+        fops.flash_attention = kernel
+    diff = abs(evals["flash"]["loss"] - evals["chunked"]["loss"])
+    emit({"phase14_eval": cfg.name, "batch": list(held["labels"].shape),
+          "patches": list(held["patches"].shape), "evals": evals,
+          "loss_vs_chunked": diff, "loss_tol": LLAVA_FLASH_LOSS_TOL,
+          "calls_held": len(shares), "worst_call_tol_share": max(shares)})
+    check(math.isfinite(evals["flash"]["loss"]) and diff
+          <= LLAVA_FLASH_LOSS_TOL, f"llava flash eval loss {evals['flash']} "
+          f"vs chunked {evals['chunked']['loss']}")
+    check(held_loss == evals["flash"]["loss"],
+          "llava's flash eval loss differs between two runs")
+    check(len(shares) == cfg.num_layers and max(shares) <= 1.0,
+          f"llava flash calls against the plain version: {len(shares)} "
+          f"calls, worst share of the tolerance {max(shares)}")
+    del fmodel
+    return evals["flash"]["launches"], evals["flash"]["launches_tc"]
+
+
+#: the leaves phase 14 requires to move (every layer's)
+MODALITY_WATCH = ("embed", "lm_head", "wq", "wk", "w_up")
+
+
+def modality_train(dev, cfg, wrappers, qat: bool) -> tuple[dict, int]:
+    """``MODALITY_STEPS`` bf16 train steps of ``cfg`` at (B 2, S 4096)
+    (``make_train_step``: AdamW + cosine, remat on the decoder blocks),
+    the last profiled, no kernel of the port launched; with ``qat``,
+    ``QAT_STEPS`` more under luna_approx at S = ``QAT_S`` (every
+    projection through the STE on luna_mm: the encoder's once, the
+    decoder's twice, forward and remat's recompute, each call on the
+    kernel ``takes_tc`` names).  The watched leaves must move.  Returns
+    the launches and luna_mm's tensor-core launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.kernels.luna_mm.luna_mm import takes_tc
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)).requires_grad_(True)
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(
+        1, MODALITY_STEPS + QAT_STEPS * qat))
+    state = opt.init(model.params_tree())
+    torch.cuda.synchronize()
+    watch = {n: p for n, p in model.named_parameters()
+             if n.split(".")[-1] in MODALITY_WATCH}
+    before = {n: p.detach().clone() for n, p in watch.items()}
+    emit({"train_model": cfg.name, "family": cfg.family,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "encdec": vars(cfg.encdec) if cfg.encdec else None,
+          "vlm": vars(cfg.vlm) if cfg.vlm else None,
+          "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+          "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+          "init_s": time.perf_counter() - t0})
+    zero = dict.fromkeys(wrappers, 0)
+    launches, luna_tc = {}, 0
+    counts, _ = train_steps(dev, f"{cfg.name} bf16", MODALITY_STEPS,
+                            make_train_step(cfg, opt), model, state,
+                            ModalityData(cfg, TRAIN_S, TRAIN_B), wrappers,
+                            zero, profile_last=True)
+    add_launches(launches, counts)
+    if qat:
+        qcfg = replace(cfg, quant=QuantConfig(mode="luna_approx"))
+        qmodel = type(model).from_params(qcfg, model.params_tree(),
+                                         device=dev).requires_grad_(True)
+        # the decoder's calls run twice (remat's recompute), the encoder's
+        # once
+        calls = (whisper_lut_calls(cfg, TRAIN_B, QAT_S, True)
+                 + whisper_lut_calls(cfg, TRAIN_B, QAT_S, False))
+        n_luna = QAT_STEPS * len(calls)
+        want_tc = QAT_STEPS * sum(takes_tc(m, k, n, "row", True)
+                                  for m, k, n in calls)
+        counts, luna_tc = train_steps(
+            dev, f"{cfg.name} QAT luna_approx (STE on luna_mm)", QAT_STEPS,
+            make_train_step(qcfg, opt), qmodel, state,
+            ModalityData(cfg, QAT_S, TRAIN_B), wrappers,
+            zero | {"luna_mm": n_luna}, want_tc=want_tc, profile_last=True,
+            extra={"luna_mm_per_step": len(calls),
+                   "luna_mm_tc_per_step": want_tc // QAT_STEPS})
+        add_launches(launches, counts)
+        del qmodel
+    same = [n for n, p in watch.items() if torch.equal(before[n], p.detach())]
+    check(not same, f"{cfg.name}: parameters did not change: {same}")
+    emit({"train_params_changed": cfg.name, "changed": len(watch),
+          "of": len(watch)})
+    del model, state, opt, before, watch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, luna_tc
+
+
+def modality_phase(dev) -> tuple[dict, dict]:
+    """Phase 14: the encdec and vlm families at their published widths
+    (bf16, random weights from seed 0; frames, patches and prompts from
+    seeded ``torch.Generator``s on the card in ``input_specs``' shapes).
+    a. whisper-base: the kernels at the path's shapes
+    (:func:`modality_kernel_checks`); B 8, a 64-token prompt over (8,
+    1500, 512) frames, 32 greedy decode steps, in bf16 and under lut_nf4
+    (96 lut_gemm launches the prefill, 60 a step, each on the kernel its
+    route names), each twice; then training (:func:`modality_train`, with
+    QAT on luna_mm).  b. llava-next-mistral-7b, all 32 layers: B 4, 576
+    patches and a 64-token prompt, 32 greedy decode steps; the flash eval
+    (:func:`llava_flash_eval`); then training with the depth cut to
+    ``LLAVA_TRAIN_LAYERS``.  Returns the launches by kernel and by
+    tensor-core route (lut_gemm's under ``lut_gemm`` / ``lut_gemm_wgmma``,
+    luna_mm's and flash_attention's)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.models.registry import get_config, get_model
+
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers()
+    launches, tc = {}, Counter()
+    modality_kernel_checks(dev)
+
+    cfg = get_config("whisper-base")
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((WHISPER_B, cfg.encdec.enc_seq, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(1, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT),
+                           generator=gen, device=dev)
+    counts, _ = serve_modality(dev, model, prompt, frames, WHISPER_STEPS,
+                               "whisper-base bf16", wrappers, repeat=2)
+    add_launches(launches, counts)
+    qcfg = replace(cfg, quant=QuantConfig(mode="lut_nf4"))
+    qmodel = type(model).from_params(qcfg, model.params_tree(), device=dev)
+    calls = (whisper_lut_calls(cfg, WHISPER_B, WHISPER_PROMPT, True)
+             + whisper_lut_calls(cfg, WHISPER_B, 1, False) * WHISPER_STEPS)
+    check(len(whisper_lut_calls(cfg, WHISPER_B, WHISPER_PROMPT, True)) == 96
+          and len(whisper_lut_calls(cfg, WHISPER_B, 1, False)) == 60,
+          "whisper-base: 96 + 60 projections a prefill and a step")
+    counts, by_route = serve_modality(dev, qmodel, prompt, frames,
+                                      WHISPER_STEPS, "whisper-base lut_nf4",
+                                      wrappers, calls, repeat=2)
+    add_launches(launches, counts)
+    tc["lut_gemm"] += by_route["tc"]
+    tc["lut_gemm_wgmma"] += by_route["wgmma"]
+    del model, qmodel, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, luna_tc = modality_train(dev, cfg, wrappers, qat=True)
+    add_launches(launches, counts)
+    tc["luna_mm"] += luna_tc
+    t_whisper = time.perf_counter() - t_phase
+
+    cfg = get_config("llava-next-mistral-7b")
+    t0 = time.perf_counter()
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"serve_model": cfg.name, "layers": cfg.num_layers,
+          "params_b": sum(p.numel() for p in model.parameters()) / 1e9,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9,
+          "init_s": time.perf_counter() - t0})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    patches = torch.randn((LLAVA_B, cfg.vlm.num_patches, cfg.d_model),
+                          generator=gen, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(1, cfg.vocab_size, (LLAVA_B, LLAVA_PROMPT),
+                           generator=gen, device=dev)
+    counts, _ = serve_modality(dev, model, prompt, patches, LLAVA_STEPS,
+                               "llava-next-mistral-7b bf16", wrappers,
+                               repeat=2)
+    add_launches(launches, counts)
+    del patches
+    counts, flash_tc = llava_flash_eval(dev, model, wrappers)
+    add_launches(launches, counts)
+    tc["flash_attention"] += flash_tc
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, _ = modality_train(
+        dev, replace(cfg, num_layers=LLAVA_TRAIN_LAYERS), wrappers,
+        qat=False)
+    add_launches(launches, counts)
+    emit({"phase14_s": time.perf_counter() - t_phase,
+          "whisper_s": t_whisper, "launches": launches, "launches_tc":
+          dict(tc)})
+    return launches, dict(tc)
 
 
 def frozen_pairs(a, b, path=()):
@@ -4686,6 +5250,11 @@ def main() -> int:
     launches_family, luna_tc_family = family_train_phase(dev)
     add_launches(launches, launches_family)
     luna_tc_train += luna_tc_family
+    launches_modality, tc_modality = modality_phase(dev)
+    add_launches(launches, launches_modality)
+    flash_tc += tc_modality.pop("flash_attention", 0)
+    luna_tc_train += tc_modality.pop("luna_mm", 0)
+    add_launches(tc, tc_modality)
     emit({"script_s": time.perf_counter() - T0})
     check(set(launches) == set(kernels),
           f"kernels launched on the main path {sorted(launches)} are not "

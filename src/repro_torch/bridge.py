@@ -5,11 +5,13 @@ numpy by the caller, into the port's modules.  Imports no jax.
   family's ``"dense_blocks"`` (a list of unstacked blocks) and its
   ``"blocks"`` stack of ``num_layers - first_dense`` layers both cross,
   and so do the hybrid's unstacked ``"shared"`` block and its
-  ``"mamba"`` stack of ``num_layers`` layers.
+  ``"mamba"`` stack of ``num_layers`` layers, and whisper's
+  ``"enc_blocks"`` (``enc_layers``) and ``"dec_blocks"`` (``num_layers``)
+  stacks; llava's tree is the dense one.
 * A ``QuantizedWeight`` arrives as a dict of its numpy children plus its
   ``kernel`` string and becomes the port's ``QuantizedWeight``.
-* Every dense, moe, ssm and hybrid config crosses, ``luna-mlp`` (GELU,
-  MHA 4/4) included;
+* Every config of the six families crosses, ``luna-mlp`` (GELU, MHA
+  4/4) included;
   trained (grad-requiring) parameters go back through
   :func:`params_to_numpy`.
 * Float leaves cross with their dtype unchanged; a bfloat16 array
@@ -66,17 +68,27 @@ def _split_layers(node, n: int) -> list:
     return list(node.unbind(0))
 
 
-#: the JAX trees' layer stacks: ``"blocks"`` (dense, moe, ssm) and the
-#: hybrid's ``"mamba"``
-_STACKS = ("blocks", "mamba")
+#: the JAX trees' layer stacks: ``"blocks"`` (dense, moe, ssm, vlm), the
+#: hybrid's ``"mamba"`` and whisper's ``"enc_blocks"`` / ``"dec_blocks"``
+_STACKS = ("blocks", "mamba", "enc_blocks", "dec_blocks")
+
+
+def _stack_depth(cfg, key: str, n_dense: int) -> int:
+    """Layers on a stack's leading axis: whisper's encoder has
+    ``enc_layers``; every other stack ``num_layers`` less the moe
+    family's leading dense blocks."""
+    if key == "enc_blocks":
+        return cfg.encdec.enc_layers
+    return cfg.num_layers - n_dense
 
 
 def params_from_numpy(tree: dict, cfg, device=None):
     """Build the port's LM of ``cfg``'s family (``TransformerLM`` for
-    dense and moe, ``SSMLM`` for ssm, ``HybridLM`` for hybrid) over a
-    numpy copy of the JAX tree (``model.init`` output or its frozen
-    decode tree).  Its float leaves are frozen; ``.requires_grad_()``
-    makes them trainable."""
+    dense and moe, ``SSMLM`` for ssm, ``HybridLM`` for hybrid,
+    ``EncDecLM`` for encdec, ``VLM`` for vlm) over a numpy copy of the
+    JAX tree (``model.init`` output or its frozen decode tree).  Its
+    float leaves are frozen; ``.requires_grad_()`` makes them
+    trainable."""
     from repro_torch.models.registry import model_class
     device = resolve_device(device)
     params = {k: _leaf(v, device) for k, v in tree.items()
@@ -85,14 +97,14 @@ def params_from_numpy(tree: dict, cfg, device=None):
     for key in _STACKS:
         if key in tree:
             params[key] = _split_layers(_leaf(tree[key], device),
-                                        cfg.num_layers - n_dense)
+                                        _stack_depth(cfg, key, n_dense))
     return model_class(cfg).from_params(cfg, params, device=device)
 
 
 def params_to_numpy(model) -> dict:
-    """The model's tree in the JAX layout (``"blocks"`` and ``"mamba"``
-    stacked on a leading axis, ``"dense_blocks"`` a list), bfloat16
-    leaves as float32 numpy arrays."""
+    """The model's tree in the JAX layout (the :data:`_STACKS` stacked on
+    a leading axis, ``"dense_blocks"`` a list), bfloat16 leaves as
+    float32 numpy arrays."""
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

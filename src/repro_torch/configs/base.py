@@ -1,10 +1,11 @@
 """Config dataclasses for the port's model zoo (mirrors
 ``repro.configs.base``).
 
-The dense, moe, SSM and hybrid families are ported, so
-:class:`ModelConfig` carries the fields the dense GQA, DeepSeek MoE/MLA,
-mamba2 and zamba2 paths read; the encdec/VLM sub-configs arrive with
-their families (ROADMAP queue 1 item 7, trained under item 8).
+Every family of the JAX registry is ported (dense, moe, ssm, hybrid,
+encdec, vlm), so :class:`ModelConfig` carries the fields the dense GQA,
+DeepSeek MoE/MLA, mamba2, zamba2, whisper and llava paths read, and
+:class:`ShapeConfig` the assigned input-shape cells that
+``models.registry.input_specs`` sizes their inputs from.
 """
 from __future__ import annotations
 
@@ -55,9 +56,20 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    enc_layers: int = 6
+    enc_seq: int = 1500          # whisper: 30 s of audio @ 2x conv stride
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    num_patches: int = 576       # llava-next base grid (anyres tiles stubbed)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" | "moe" | "ssm" | "hybrid"
+    family: str                  # dense | moe | encdec | hybrid | ssm | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -74,6 +86,8 @@ class ModelConfig:
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
     hybrid: HybridConfig | None = None
+    encdec: EncDecConfig | None = None
+    vlm: VLMConfig | None = None
     quant: QuantConfig = field(default_factory=QuantConfig)  # model-level
     attn_impl: str = "chunked"   # full | chunked | flash (forward-only)
     attn_chunk: int = 512
@@ -120,5 +134,25 @@ class ModelConfig:
                                       shared_num_heads=4,
                                       shared_num_kv_heads=2, shared_d_ff=256)
             small["num_layers"] = 4
+        if self.encdec:
+            small["encdec"] = replace(self.encdec, enc_layers=2, enc_seq=64)
+        if self.vlm:
+            small["vlm"] = VLMConfig(num_patches=16)
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)

@@ -31,13 +31,19 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ) -> torch.Tensor:
     """Multi-head attention with GQA.
 
-    q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D).  The flash
-    route is forward-only: under autograd (grad enabled and q, k or v
-    requiring grad) it raises, as ``jax.grad`` through JAX's kernel fails;
-    training uses ``attn_impl="full"`` or ``"chunked"``.
+    q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D).  k/v of
+    another length raise ``TypeError``, as JAX's reshape of k/v to the
+    query's length does (whisper's cross-attention under ``flash``).  The
+    flash route is forward-only: under autograd (grad enabled and q, k or
+    v requiring grad) it raises, as ``jax.grad`` through JAX's kernel
+    fails; training uses ``attn_impl="full"`` or ``"chunked"``.
     """
     b, s, h, d = q.shape
     hkv = k.shape[2]
+    if k.shape[1] != s or v.shape[1] != s:
+        raise TypeError(
+            f"cannot reshape k/v of length {k.shape[1]} to the query's "
+            f"length {s}: attention here takes one S (JAX's mha)")
     if use_flash:
         check_tiling(s)
         if torch.is_grad_enabled() and any(t.requires_grad

@@ -50,8 +50,10 @@
 ``--arch`` is one of ``ARCH_IDS``: the dense ``starcoder2-15b``,
 ``minitron-4b``, ``yi-9b`` (the default) and ``deepseek-67b``, the moe
 ``deepseek-v2-lite-16b`` and ``deepseek-v2-236b``, the hybrid
-``zamba2-1.2b`` and the ssm ``mamba2-1.3b``.  Weights are random, drawn
-from ``--seed``.  ``--quant lut4|int4|nf4|nf4p`` freezes the decode
+``zamba2-1.2b`` and the ssm ``mamba2-1.3b``; the encdec
+``whisper-base`` and the vlm ``llava-next-mistral-7b`` are listed as in
+JAX's CLI, and the engine refuses them as JAX's does (they need frames
+or patches).  Weights are random, drawn from ``--seed``.  ``--quant lut4|int4|nf4|nf4p`` freezes the decode
 projections (mamba2: ``w_in``/``w_out``; zamba2: those and the shared
 block's seven; moe: the attention projections, the shared experts
 and the leading dense block's MLP, never the routed experts) to 4 bits (lut4 and nf4/nf4p run the

@@ -22,7 +22,10 @@ the published ones.  ``--arch`` is any config of the dense (``yi-9b``,
 (``deepseek-v2-lite-16b``, ``deepseek-v2-236b``), ssm (``mamba2-1.3b``)
 or hybrid (``zamba2-1.2b``) family, or ``luna-mlp`` (the paper's Fig 13
 network); on the card the Mamba2 layers' SSD scan runs forward and
-backward on the hand-written kernels.  ``--quant`` takes the model-level
+backward on the hand-written kernels.  The encdec (``whisper-base``) and
+vlm (``llava-next-mistral-7b``) archs fail here with ``KeyError``, as
+JAX's CLI does: ``SyntheticLM``'s batches carry no frames or patches
+(the ``Trainer`` trains them on a stream that does).  ``--quant`` takes the model-level
 modes that train: ``bf16`` and ``luna_*``.  Checkpoints go to ``--ckpt-dir`` and a rerun
 resumes from the latest.  The mesh flags of the JAX CLI
 (``--model-parallel``, ``--host-devices``, ``--distributed``) and

@@ -16,10 +16,14 @@ scalar offsets; ``attn_causal_skip``: a causal chunk reads keys up to its
 own end, as JAX's unrolled chunk loop does), ``flash`` (the hand-written
 kernel of ``kernels.flash_attention``, taken under JAX's condition: a
 cacheless full-sequence forward), the scalar-index and per-row cache
-writes, paged decode through a block table, and speculation's verify
+writes, paged decode through a block table, speculation's verify
 windows: S > 1 tokens a row at per-row positions with ``n_valid`` real
 ones, on the slab or the pool (:class:`~repro_torch.models.common.
-WindowTarget`).  MLA (DeepSeek-V2) scores the absorbed form in f32:
+WindowTarget`), and whisper's bidirectional encoder (``causal=False``)
+and cross-attention (``kv_x``: k/v from the encoder's output, no rope,
+no cache; under ``flash`` the one-S kernel route, which takes it only
+where the decoder's length equals the encoder's, as JAX's).  MLA
+(DeepSeek-V2) scores the absorbed form in f32:
 ``q_nope·W_uk`` against c_kv plus ``q_rope`` against k_rope, then
 ``p·c_kv`` and ``·W_uv``, JAX's association.  Sharded decode is ROADMAP
 queue 1 item 9.
@@ -221,8 +225,14 @@ class GQAAttention(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: KVCache | None = None, cache_index=None,
                 paged: PagedRows | None = None,
-                window: WindowTarget | None = None, n_valid=None):
-        """Returns (out (B, S, D), cache).  ``cache_index``: a Python int
+                window: WindowTarget | None = None, n_valid=None,
+                causal: bool = True, kv_x: torch.Tensor | None = None):
+        """Returns (out (B, S, D), cache).  ``kv_x`` (B, Sk, D): the
+        cross-attention source (the encoder's output): k and v are
+        projected from it, neither q nor k is rotated, no cache is read
+        or written, and attention is not causal (JAX's ``kv_x``).
+        ``causal=False``: bidirectional self-attention (the encoder).
+        ``cache_index``: a Python int
         (prefill writes a (B, S) block at that offset) or a (B,) tensor of
         per-row decode depths (S must be 1 unless ``window`` is given).
         ``paged``: the step's block table and write targets
@@ -236,19 +246,25 @@ class GQAAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, dh = self.heads
+        src = x if kv_x is None else kv_x
+        sk = src.shape[1]
         q = quant_matmul(x, self.wq, cfg.quant, "attn").reshape(b, s, h, dh)
-        k = quant_matmul(x, self.wk, cfg.quant, "attn").reshape(b, s, hkv, dh)
-        v = quant_matmul(x, self.wv, cfg.quant, "attn").reshape(b, s, hkv, dh)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = quant_matmul(src, self.wk, cfg.quant, "attn").reshape(
+            b, sk, hkv, dh)
+        v = quant_matmul(src, self.wv, cfg.quant, "attn").reshape(
+            b, sk, hkv, dh)
+        if kv_x is None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
         kv_len, q_offset = None, 0
-        if cache is not None:
+        if cache is not None and kv_x is None:
             k, v, kv_len, q_offset = write_cache(
                 cache, k, v, cache_index=cache_index, paged=paged,
                 window=window, n_valid=n_valid)
 
-        out = sdpa(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len,
+        out = sdpa(q, k, v, causal=causal and kv_x is None,
+                   q_offset=q_offset, kv_len=kv_len,
                    impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                    f32_operands=cfg.attn_f32, fused_mask=cfg.attn_fused_mask,
                    causal_skip=cfg.attn_causal_skip)

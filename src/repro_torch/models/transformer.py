@@ -43,8 +43,9 @@ from repro_torch.models.common import (CacheSpec, cache_targets,
 from repro_torch.models.mlp import MLP, mlp_shapes
 from repro_torch.models.moe import MoE, moe_shapes
 
-#: the families this module serves
-FAMILIES = ("dense", "moe")
+#: the families this module serves (``vlm``: the backbone of
+#: :class:`~repro_torch.models.vlm.VLM`)
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _attn_shapes(cfg) -> dict:
@@ -138,16 +139,19 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Dense GQA or moe (MoE + MLA) decoder LM on ``device`` (the card
-    unless ``"cpu"``).  ``blocks`` holds every layer in order, the moe
-    family's ``first_dense`` dense blocks first."""
+    """Dense GQA or moe (MoE + MLA) decoder LM, or the vlm family's
+    backbone, on ``device`` (the card unless ``"cpu"``).  ``blocks`` holds
+    every layer in order, the moe family's ``first_dense`` dense blocks
+    first."""
 
     def __init__(self, cfg, device=None, params: dict | None = None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 "
-                "item 7")
+                f"TransformerLM serves the {FAMILIES} families, not "
+                f"{cfg.family!r}: ROADMAP queue 1 item 7 ported the JAX "
+                "registry's six, and registry.model_class picks each one's "
+                "class")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -204,17 +208,20 @@ class TransformerLM(nn.Module):
         return self
 
     # ---------------- forward ----------------
-    def forward(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
+    def forward(self, tokens: torch.Tensor | None = None, *, embeds=None,
+                caches=None, cache_index=0,
                 block_tables: torch.Tensor | None = None, n_valid=None,
                 training: bool = False):
         """Returns (hidden (B, S, D), caches); :meth:`forward_aux` also
-        returns the MoE blocks' summed load-balance loss."""
+        returns the MoE blocks' summed load-balance loss.  ``embeds`` (B,
+        S, D) takes the place of ``tokens``' embeddings (the vlm family's
+        patches before its text)."""
         hidden, _, caches = self._run(
-            tokens, caches=caches, cache_index=cache_index,
+            tokens, embeds=embeds, caches=caches, cache_index=cache_index,
             block_tables=block_tables, n_valid=n_valid, training=training)
         return hidden, caches
 
-    def forward_aux(self, tokens: torch.Tensor, **kw):
+    def forward_aux(self, tokens: torch.Tensor | None = None, **kw):
         """Returns (hidden (B, S, D), aux, caches): :meth:`forward`'s, and
         the MoE blocks' summed load-balance loss (0 for the dense
         family)."""
@@ -223,9 +230,9 @@ class TransformerLM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
         return hidden, aux, caches
 
-    def _run(self, tokens: torch.Tensor, *, caches=None, cache_index=0,
-             block_tables: torch.Tensor | None = None, n_valid=None,
-             training: bool = False):
+    def _run(self, tokens: torch.Tensor | None, *, embeds=None, caches=None,
+             cache_index=0, block_tables: torch.Tensor | None = None,
+             n_valid=None, training: bool = False):
         """Returns (hidden (B, S, D), aux or None, caches).
         ``block_tables``: (B, nblk) when ``caches`` hold paged pools (one
         tensor for every layer).
@@ -233,8 +240,8 @@ class TransformerLM(nn.Module):
         window (JAX's ``n_valid`` through the blocks), whose write targets
         are computed once here for every layer.  ``training`` with
         ``cfg.remat`` recomputes each block in the backward."""
-        x = F.embedding(tokens, self.embed)
-        s = tokens.shape[1]
+        x = F.embedding(tokens, self.embed) if embeds is None else embeds
+        s = x.shape[1]
         positions = token_positions(s, cache_index, x.device)
         paged, window = cache_targets(
             caches[0] if caches is not None else None, s, cache_index,
@@ -262,10 +269,13 @@ class TransformerLM(nn.Module):
 
     # ---------------- training ----------------
     def loss(self, batch: dict):
-        """batch: tokens (B, S), labels (B, S)[, loss_mask (B, S)].
-        Returns (xent + aux, {"xent", "aux"}); aux is the MoE blocks'
-        summed load-balance loss (0 for the dense family)."""
-        hidden, aux, _ = self.forward_aux(batch["tokens"], training=True)
+        """batch: tokens (B, S) or embeds (B, S, D), labels (B, S)[,
+        loss_mask (B, S)].  Returns (xent + aux, {"xent", "aux"}); aux is
+        the MoE blocks' summed load-balance loss (0 for the dense
+        family)."""
+        hidden, aux, _ = self.forward_aux(batch.get("tokens"),
+                                          embeds=batch.get("embeds"),
+                                          training=True)
         xent = chunked_xent(hidden, self._head(), batch["labels"],
                             batch.get("loss_mask"))
         return xent + aux, {"xent": xent, "aux": aux}
@@ -291,12 +301,14 @@ class TransformerLM(nn.Module):
                           for t in tails))
                 for _ in range(cfg.num_layers)]
 
-    def prefill(self, tokens, caches, *, last_pos=None, cache_index=0):
+    def prefill(self, tokens, caches, *, embeds=None, last_pos=None,
+                cache_index=0):
         """Prompt forward writing ``caches`` at ``cache_index``; returns the
         (B, 1, V) logits at ``last_pos`` (default: the last column).
         Chunked prefill feeds the prompt in pieces, each continuing the
-        staged cache at the previous piece's end."""
-        hidden, caches = self.forward(tokens, caches=caches,
+        staged cache at the previous piece's end.  ``embeds``: as
+        :meth:`forward`'s."""
+        hidden, caches = self.forward(tokens, embeds=embeds, caches=caches,
                                       cache_index=cache_index)
         last = (hidden[:, -1:] if last_pos is None
                 else gather_last(hidden, last_pos))

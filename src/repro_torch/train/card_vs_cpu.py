@@ -1,8 +1,10 @@
 """Reduced f32 training on the card against the same on the CPU: yi-9b
 (:func:`training_card_vs_cpu`), the ssm and hybrid families
 (:func:`family_training_card_vs_cpu`: mamba2-1.3b, zamba2-1.2b, the SSD
-scan forward and backward on the kernels) and one Mamba2 layer
-(:func:`mamba2_layer_card_vs_cpu`).
+scan forward and backward on the kernels), one Mamba2 layer
+(:func:`mamba2_layer_card_vs_cpu`), and the encdec and vlm families
+(:func:`modality_card_vs_cpu`: whisper-base, llava-next-mistral-7b,
+training and serving).
 
 ``chip_smoke.py`` (phase 4) and ``tests/test_torch_cuda.py`` both run
 these checks.  Each raises ``AssertionError`` past its tolerance and
@@ -19,7 +21,8 @@ import torch
 from repro_torch.core.layers import QuantConfig
 from repro_torch.core.quant import ste_luna_matmul
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
-from repro_torch.models.registry import get_config, get_model
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.registry import get_config, get_model, input_specs
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.train_step import make_train_step
 from repro_torch.tree import leaves, tree_map
@@ -124,19 +127,35 @@ def training_card_vs_cpu(dev) -> dict:
     return out
 
 
-def train_step_err(cpu, cfg, dev, batch, gbatch) -> float:
-    """One ``make_train_step`` step (AdamW, lr 1e-3) from ``cpu``'s weights
-    on the CPU and on ``dev``: every param within ``TOL``; returns the
-    largest difference."""
+#: the train step's learning rate (:func:`train_step_err`)
+STEP_LR = 1e-3
+
+
+def train_step_err(cpu, cfg, dev, batch, gbatch, grads=None) -> float:
+    """One ``make_train_step`` step (AdamW, lr ``STEP_LR``) from ``cpu``'s
+    weights on the CPU and on ``dev``: every param within ``TOL``; returns
+    the largest difference.  ``grads``: the CPU's gradients of ``batch``'s
+    loss at those weights, one a leaf of ``params_tree()``.  AdamW's first
+    step moves an element by ~lr * g / (|g| + eps), so where g lies within
+    ``GRAD_REL`` of its leaf's scale from 0 the two devices' f32
+    gradients need not agree on it: with ``grads`` given, those elements
+    are held to the one-step bound 2 lr (``tests/
+    test_torch_train_families.py``'s rule against JAX), the rest to
+    ``TOL``."""
     a, b = model_pair(cpu, cfg, dev)
     for m, batch_d in ((a, batch), (b, gbatch)):
-        opt = AdamW(lr=1e-3)
+        opt = AdamW(lr=STEP_LR)
         make_train_step(cfg, opt)(m, opt.init(m.params_tree()), batch_d)
     err = 0.0
-    for pa, pb in zip(leaves(a.params_tree()), leaves(b.params_tree())):
-        torch.testing.assert_close(pb.detach().cpu(), pa.detach(),
-                                   rtol=TOL, atol=TOL)
-        err = max(err, (pb.detach().cpu() - pa.detach()).abs().max().item())
+    pairs = zip(leaves(a.params_tree()), leaves(b.params_tree()))
+    for i, (pa, pb) in enumerate(pairs):
+        got, want = pb.detach().cpu(), pa.detach()
+        err = max(err, (got - want).abs().max().item())
+        if grads is not None:
+            assert (got - want).abs().max().item() <= 2 * STEP_LR
+            settled = grads[i].abs() > GRAD_REL * grads[i].abs().max()
+            got, want = got[settled], want[settled]
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     return err
 
 
@@ -211,3 +230,76 @@ def mamba2_layer_card_vs_cpu(dev) -> dict:
         f"one Mamba2 layer's gradients, card vs cpu: {errs} of their "
         f"scale (> {GRAD_REL})")
     return errs
+
+
+#: the families fed frames or patches besides their tokens
+MODALITY_ARCHS = ("whisper-base", "llava-next-mistral-7b")
+
+
+def modality_batch(cfg, s: int, seed: int, b: int = 2,
+                   device="cpu") -> dict:
+    """A train batch of ``cfg``'s family in ``input_specs``' shapes for
+    (B, S): tokens and labels uniform ids, frames / patches N(0, 1) in
+    the model's dtype, from a ``torch.Generator`` on ``device`` seeded
+    ``seed`` (``SyntheticLM`` carries no frames or patches)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, (shape, dt) in input_specs(
+            cfg, ShapeConfig("modality", s, b, "train")).items():
+        if dt.is_floating_point:
+            out[k] = torch.randn(shape, generator=gen, device=device).to(dt)
+        else:
+            out[k] = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                   device=device)
+    return out
+
+
+def modality_card_vs_cpu(dev, arch: str) -> dict:
+    """Reduced f32 ``arch`` (seed 1; B = 2, S = 96: whisper's decoder over
+    its 64 frames, llava's 16 patches then 80 tokens) on the card against
+    the CPU: the loss (``TOL``), every gradient (``GRAD_REL`` of its
+    leaf's scale), a 12-token prefill and 4 teacher-forced
+    ``decode_step``s (llava's positions count the patches), every call's
+    logits within ``TOL``, and one train step's params (``TOL``; 2 lr
+    where the gradient is within ``GRAD_REL`` of 0: :func:`
+    train_step_err`).  Returns each check's largest error."""
+    cfg = get_config(arch).reduced(dtype="float32")
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    batch = modality_batch(cfg, 96, 2)
+    gbatch = {k: t.to(dev) for k, t in batch.items()}
+    a, b = model_pair(cpu, cfg, dev)
+    la, _ = a.loss(batch)
+    lb, _ = b.loss(gbatch)
+    la.backward()
+    lb.backward()
+    torch.testing.assert_close(lb.detach().cpu(), la.detach(), rtol=TOL,
+                               atol=TOL)
+    err = scaled_grad_err(a, b)
+    assert err <= GRAD_REL, (f"{arch}: gradients differ by {err} of their "
+                             f"leaf's scale (> {GRAD_REL})")
+    out = {"loss": abs(lb.item() - la.item()), "grads (scaled)": err}
+    key = "frames" if cfg.family == "encdec" else "patches"
+    off = cfg.vlm.num_patches if cfg.vlm else 0
+    logits = []
+    with torch.no_grad():
+        for m, bt in ((a, batch), (b, gbatch)):
+            toks = bt["tokens"]
+            lg, state = m.prefill(toks[:, :12], m.init_cache(2, off + 20),
+                                  **{key: bt[key]})
+            calls = [lg]
+            for i in range(4):
+                lg, state = m.decode_step(toks[:, 12 + i:13 + i], state,
+                                          off + 12 + i)
+                calls.append(lg)
+            logits.append(calls)
+    worst = 0.0
+    for want, got in zip(*logits):
+        torch.testing.assert_close(got.cpu(), want, rtol=TOL, atol=TOL)
+        worst = max(worst, (got.cpu() - want).abs().max().item())
+    out["prefill + decode logits"] = worst
+    # last: the CPU side's step writes into ``cpu``'s tensors, which ``a``
+    # shares
+    out["train_step params"] = train_step_err(
+        cpu, cfg, dev, batch, gbatch,
+        grads=[p.grad.clone() for p in leaves(a.params_tree())])
+    return out

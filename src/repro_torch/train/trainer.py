@@ -9,10 +9,14 @@ checkpoint/restart, preemption handling, straggler detection.
   signal; here it logs and counts events);
 * a deterministic data stream keyed by step, so a restart replays nothing.
 
-The dense, moe, ssm and hybrid families train (``TRAINED_FAMILIES``;
-the ssm and hybrid families' SSD scan differentiates through
-``kernels.ssd_scan.ops.SSDScanFn``, on the card the kernels
-``ssd_scan_tc.cu`` forward and ``ssd_scan_bwd.cu`` backward).
+Every family trains (``TRAINED_FAMILIES``; the ssm and hybrid families'
+SSD scan differentiates through ``kernels.ssd_scan.ops.SSDScanFn``, on
+the card the kernels ``ssd_scan_tc.cu`` forward and ``ssd_scan_bwd.cu``
+backward).  The encdec and vlm families train as JAX's Trainer trains
+them: on a data stream whose ``batch(step, device)`` carries ``frames``
+or ``patches`` (shapes from ``models.registry.input_specs``);
+``SyntheticLM`` carries neither, so their ``loss`` raises ``KeyError`` on
+its batches, as JAX's does.
 ``Trainer(cfg, tcfg, device=None)`` takes the place of JAX's ``mesh``:
 one device, the card unless ``device="cpu"``.  Weights start random from
 ``torch.Generator(device).manual_seed(tcfg.seed)``; JAX's PRNG stream is
@@ -29,7 +33,6 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.checkpoint.ckpt import Checkpointer
-from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import get_model
 from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -56,17 +59,17 @@ class TrainerConfig:
     seed: int = 0
 
 
-#: the families the port trains (JAX's Trainer also trains encdec and vlm
-#: on hand-built batches)
-TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families the port trains: all six of the JAX registry
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 class Trainer:
     def __init__(self, cfg, tcfg: TrainerConfig, device=None):
         if cfg.family not in TRAINED_FAMILIES:
             raise NotImplementedError(
-                f"training the {cfg.family!r} family is not ported yet: "
-                "ROADMAP queue 1 item 8")
+                f"family {cfg.family!r} is none of the six the trainer "
+                f"trains {TRAINED_FAMILIES}: ROADMAP queue 1 item 8 ported "
+                "their training")
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
         self.opt = AdamW(lr=tcfg.lr,
@@ -82,9 +85,11 @@ class Trainer:
         return {sig: signal.signal(sig, handler)
                 for sig in (signal.SIGTERM, signal.SIGINT)}
 
-    def run(self, data: SyntheticLM, *, install_signals: bool = True):
-        """Train to ``tcfg.total_steps``; returns (model, loss history of
-        the steps this run took)."""
+    def run(self, data, *, install_signals: bool = True):
+        """Train to ``tcfg.total_steps`` on ``data``'s ``batch(step,
+        device)`` (a :class:`~repro_torch.data.synthetic.SyntheticLM`, or
+        a stream that also carries ``frames`` or ``patches``); returns
+        (model, loss history of the steps this run took)."""
         previous = self._install_signals() if install_signals else {}
         try:
             return self._run(data)
@@ -92,7 +97,7 @@ class Trainer:
             for sig, h in previous.items():
                 signal.signal(sig, h)
 
-    def _run(self, data: SyntheticLM):
+    def _run(self, data):
         tcfg = self.tcfg
         step_fn = make_train_step(self.cfg, self.opt,
                                   microbatch=tcfg.microbatch,

@@ -47,7 +47,9 @@ machine with the card and no JAX:
   grad; one reduced Mamba2 layer's ``w_in``, ``A_log`` and ``dt_bias``
   gradients on the card equal the CPU's, and reduced f32 mamba2 and
   zamba2 train on the card as on the CPU (loss, every gradient, one
-  step; ``repro_torch.train.card_vs_cpu``);
+  step; ``repro_torch.train.card_vs_cpu``), and so do reduced f32
+  whisper-base and llava-next-mistral-7b (loss, every gradient, one
+  step, prefill and decode logits);
 * the cache substrate on the card: the engine on the paged pool emits the
   dense slab's tokens (reduced bf16 yi-9b, decode on the LUT kernels) and
   a decode step over the pool gives the slab's logits bitwise; a warm
@@ -690,3 +692,14 @@ def test_training_card_matches_cpu(dev):
     and one train step's params, each at the tolerance stated there."""
     from repro_torch.train.card_vs_cpu import training_card_vs_cpu
     training_card_vs_cpu(dev)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_modality_families_card_match_cpu(dev, arch):
+    """Reduced f32 whisper-base and llava-next-mistral-7b on the card
+    against the CPU (``card_vs_cpu.modality_card_vs_cpu``): the loss,
+    every gradient, one train step's params, and prefill then
+    teacher-forced decode_step logits, each at the tolerance stated
+    there."""
+    from repro_torch.train.card_vs_cpu import modality_card_vs_cpu
+    modality_card_vs_cpu(dev, arch)

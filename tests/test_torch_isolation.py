@@ -5,9 +5,9 @@
 * Without a GPU, every entry point raises unless given ``device="cpu"``
   (the training ones too: ``Trainer``, ``launch.train``, the data
   stream's ``batch``).
-* What the slice does not port raises ``NotImplementedError`` naming the
-  ROADMAP item that ports it; what it ports (the moe family, the rest of
-  the dense archs) loads and serves.
+* What the port leaves out raises ``NotImplementedError`` naming the
+  ROADMAP item that ports it; what it ports (every arch of the JAX
+  registry, the encdec and vlm families last) loads, serves and trains.
 """
 import os
 import subprocess
@@ -21,8 +21,10 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models.attention import sdpa
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.common import CacheSpec
-from repro_torch.models.registry import get_config, get_model
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.registry import UNPORTED_ARCHS, get_config, get_model
 from repro_torch.models.ssm_lm import SSMLM
+from repro_torch.models.vlm import VLM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.engine import Engine
@@ -64,7 +66,8 @@ def test_every_module_imports_without_jax_or_repro():
         "models.attention", "configs.starcoder2_15b", "configs.minitron_4b",
         "configs.deepseek_67b", "configs.deepseek_v2_lite_16b",
         "configs.deepseek_v2_236b", "models.hybrid",
-        "configs.zamba2_1p2b")} <= names
+        "configs.zamba2_1p2b", "models.encdec", "models.vlm",
+        "configs.whisper_base", "configs.llava_next_mistral_7b")} <= names
 
 
 def _small_cfg():
@@ -169,17 +172,22 @@ def test_unported_parts_name_their_roadmap_item():
     assert zamba.family == "hybrid" and zamba.hybrid.period == 6
     assert isinstance(get_model(zamba.reduced(dtype="float32"),
                                 device="cpu"), HybridLM)
-    # whisper-base and llava-next are not: the JAX engine serves neither
-    for arch in ("whisper-base", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            get_config(arch)
+    # whisper-base and llava-next are ported (queue 1 item 8a; the JAX
+    # engine serves neither): they load and build; no arch is left
+    for arch, cls in (("whisper-base", EncDecLM),
+                      ("llava-next-mistral-7b", VLM)):
+        assert isinstance(get_model(get_config(arch).reduced(
+            dtype="float32"), device="cpu"), cls)
+    assert UNPORTED_ARCHS == {}
     # the trainer builds for the ssm, hybrid and moe families (queue 1
-    # item 8's first part); a family it does not train still names the item
-    for arch in ("mamba2-1.3b", "zamba2-1.2b", "deepseek-v2-lite-16b"):
+    # item 8's first part) and for encdec and vlm (item 8a); a family
+    # outside the six still names the item
+    for arch in ("mamba2-1.3b", "zamba2-1.2b", "deepseek-v2-lite-16b",
+                 "whisper-base", "llava-next-mistral-7b"):
         Trainer(get_config(arch).reduced(), TrainerConfig(), device="cpu")
     from dataclasses import replace
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Trainer(replace(get_config("mamba2-1.3b").reduced(), family="encdec"),
+        Trainer(replace(get_config("mamba2-1.3b").reduced(), family="audio"),
                 TrainerConfig(), device="cpu")
     assert CacheSpec(block_size=16, num_blocks=8).paged   # ported
     EngineConfig(spec="ngram").validate("dense")          # ported, as JAX
@@ -190,9 +198,15 @@ def test_unported_parts_name_their_roadmap_item():
     from repro_torch.launch.train import main as train_main
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         train_main(["--device", "cpu", "--model-parallel", "2"])
-    # the moe family is ported (queue 1 item 7's first part); a transformer
-    # of a family it does not serve still names the item
+    # the moe family is ported (queue 1 item 7's first part), and the vlm
+    # family's backbone is a TransformerLM (item 8a); a transformer of a
+    # family it does not serve, and a family outside the six, still name
+    # the item
     moe = get_config("deepseek-v2-lite-16b").reduced(dtype="float32")
     assert isinstance(TransformerLM(moe, device="cpu"), TransformerLM)
+    assert isinstance(TransformerLM(replace(_small_cfg(), family="vlm"),
+                                    device="cpu"), TransformerLM)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         TransformerLM(replace(_small_cfg(), family="encdec"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        get_model(replace(_small_cfg(), family="audio"), device="cpu")
