@@ -7,6 +7,9 @@
                                               # and this checkout's in turns
     python3 chip_smoke.py --ssd-bwd-against DIR   # the same for
                                                   # ssd_scan_bwd
+    python3 chip_smoke.py --phases 4,15   # after the build only these
+                                          # phase groups (``PHASES``); no
+                                          # kernels line, no last line
 
 Phases, each fatal on failure (the script exits nonzero and prints no
 result line):
@@ -281,7 +284,36 @@ result line):
    memory and a profile of one prefill and one decode step, each
    training run phase 13's lines; the watched leaves moved; the phase
    prints its seconds;
-each run of 6, 7, 9, 10, 11, 12 and 14 asserting every request finished,
+15. the last training options and the paper's entry points, after phase
+   14 (their reduced f32 card == CPU checks are phase 4's: yi-9b trained
+   under int8, int4_dequant, lut_nf4 and ``remat_policy="dots"``;
+   ``NF4MatmulFn`` against its plain version):
+   a. ``remat_policy`` "nothing" against "dots" (selective checkpointing:
+      the un-batched matmuls' outputs saved) at yi-9b's full width with
+      depth 8 and mamba2-1.3b's 48 layers, B 2 x S 4096: one loss and
+      backward each on the same batch, the largest gradient difference
+      (``card_vs_cpu.GRAD_REL`` of its leaf's scale; bitwise leaves
+      counted) and that pass's peak memory; then 4 timed train steps (a
+      warm-up and 3 steady ones) and a profiled one under each (step
+      wall, peak GB, the idle share);
+   b. yi-9b at depth 8, B 2 x S 1024, 2 train steps each under int8,
+      int4_dequant and lut_nf4 (step wall, peak GB); under lut_nf4 168
+      ``lut_gemm`` launches a step, 56 of them the backward's dx over the
+      transposed codes (``NF4MatmulFn``), every one on the kernel
+      ``route`` names (``lut_gemm_wgmma.cu``); before them, at each
+      yi-9b forward shape the Function's forward bitwise the
+      one-launch forward and at each transposed (M, N, K) the backward's
+      call against ``lut_gemm_ref`` (1e-4), timed device-only beside its
+      bound;
+   c. ``examples/fig13_nn_accuracy_torch.py`` (QAT on ``luna_mm``, the
+      PTQ columns on ``lut_gemm_dc``/``lut_gemm_dc_res``; JAX's bounds),
+      ``tools/paper_tables_torch.py``'s ``ALL`` and
+      ``examples/quickstart_torch.py`` on the card, their MAEs and
+      bounds, and their launches by kernel and route; before each, its
+      kernels at every (M, K, N) it gives them against their plain
+      versions (``luna_mm`` bitwise, the D&C LUT GEMMs at 1e-4);
+   the phase prints its seconds;
+each run of 6, 7, 9, 10, 11, 12, 14 and 15 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
 through it; then (after the counts are read) a torch.profiler window
@@ -2330,7 +2362,8 @@ def small_training_phase(dev):
     and under luna_approx through the STE on luna_mm, one train step's
     params; the same for reduced f32 mamba2 and zamba2 (the scan on
     ``ssd_scan`` and ``ssd_scan_bwd``) and one Mamba2 layer's w_in, A_log
-    and dt_bias gradients.  Beside them, the reason luna_approx's gradients have a
+    and dt_bias gradients; the quantized modes and remat "dots"
+    (:func:`small_options_phase`).  Beside them, the reason luna_approx's gradients have a
     tolerance of their own: the same effect on the CPU alone under 1e-7
     relative weight noise."""
     from dataclasses import replace
@@ -2363,6 +2396,7 @@ def small_training_phase(dev):
             cc.modality_card_vs_cpu(dev, arch)
     out["one mamba2 layer's w_in, A_log, dt_bias grads (scaled)"] = \
         cc.mamba2_layer_card_vs_cpu(dev)
+    small_options_phase(dev)
     emit({"small_reference": "reduced f32 training, card vs cpu: yi-9b "
                              "(B=2, S=256), mamba2 and zamba2 (B=2, S=96), "
                              "one Mamba2 layer, whisper-base and llava "
@@ -3736,6 +3770,7 @@ def train_steps(dev, what, n, step_fn, model, state, data, wrappers, want,
           "steps": steps, "launches": counts,
           "luna_mm_launches_tc": tc["luna_mm"],
           "steady_step_s": min(steady) if steady else None,
+          "steady_step_s_max": max(steady) if steady else None,
           "steady_tok_s": (batches[0]["labels"].numel() / min(steady)
                            if steady else None),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5106,6 +5141,520 @@ def hybrid_phase(dev) -> tuple[dict, dict]:
     return launches, tc_total
 
 
+#: phase 15: the last training options and the paper's entry points.
+#: 15a's models: yi-9b at phase 8's depth and shape, mamba2-1.3b (all 48
+#: layers) at phase 13's
+OPTION_ARCHS = (("yi-9b", TRAIN_LAYERS), ("mamba2-1.3b", None))
+#: 15b's train steps a mode
+OPTION_STEPS = 2
+#: 15a's timed train steps a policy (the first a warm-up, so 3 steady
+#: ones), then a profiled one
+REMAT_STEPS = 4
+#: 15b's modes (yi-9b at depth 8, B 2 x S ``QAT_S``)
+QUANT_TRAIN_MODES = ("int8", "int4_dequant", "lut_nf4")
+
+
+def option_model(dev, arch: str, layers):
+    """``arch`` at its published widths (depth cut to ``layers``), bf16,
+    random weights from seed 0, trainable; phase 8's chunked attention."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers, attn_impl="chunked")
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)).requires_grad_(True)
+    return cfg, model
+
+
+def scan_want(cfg, steps: int, wrappers) -> dict:
+    """Launches of ``steps`` bf16 train steps: the scan's 2 forward (the
+    forward and remat's recompute) and 1 backward a Mamba2 layer a step,
+    nothing else of the port's kernels."""
+    n = scan_calls(cfg) * steps
+    return dict.fromkeys(wrappers, 0) | (
+        {"ssd_scan": 2 * n, "ssd_scan_bwd": n} if n else {})
+
+
+def remat_policy_phase(dev, wrappers) -> dict:
+    """Phase 15a: ``remat_policy`` "nothing" against "dots" (selective
+    checkpointing: ``mm``/``addmm``/``_int_mm`` outputs saved) at yi-9b's
+    full width with depth 8 and mamba2-1.3b's 48 layers, B 2 x S 4096:
+    one loss and backward on the same batch under each, the largest
+    gradient difference as a share of its leaf's scale (held to
+    ``card_vs_cpu.GRAD_REL``; the bitwise-equal leaves counted), and the
+    peak memory of that pass; then ``REMAT_STEPS`` timed train steps and
+    a profiled one under each (:func:`train_steps`: step wall, tok/s,
+    peak GB, device time and the idle share), each policy from a fresh
+    AdamW state.  The port's kernels are ctypes calls, not aten ops, so
+    "dots" recomputes them too: the scan's launch counts are equal.
+    Returns the launches by kernel."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.card_vs_cpu import GRAD_REL
+    from repro_torch.train.train_step import make_train_step
+
+    launches = {}
+    for arch, layers in OPTION_ARCHS:
+        cfg, model = option_model(dev, arch, layers)
+        data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+        batch = data.batch(REMAT_STEPS + 1, dev)
+        runs, grads = {}, {}
+        for policy in ("nothing", "dots"):
+            pcfg = replace(cfg, remat_policy=policy)
+            m = type(model).from_params(pcfg, model.params_tree(),
+                                        device=dev).requires_grad_(True)
+            # the other policy's gradients off the card while this one runs
+            for held in grads.values():
+                for i, g in enumerate(held):
+                    held[i] = g.cpu()
+            for r in runs.values():
+                for p in r["model"].parameters():
+                    p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = synced(f"phase 15a {arch} {policy} backward",
+                          lambda: m.loss(batch)[0].backward())
+            grads[policy] = [p.grad for p in m.parameters()]
+            runs[policy] = {"loss_backward_s": time.perf_counter() - t0,
+                            "loss_backward_peak_gb":
+                            torch.cuda.max_memory_allocated() / 1e9}
+            runs[policy]["model"] = m
+        worst, bitwise = 0.0, 0
+        grads["nothing"] = [g.to(dev) for g in grads["nothing"]]
+        for a, b in zip(grads["nothing"], grads["dots"]):
+            bitwise += torch.equal(a, b)
+            worst = max(worst, ((b.float() - a.float()).abs().max()
+                                / a.float().abs().max().clamp_min(1e-30))
+                        .item())
+        check(worst <= GRAD_REL, f"phase 15a {arch}: dots gradients differ "
+              f"from nothing's by {worst} of their scale (> {GRAD_REL})")
+        del grads
+        models = {p: runs[p].pop("model") for p in runs}
+        for m in models.values():           # no gradient held across runs
+            for p in m.parameters():
+                p.grad = None
+        for policy in ("nothing", "dots"):
+            m = models.pop(policy)
+            opt = AdamW(lr=3e-4)
+            state = opt.init(m.params_tree())
+            counts, _ = train_steps(
+                dev, f"phase 15a {arch} remat {policy}", REMAT_STEPS + 1,
+                make_train_step(m.cfg, opt), m, state, data, wrappers,
+                scan_want(cfg, REMAT_STEPS + 1, wrappers),
+                profile_last=True, extra={"remat_policy": policy,
+                                          "layers": cfg.num_layers,
+                                          **runs[policy]})
+            add_launches(launches, counts)
+            del m, state, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase15a": arch, "layers": cfg.num_layers,
+              "dots_vs_nothing_grad_err_scaled": worst,
+              "bitwise_leaves": bitwise,
+              "leaves": sum(1 for _ in model.parameters()), **{
+                  f"{p}_{k}": v for p, r in runs.items()
+                  for k, v in r.items()}})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def nf4_backward_calls(m: int) -> tuple[list, list]:
+    """(M, K, N) of the ``lut_gemm`` calls of one yi-9b layer under
+    lut_nf4 in a train step at M rows: (the 7 forward projections, their
+    backward's dx over the transposed codes, (M, N, K))."""
+    fwd = [(m, k, n) for k, n in LAYER_SHAPES]
+    return fwd, [(m, n, k) for _, k, n in fwd]
+
+
+def nf4_backward_checks(dev) -> dict:
+    """Phase 15b's kernel checks at a yi-9b training step's shapes (M = B
+    x S = 2048, bf16): at each distinct forward (M, K, N) ``NF4MatmulFn``'s
+    forward (a scale-of-ones launch times absmax) bitwise the one-launch
+    ``lut_gemm(x, q, CB, absmax)``; at each transposed (M, N, K) the
+    backward's dx call ``lut_gemm(g ⊙ absmax, qᵀ, CB, 1)`` on the kernel
+    ``route`` names, against ``lut_gemm_ref`` at the kernel's tolerance
+    at unit output scale (1e-4 of max(1, max |plain|)), timed device-only (:func:`graph_ms`) and by events beside its bound
+    (the bf16 operations or the bytes) and the plain version's time.
+    These launches are outside the counted runs."""
+    import torch
+
+    from repro_torch.core.lut import NF4_CODEBOOK
+    from repro_torch.kernels.lut_gemm import lut_gemm as lg
+    from repro_torch.kernels.lut_gemm import ref
+    from repro_torch.kernels.lut_gemm.ops import (NF4MatmulFn,
+                                                  codebook_quantize)
+
+    m = TRAIN_B * QAT_S
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cb = torch.as_tensor(NF4_CODEBOOK, device=dev)
+    fwd, bwd = nf4_backward_calls(m)
+    rows, routes = [], Counter()
+    for (_, k, n) in sorted(set(fwd)):
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).bfloat16()
+        codes, absmax = codebook_quantize(w, cb)
+        x = torch.randn((m, k), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            one = synced(f"phase 15b lut_gemm ({m}, {k}, {n})",
+                         lambda: lg.lut_gemm(x, codes, cb, absmax))
+            got = synced(f"phase 15b NF4MatmulFn ({m}, {k}, {n})",
+                         lambda: NF4MatmulFn.apply(x, codes, absmax))
+        check(torch.equal(one, got), f"phase 15b ({m}, {k}, {n}): "
+              "NF4MatmulFn's forward is not lut_gemm's bitwise")
+        g = torch.randn((m, n), generator=gen, device=dev)
+        gs = (g * absmax).bfloat16().contiguous()
+        qt = codes.t().contiguous()
+        ones = torch.ones(k, device=dev)
+        before = (lg.lut_gemm.launches_tc, lg.lut_gemm.launches_wgmma)
+        dx = synced(f"phase 15b backward lut_gemm ({m}, {n}, {k})",
+                    lambda: lg.lut_gemm(gs, qt, cb, ones))
+        ran = {(1, 0): "tc", (0, 1): "wgmma", (0, 0): "fma"}[
+            (lg.lut_gemm.launches_tc - before[0],
+             lg.lut_gemm.launches_wgmma - before[1])]
+        check(ran == lg.route(m, n, k, gs.dtype, True),
+              f"phase 15b backward ({m}, {n}, {k}) ran on {ran}")
+        routes[ran] += 1
+        plain = ref.lut_gemm_ref(gs, qt, cb, ones)
+        # the kernel's 1e-4 holds at unit output scale: these sums of up
+        # to 11,008 products reach ~15, and the tensor cores' f32
+        # accumulation drifts with the sum's size
+        scale = max(1.0, plain.abs().max().item())
+        err = (dx - plain).abs().max().item()
+        check(err <= lg.KERNEL_ATOL * scale, f"phase 15b backward ({m}, "
+              f"{n}, {k}): {err} off lut_gemm_ref at output scale {scale}")
+        bound, by = bound_ms(m, n, k, 2, 64, vec_bytes=4)
+        rows.append({"m": m, "k": n, "n": k, "route": ran,
+                     "max_abs_err": err, "output_scale": scale,
+                     "device_ms": graph_ms(
+                         lambda i: lg.lut_gemm(gs, qt, cb, ones), 5),
+                     "ms": cuda_ms(lambda i: lg.lut_gemm(gs, qt, cb, ones),
+                                   10),
+                     "plain_ms": cuda_ms(
+                         lambda i: ref.lut_gemm_ref(gs, qt, cb, ones), 5),
+                     "bound_ms": bound, "bound_by": by})
+    layer = Counter((mm, kk, nn) for mm, kk, nn in bwd)
+    by_shape = {(r["m"], r["k"], r["n"]): r for r in rows}
+    summary = {"layer_backward_device_ms": sum(
+        by_shape[s]["device_ms"] * c for s, c in layer.items()),
+        "layer_backward_bound_ms": sum(
+        by_shape[s]["bound_ms"] * c for s, c in layer.items())}
+    emit({"kernel_check": "phase 15b lut_nf4 backward shapes",
+          "calls": rows, "routes": dict(routes), **summary,
+          "tolerance": [lg.KERNEL_RTOL, lg.KERNEL_ATOL]})
+    return {"calls": rows, **summary}
+
+
+def quant_train_phase(dev, wrappers) -> tuple[dict, dict]:
+    """Phase 15b: yi-9b at its full width with depth 8, B 2 x S
+    ``QAT_S``, ``OPTION_STEPS`` train steps each under int8, int4_dequant
+    and lut_nf4 (:func:`train_steps`: step wall, tok/s, peak GB); under
+    lut_nf4 every projection launches ``lut_gemm`` three times a step
+    (the forward and remat's recompute, 2 x 56; the backward's dx over
+    the transposed codes, 56: ``NF4MatmulFn.backward_launches``), all on
+    the kernel ``route`` names (M = 2048: ``lut_gemm_wgmma.cu``); int8
+    and int4_dequant launch no kernel of the port (``torch._int_mm`` and
+    cuBLAS, as JAX's products run outside any Pallas kernel).  Before
+    them, :func:`nf4_backward_checks` (the reduced f32 card == CPU checks
+    of each mode are phase 4's, :func:`small_options_phase`).  Returns
+    (launches by kernel, lut_gemm's by route and direction)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.lut_gemm.lut_gemm import route
+    from repro_torch.kernels.lut_gemm.ops import NF4MatmulFn
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    checks = nf4_backward_checks(dev)
+    cfg, model = option_model(dev, "yi-9b", TRAIN_LAYERS)
+    data = SyntheticLM(cfg.vocab_size, QAT_S, TRAIN_B, seed=0)
+    m_rows = TRAIN_B * QAT_S
+    launches, by_route = {}, Counter()
+    for mode in QUANT_TRAIN_MODES:
+        qcfg = replace(cfg, quant=QuantConfig(mode=mode))
+        m = type(model).from_params(qcfg, model.params_tree(),
+                                    device=dev).requires_grad_(True)
+        opt = AdamW(lr=3e-4)
+        state = opt.init(m.params_tree())
+        per = OPTION_STEPS * projections(cfg) * cfg.num_layers * (
+            mode == "lut_nf4")
+        want = dict.fromkeys(wrappers, 0) | {"lut_gemm": 3 * per}
+        fwd, bwd = nf4_backward_calls(m_rows)
+        routes = Counter(route(*s, torch.bfloat16, True) for s in fwd + fwd
+                         + bwd)
+        NF4MatmulFn.backward_launches = 0
+        counts, _ = train_steps(
+            dev, f"phase 15b yi-9b {mode}", OPTION_STEPS,
+            make_train_step(qcfg, opt), m, state, data, wrappers, want,
+            extra={"quant": mode, "layers": cfg.num_layers})
+        got_bwd = NF4MatmulFn.backward_launches
+        got_wgmma = wrappers["lut_gemm"].launches_wgmma
+        got_tc = wrappers["lut_gemm"].launches_tc
+        check(got_bwd == per, f"phase 15b {mode}: {got_bwd} backward "
+              f"lut_gemm launches, want {per}")
+        want_wgmma = routes["wgmma"] * OPTION_STEPS * cfg.num_layers * (
+            mode == "lut_nf4")
+        check(got_wgmma == want_wgmma and got_tc == 0,
+              f"phase 15b {mode}: lut_gemm on wgmma {got_wgmma}, tc "
+              f"{got_tc}; route says {dict(routes)} a layer a step")
+        add_launches(launches, counts)
+        if mode == "lut_nf4":
+            by_route.update({"forward": counts["lut_gemm"] - got_bwd,
+                             "backward": got_bwd, "wgmma": got_wgmma,
+                             "tc": got_tc,
+                             "fma": counts["lut_gemm"] - got_wgmma - got_tc})
+            emit({"phase15b_lut_nf4_launches": dict(by_route),
+                  "backward_calls_a_layer": [list(s) for s in bwd]})
+        del m, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_route["checks"] = checks
+    return launches, dict(by_route)
+
+
+def paper_calls(label: str) -> dict:
+    """(M, K, N) of every kernel call of one phase-15c entry point, by
+    wrapper: fig13's MLP (512 rows, 8 -> 16 -> 1; QAT on ``luna_mm``, the
+    PTQ columns on ``lut_gemm_dc`` and ``lut_gemm_dc_res``), the paper
+    tables' Fig 13 net (8 rows, 16 -> 32 -> 4) and the quickstart's §3
+    (8 x 64 x 16), §4 (reduced yi-9b's projections at B 2 x S 32 on
+    ``luna_mm``) and §5 (its lut4 engine's decode ticks, M = max_batch 2,
+    on ``lut_gemm_dc``)."""
+    from repro_torch.models.attention import gqa_shapes
+    from repro_torch.models.mlp import mlp_shapes
+    from repro_torch.models.registry import get_config
+
+    if label == "fig13":
+        mlp = [(512, 8, 16), (512, 16, 1)]
+        return {"luna_mm": mlp, "lut_gemm_dc": mlp, "lut_gemm_dc_res": mlp}
+    if label == "paper_tables":
+        return {"luna_mm": [(8, 16, 32), (8, 32, 4)]}
+    cfg = get_config("yi-9b").reduced()
+    proj = sorted(set(gqa_shapes(cfg).values()) | set(
+        mlp_shapes(cfg).values()))
+    return {"luna_mm": [(8, 64, 16)] + [(64, k, n) for k, n in proj],
+            "lut_gemm_dc": [(2, k, n) for k, n in proj]}
+
+
+def paper_kernel_checks(dev, label: str) -> dict:
+    """Phase 15c's kernels at every (M, K, N) :func:`paper_calls` gives
+    ``label``, against their plain versions on the same inputs (these
+    launches are outside the counted runs): ``luna_mm`` in the three LUNA
+    modes bitwise, on the kernel ``takes_tc`` names; ``lut_gemm_dc`` (a
+    ``quantize_weight`` "lut_dc" weight) and ``lut_gemm_dc_res`` ("nf4_dc",
+    unpruned and pruned at ``NF4P_PRUNE_THRESHOLD``) with f32 x, as the
+    entry points give it, at the tolerance of
+    ``kernels/lut_gemm/lut_gemm.py``, on the kernel ``takes_tc`` names.
+    Returns the shapes and the largest errors."""
+    import torch
+
+    from repro_torch.core.quant import NF4P_PRUNE_THRESHOLD, quantize_weight
+    from repro_torch.kernels.luna_mm import luna_mm as lm
+    from repro_torch.kernels.luna_mm.ref import luna_mm_ref
+    from repro_torch.kernels.lut_gemm import lut_gemm as lg
+    from repro_torch.kernels.lut_gemm import ref
+
+    gen = torch.Generator(device=dev).manual_seed(153)
+    calls = paper_calls(label)
+    out = {"shapes": {k: [list(s) for s in v] for k, v in calls.items()}}
+    for m, k, n in calls.get("luna_mm", []):
+        for mode in ("opt_dc", "approx_dc2", "approx_dc"):
+            y = torch.randint(0, 16, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            w = torch.randint(0, 16, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            tc0 = lm.luna_mm.launches_tc
+            got = synced(f"phase 15c luna_mm {mode} ({m}, {k}, {n})",
+                         lambda: lm.luna_mm(y, w, mode))
+            check(lm.luna_mm.launches_tc - tc0
+                  == lm.takes_tc(m, k, n, "row", True),
+                  f"phase 15c luna_mm ({m}, {k}, {n}): not on the kernel "
+                  "takes_tc names")
+            check(torch.equal(got, luna_mm_ref(y, w, mode)),
+                  f"phase 15c luna_mm {mode} ({m}, {k}, {n}) is not "
+                  "bitwise its plain version")
+    if "luna_mm" in calls:
+        out["luna_mm"] = "bitwise"
+    dc = [("lut_gemm_dc", "lut_dc", None)] + [
+        ("lut_gemm_dc_res", "nf4_dc", p) for p in (None,
+                                                   NF4P_PRUNE_THRESHOLD)]
+    for name, kernel, prune in dc:
+        for m, k, n in calls.get(name, []):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.3
+            qw = quantize_weight(w, kernel, prune)
+            tabs = ((qw.hi_tab, qw.lo_tab) if kernel == "lut_dc"
+                    else (qw.hi_tab, qw.lo_tab, qw.residual))
+            wrap = getattr(lg, name)
+            plain = getattr(ref, f"{name}_ref")
+            tc0 = wrap.launches_tc
+            got = synced(f"phase 15c {name} ({m}, {k}, {n})",
+                         lambda: wrap(x, qw.codes, *tabs, qw.zero_point,
+                                      qw.scale))
+            check(wrap.launches_tc - tc0 == lg.takes_tc(m, k, n, x.dtype,
+                                                        True),
+                  f"phase 15c {name} ({m}, {k}, {n}): not on the kernel "
+                  "takes_tc names")
+            want = plain(x, qw.codes, *tabs, qw.zero_point, qw.scale)
+            torch.testing.assert_close(got, want, rtol=lg.KERNEL_RTOL,
+                                       atol=lg.KERNEL_ATOL)
+            err = (got - want).abs().max().item()
+            out[f"{name}_max_abs_err"] = max(
+                out.get(f"{name}_max_abs_err", 0.0), err)
+    out["tolerance"] = [lg.KERNEL_RTOL, lg.KERNEL_ATOL]
+    return out
+
+
+def paper_phase(dev, wrappers) -> tuple[dict, dict]:
+    """Phase 15c: the paper's entry points on the card, each run with the
+    launch counts set to 0 just before and read just after; before each,
+    :func:`paper_kernel_checks` holds its kernels at its shapes:
+    ``examples/fig13_nn_accuracy_torch.main()`` (QAT on ``luna_mm``, 3
+    modes x (300 steps x 2 + 2) launches, K = 8 and N = 1 on the dp4a
+    kernel; the PTQ columns on ``lut_gemm_dc`` (2) and ``lut_gemm_dc_res``
+    (4), f32 x on ``lut_gemm.cu``; JAX's three bounds and ptq_lut4 ==
+    ptq_int4 asserted inside), ``tools/paper_tables_torch``'s
+    ``ALL`` (Fig 13 on ``luna_mm``: 3 modes x (100 x 2 + 6 x 2)) and
+    ``examples/quickstart_torch.main()`` (``luna_mm`` at M = 8 and under
+    reduced yi-9b's model-level modes; the lut4 engine on
+    ``lut_gemm_dc``).  Returns (launches by kernel, by tensor-core
+    route)."""
+    import importlib.util
+
+    def load(rel, name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, rel))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    launches, tc_total = {}, {}
+    runs = (("fig13", "examples/fig13_nn_accuracy_torch.py",
+             {"luna_mm": 3 * (300 * 2 + 2), "lut_gemm_dc": 2,
+              "lut_gemm_dc_res": 4}),
+            ("paper_tables", "tools/paper_tables_torch.py",
+             {"luna_mm": 3 * (100 * 2 + 6 * 2)}),
+            ("quickstart", "examples/quickstart_torch.py", None))
+    for label, rel, want in runs:
+        mod = load(rel, f"{label}_phase15")
+        kernel_check = paper_kernel_checks(dev, label)
+        reset_counters(wrappers)
+        t0 = time.perf_counter()
+        out = synced(f"phase 15c {label}",
+                     lambda: mod.main(["--device", str(dev)]))
+        wall = time.perf_counter() - t0
+        counts, tc = read_counters(wrappers)
+        if want is None:          # the quickstart: its engine's ticks vary
+            check(counts["luna_mm"] > 3 and counts["lut_gemm_dc"] > 0
+                  and all(v == 0 for k, v in counts.items()
+                          if k not in ("luna_mm", "lut_gemm_dc")),
+                  f"phase 15c quickstart: launches {counts}")
+        else:
+            full = dict.fromkeys(wrappers, 0) | want
+            check(counts == full, f"phase 15c {label}: launches {counts}, "
+                  f"want {full}")
+            check(tc["luna_mm"] == tc["lut_gemm_dc"] == tc[
+                "lut_gemm_dc_res"] == 0, f"phase 15c {label}: tensor-core "
+                  f"launches {tc} (K = 8 / 16, N = 1 / 4 and f32 x take "
+                  "the other kernels)")
+        report = {}
+        if label == "fig13":
+            report = {k: v for k, v in out.items() if k != "nf4p_table"}
+            report["bounds"] = {
+                "PTQ_MAE_BOUND": mod.PTQ_MAE_BOUND,
+                "NF4_DC_VS_DIRECT_TOL": mod.NF4_DC_VS_DIRECT_TOL,
+                "NF4P_MAE_DELTA_BOUND": mod.NF4P_MAE_DELTA_BOUND}
+            report["ptq_lut4_minus_int4"] = out["ptq_lut4"] - out["ptq_int4"]
+            report["ptq_lut4_equals_int4"] = out["ptq_lut4"] == out["ptq_int4"]
+        elif label == "paper_tables":
+            report = {"fig13": out["fig13"],
+                      "fig16_opt_dc": out["fig16"]["opt_dc"][
+                          "area_vs_conventional"],
+                      "fig15_share": out["fig15"]["multiplier_share"]}
+        else:
+            report = {"rel_err": out["rel_err"], "loss": out["loss"]}
+        emit({"phase15c": label, "wall_s": wall, "launches": counts,
+              "launches_tc": tc, "kernel_check": kernel_check, **report})
+        add_launches(launches, counts)
+        add_launches(tc_total, tc)
+    return launches, tc_total
+
+
+def small_options_phase(dev) -> dict:
+    """Phase 4, the last training options: reduced f32 yi-9b trained on
+    the card against the CPU under int8, int4_dequant and lut_nf4 (loss,
+    every gradient at ``card_vs_cpu.QUANT_TRAIN_REL``, one step; lut_nf4's
+    42 ``lut_gemm`` launches, 14 of them the backward's), ``NF4MatmulFn``
+    on the card against its plain version in bf16 and f32, and
+    ``remat_policy="dots"`` card == CPU and == "nothing" on the card."""
+    import torch
+
+    from repro_torch.train import card_vs_cpu as cc
+
+    out = {mode: cc.quant_training_card_vs_cpu(dev, mode)
+           for mode in cc.QUANT_TRAIN_REL}
+    out["NF4MatmulFn bf16"] = cc.nf4_backward_card_vs_plain(dev)
+    out["NF4MatmulFn f32"] = cc.nf4_backward_card_vs_plain(
+        dev, dtype=torch.float32)
+    out["remat dots"] = cc.remat_dots_card_vs_cpu(dev)
+    emit({"small_reference": "reduced f32 yi-9b trained under int8, "
+                             "int4_dequant, lut_nf4 and remat "
+                             "dots: card vs cpu; NF4MatmulFn card vs plain",
+          "max_err": out, "grad_rel": cc.QUANT_TRAIN_REL, "tol": cc.TOL})
+    return out
+
+
+def options_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 15 (15a :func:`remat_policy_phase`, 15b
+    :func:`quant_train_phase`, 15c :func:`paper_phase`); prints its
+    seconds.  Returns (launches by kernel, by tensor-core route, lut_gemm's
+    15b launches by direction and route with its backward's checks)."""
+    import torch
+
+    t15 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    launches = remat_policy_phase(dev, wrappers)
+    t15a = time.perf_counter() - t15
+    counts, nf4 = quant_train_phase(dev, wrappers)
+    add_launches(launches, counts)
+    t15b = time.perf_counter() - t15 - t15a
+    counts, tc = paper_phase(dev, wrappers)
+    add_launches(launches, counts)
+    tc["lut_gemm_wgmma"] = tc.get("lut_gemm_wgmma", 0) + nf4["wgmma"]
+    tc["lut_gemm"] = tc.get("lut_gemm", 0) + nf4["tc"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase15_s": time.perf_counter() - t15, "15a_s": t15a,
+          "15b_s": t15b, "15c_s": time.perf_counter() - t15 - t15a - t15b,
+          "launches": launches})
+    return launches, tc, nf4
+
+
+#: the phases ``--phases`` selects, in the order they run: "6" is yi-9b's
+#: serving (6, 9a, 10a, 10c), "7" mamba2-1.3b's (7, 9b, 10b), "8" the
+#: trainer's (8, 8b); 1 and 2 always run
+PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
@@ -5123,7 +5672,15 @@ def main() -> int:
     bench.add_argument("--ssd-bwd-against", metavar="DIR",
                        help="only time DIR's ssd_scan_bwd and this "
                             "checkout's in turns (ssd_bwd_against)")
+    ap.add_argument("--phases", metavar="LIST",
+                    help="after the build, run only these phases "
+                         f"(comma-separated, of {', '.join(PHASES)}) and "
+                         "print neither the kernels line nor the last "
+                         "line")
     args = ap.parse_args()
+    only = set(args.phases.split(",")) if args.phases else set(PHASES)
+    if not only <= set(PHASES):
+        ap.error(f"--phases: {sorted(only - set(PHASES))} not in {PHASES}")
     if args.ssd_bench or args.ssd_against:
         print(json.dumps(ssd_bench(args.ssd_bench) if args.ssd_bench
                          else ssd_against(args.ssd_against)))
@@ -5196,65 +5753,85 @@ def main() -> int:
           "ptxas_ssd_scan_tc": by_lib.get("ssd_scan_tc"),
           "ptxas_ssd_scan_bwd": by_lib.get("ssd_scan_bwd")})
 
-    kernels = kernel_phase(dev)
-    kernels.update(luna_kernel_phase(dev))
-    kernels.update(lut_full_kernel_phase(dev))
-    kernels.update(ssd_kernel_phase(dev))
-    kernels.update(ssd_bwd_kernel_phase(dev))
-    kernels.update(flash_kernel_phase(dev))
-    small_reference_phase(dev)
-    small_ssm_reference_phase(dev)
-    small_substrate_phase(dev)
-    small_spec_phase(dev)
-    small_moe_phase(dev)
-    small_hybrid_phase(dev)
-    small_training_phase(dev)
-    quant_matmul_phase(dev)
-    cfg, model, prompts = build_model(dev, args.layers)
-    launches, tc, outs = main_path_phase(dev, cfg, model, prompts)
-    for total, part in zip((launches, tc), substrate_phase(
-            dev, cfg, model, prompts, outs["lut4"])):
-        add_launches(total, part)
-    phase10_s = {}
-    t10 = time.perf_counter()
-    for run in (spec_phase(dev, cfg, model, prompts),
-                loop_phase(dev, cfg, model, prompts, outs["lut4"])):
-        for total, part in zip((launches, tc), run):
+    kernels, launches, tc = {}, {}, {}
+    flash_tc = luna_tc_train = 0
+    if "3" in only:
+        kernels = kernel_phase(dev)
+        kernels.update(luna_kernel_phase(dev))
+        kernels.update(lut_full_kernel_phase(dev))
+        kernels.update(ssd_kernel_phase(dev))
+        kernels.update(ssd_bwd_kernel_phase(dev))
+        kernels.update(flash_kernel_phase(dev))
+    if "4" in only:
+        small_reference_phase(dev)
+        small_ssm_reference_phase(dev)
+        small_substrate_phase(dev)
+        small_spec_phase(dev)
+        small_moe_phase(dev)
+        small_hybrid_phase(dev)
+        small_training_phase(dev)
+    if "5" in only:
+        quant_matmul_phase(dev)
+    if "6" in only:
+        cfg, model, prompts = build_model(dev, args.layers)
+        launches, tc, outs = main_path_phase(dev, cfg, model, prompts)
+        for total, part in zip((launches, tc), substrate_phase(
+                dev, cfg, model, prompts, outs["lut4"])):
             add_launches(total, part)
-    phase10_s["10a+10c"] = time.perf_counter() - t10
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg, model, prompts = build_ssm_model(dev)
-    *ssm_run, ssm_plain, ssm_extra = ssm_main_path_phase(dev, cfg, model,
-                                                         prompts)
-    for run in (ssm_run, ssm_substrate_phase(dev, cfg, model)):
-        for total, part in zip((launches, tc), run):
+        t10 = time.perf_counter()
+        for run in (spec_phase(dev, cfg, model, prompts),
+                    loop_phase(dev, cfg, model, prompts, outs["lut4"])):
+            for total, part in zip((launches, tc), run):
+                add_launches(total, part)
+        phase10_s = {"10a+10c": time.perf_counter() - t10}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "7" in only:
+        cfg, model, prompts = build_ssm_model(dev)
+        *ssm_run, ssm_plain, ssm_extra = ssm_main_path_phase(dev, cfg, model,
+                                                             prompts)
+        for run in (ssm_run, ssm_substrate_phase(dev, cfg, model)):
+            for total, part in zip((launches, tc), run):
+                add_launches(total, part)
+        t10 = time.perf_counter()
+        for total, part in zip((launches, tc), ssm_spec_phase(
+                dev, cfg, model, prompts, ssm_plain, ssm_extra)):
             add_launches(total, part)
-    t10 = time.perf_counter()
-    for total, part in zip((launches, tc), ssm_spec_phase(
-            dev, cfg, model, prompts, ssm_plain, ssm_extra)):
-        add_launches(total, part)
-    phase10_s["10b"] = time.perf_counter() - t10
-    emit({"phase10_s": sum(phase10_s.values()), "parts": phase10_s})
-    del model, ssm_extra
-    gc.collect()
-    torch.cuda.empty_cache()
-    for total, part in zip((launches, tc), moe_phase(dev)):
-        add_launches(total, part)
-    for total, part in zip((launches, tc), hybrid_phase(dev)):
-        add_launches(total, part)
-    launches_train, flash_tc, luna_tc_train = train_phase(dev)
-    add_launches(launches, launches_train)
-    trainer_phase(dev)
-    launches_family, luna_tc_family = family_train_phase(dev)
-    add_launches(launches, launches_family)
-    luna_tc_train += luna_tc_family
-    launches_modality, tc_modality = modality_phase(dev)
-    add_launches(launches, launches_modality)
-    flash_tc += tc_modality.pop("flash_attention", 0)
-    luna_tc_train += tc_modality.pop("luna_mm", 0)
-    add_launches(tc, tc_modality)
+        if "6" in only:
+            phase10_s["10b"] = time.perf_counter() - t10
+            emit({"phase10_s": sum(phase10_s.values()), "parts": phase10_s})
+        del model, ssm_extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "11" in only:
+        for total, part in zip((launches, tc), moe_phase(dev)):
+            add_launches(total, part)
+    if "12" in only:
+        for total, part in zip((launches, tc), hybrid_phase(dev)):
+            add_launches(total, part)
+    if "8" in only:
+        launches_train, flash_tc, luna_tc_train = train_phase(dev)
+        add_launches(launches, launches_train)
+        trainer_phase(dev)
+    if "13" in only:
+        launches_family, luna_tc_family = family_train_phase(dev)
+        add_launches(launches, launches_family)
+        luna_tc_train += luna_tc_family
+    if "14" in only:
+        launches_modality, tc_modality = modality_phase(dev)
+        add_launches(launches, launches_modality)
+        flash_tc += tc_modality.pop("flash_attention", 0)
+        luna_tc_train += tc_modality.pop("luna_mm", 0)
+        add_launches(tc, tc_modality)
+    if "15" in only:
+        launches_options, tc_options, nf4 = options_phase(dev)
+        add_launches(launches, launches_options)
+        add_launches(tc, tc_options)
+    if only != set(PHASES):
+        emit({"phases_passed": sorted(only, key=PHASES.index),
+              "launches": launches, "script_s": time.perf_counter() - T0})
+        return 0
     emit({"script_s": time.perf_counter() - T0})
     check(set(launches) == set(kernels),
           f"kernels launched on the main path {sorted(launches)} are not "
@@ -5266,6 +5843,13 @@ def main() -> int:
     for name in ("lut_gemm_dc", "lut_gemm_dc_res", "lut_gemm"):
         kernels[name]["launches_tc"] = tc.get(name, 0)
     kernels["lut_gemm"]["launches_wgmma"] = tc.get("lut_gemm_wgmma", 0)
+    # lut_nf4's backward (phase 15b): dx over the transposed codes
+    kernels["lut_gemm"]["launches_backward"] = nf4["backward"]
+    kernels["lut_gemm"]["backward_calls"] = nf4["checks"]["calls"]
+    kernels["lut_gemm"]["backward_layer_device_ms"] = nf4["checks"][
+        "layer_backward_device_ms"]
+    kernels["lut_gemm"]["backward_layer_bound_ms"] = nf4["checks"][
+        "layer_backward_bound_ms"]
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

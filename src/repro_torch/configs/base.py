@@ -92,8 +92,8 @@ class ModelConfig:
     attn_impl: str = "chunked"   # full | chunked | flash (forward-only)
     attn_chunk: int = 512
     remat: bool = True           # recompute each block in the backward
-    # "nothing" (full recompute, min memory); "dots" (save matmul outputs)
-    # is ROADMAP queue 1 item 8
+    # "nothing" (full recompute, min memory); "dots" (save the outputs of
+    # the matmuls with no batch dims, JAX's dots_with_no_batch_dims_saveable)
     remat_policy: str = "nothing"
     # attention operand precision: True casts K/V/P to f32; False keeps
     # the operands in the model dtype with f32 scores and rounds P to the

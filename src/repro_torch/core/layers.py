@@ -25,10 +25,15 @@ for operation, so the CPU port emits the JAX engine's tokens.
 
 Training: the ``luna_*`` modes run through ``ste_luna_matmul`` (JAX's
 route when ``use_pallas`` is off), whose forward is the same kernel or
-library path and whose backward is the plain product's.  Under autograd
-``int8``, ``int4_dequant`` and ``lut_nf4`` raise: their integer casts
-would cut the graph and drop the weights' gradients silently (ROADMAP
-queue 1 item 8).
+library path and whose backward is the plain product's.  ``int8``,
+``int4_dequant`` and ``lut_nf4`` take ``jax.grad``'s gradients of JAX's
+functions: the rounded codes carry none, the scales do (so ``int8``'s
+reach x and w only at their max-|·| elements, and ``int4_dequant``'s and
+``lut_nf4``'s w only through its per-channel min/max or absmax; x gets
+g·ŵᵀ).  On the CPU that is torch's autograd of the library path; on the
+card ``int8`` differentiates through the scales around its integer
+product and ``lut_nf4`` runs ``kernels.lut_gemm.ops.NF4MatmulFn``, whose
+backward is the LUT GEMM kernel again, over the transposed codes.
 """
 from __future__ import annotations
 
@@ -130,11 +135,6 @@ def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
         return ste_luna_matmul(x.float(), w.float(),
                                LUNA_MODE_OF[cfg.mode].value,
                                cfg.bits).to(x.dtype)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            f"quant mode {cfg.mode!r} has no gradient in the port yet (only "
-            "the luna_* modes train, through ste_luna_matmul): ROADMAP "
-            "queue 1 item 8")
     if cfg.mode == "int8":
         return _int8_matmul(x, w).to(x.dtype)
     if cfg.mode == "int4_dequant":

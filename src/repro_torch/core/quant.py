@@ -204,11 +204,12 @@ def nf4_encode(wn: torch.Tensor, codebook=None) -> torch.Tensor:
     FIRST minimum on ties (``jnp.argmin`` semantics), distances in f32 (a
     bf16 ``wn`` promotes against JAX's f32 codebook).  A running
     strict-``<`` minimum over the entries keeps the temporaries at the
-    weight's own size instead of a (K, N, 16) distance tensor."""
+    weight's own size instead of a (K, N, 16) distance tensor.  The codes
+    carry no gradient, so nothing here is recorded for autograd."""
     from repro_torch.core.lut import NF4_CODEBOOK
     if codebook is None:
         codebook = NF4_CODEBOOK
-    wn = wn.float()
+    wn = wn.detach().float()
     best_d = torch.full_like(wn, float("inf"))
     codes = torch.zeros(wn.shape, dtype=torch.int8, device=wn.device)
     for j, c in enumerate(torch.as_tensor(codebook).tolist()):

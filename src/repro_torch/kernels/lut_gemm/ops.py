@@ -3,7 +3,9 @@
 
 * :func:`nf4_matmul_kernel` — NF4 codebook weights through the full-table
   :func:`~repro_torch.kernels.lut_gemm.lut_gemm.lut_gemm` (paper Fig 1);
-  the model-level ``lut_nf4`` mode on the card.
+  the model-level ``lut_nf4`` mode on the card.  Under autograd it runs
+  :class:`NF4MatmulFn`, whose backward is a second ``lut_gemm`` over the
+  transposed codes.
 * :func:`lut4_matmul_kernel` / :func:`nf4dc_matmul_kernel` — uniform-int4
   or NF4 weights frozen by ``quantize_weight`` through the D&C kernels.
 * :func:`quantized_matmul` — the engine's decode-step matmul over a frozen
@@ -50,10 +52,61 @@ def codebook_quantize(w: torch.Tensor, codebook
 
 def nf4_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``(x @ NF4[codes]) * absmax`` -> (M, N) f32 through the full-table
-    LUT GEMM.  x: (M, K) f32/bf16; w: (K, N) float."""
+    LUT GEMM.  x: (M, K) f32/bf16; w: (K, N) float.  Where x or w needs a
+    gradient the call goes through :class:`NF4MatmulFn` (the same forward
+    result, bitwise)."""
     codes, scale = codebook_quantize(w, NF4_CODEBOOK)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return NF4MatmulFn.apply(x, codes, scale)
     return lut_gemm(x, codes, torch.as_tensor(NF4_CODEBOOK, device=w.device),
                     scale)
+
+
+class NF4MatmulFn(torch.autograd.Function):
+    """``out = (x @ CB[q]) * absmax`` with the gradients ``jax.grad`` takes
+    of JAX's ``_nf4_matmul`` (the codes carry none).  x: (M, K) f32/bf16;
+    codes: (K, N) int8; absmax: (N,) f32.
+
+    * forward: y0 = ``lut_gemm(x, q, CB, 1)``, out = y0 * absmax.  Every
+      kernel applies the scale as one f32 multiply after its sum, so this
+      is the one-launch forward's result bitwise; y0 is kept;
+    * dx = g · ŵᵀ with ŵ[k, n] = CB[q[k, n]] · absmax[n]: ``lut_gemm(g ⊙
+      absmax, qᵀ, CB, 1)``, the same kernel over the transposed codes (in
+      x's dtype: a bf16 step's M = B·S rows run ``lut_gemm_wgmma.cu``);
+    * d absmax[n] = Σ_m g[m, n] · y0[m, n] (JAX's Σ_k CB[q[k, n]] ·
+      (xᵀg)[k, n], with no K × N product).  The chain on to w (through
+      ``clamp_min(amax(|w|, 0), 1e-8)``) is torch's autograd.
+
+    On CPU tensors ``lut_gemm`` is its plain version (``lut_gemm_ref``),
+    used by the tests; the CPU model path is JAX's library order instead
+    (``core.layers._nf4_matmul``).  :attr:`backward_launches` counts the
+    backward's ``lut_gemm`` calls on the card."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, x, codes, absmax):
+        cb = torch.as_tensor(NF4_CODEBOOK, device=x.device)
+        y0 = lut_gemm(x, codes, cb, torch.ones_like(absmax))
+        ctx.save_for_backward(codes, absmax, y0)
+        ctx.x_dtype = x.dtype
+        return y0 * absmax
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, absmax, y0 = ctx.saved_tensors
+        g = g.float()
+        gx = gabs = None
+        if ctx.needs_input_grad[0]:
+            cb = torch.as_tensor(NF4_CODEBOOK, device=g.device)
+            gs = (g * absmax).to(ctx.x_dtype).contiguous()
+            gx = lut_gemm(gs, codes.t().contiguous(), cb,
+                          torch.ones(codes.shape[0], device=g.device))
+            gx = gx.to(ctx.x_dtype)
+            NF4MatmulFn.backward_launches += g.device.type == "cuda"
+        if ctx.needs_input_grad[2]:
+            gabs = (g * y0).sum(0)
+        return gx, None, gabs
 
 
 def lut4_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

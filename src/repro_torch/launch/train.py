@@ -5,7 +5,7 @@
 
   # the paper's QAT path: every projection through ste_luna_matmul
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
-      --steps 5 --quant luna_approx
+      --steps 5 --quant luna_approx     # or int8, int4_dequant, lut_nf4
 
   # the ssm, hybrid and moe families (reduced widths), on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -25,8 +25,13 @@ network); on the card the Mamba2 layers' SSD scan runs forward and
 backward on the hand-written kernels.  The encdec (``whisper-base``) and
 vlm (``llava-next-mistral-7b``) archs fail here with ``KeyError``, as
 JAX's CLI does: ``SyntheticLM``'s batches carry no frames or patches
-(the ``Trainer`` trains them on a stream that does).  ``--quant`` takes the model-level
-modes that train: ``bf16`` and ``luna_*``.  Checkpoints go to ``--ckpt-dir`` and a rerun
+(the ``Trainer`` trains them on a stream that does).  ``--quant`` takes
+every model-level mode (``core.layers.QUANT_MODES``: ``bf16``, ``int8``,
+``int4_dequant``, ``lut_nf4`` and the four ``luna_*``), as JAX's CLI
+does; each trains with ``jax.grad``'s gradients (the ``luna_*`` modes
+through the STE; on the card ``lut_nf4``'s backward runs the LUT GEMM
+kernel over the transposed codes).  ``remat_policy="dots"`` is a config
+field, not a flag.  Checkpoints go to ``--ckpt-dir`` and a rerun
 resumes from the latest.  The mesh flags of the JAX CLI
 (``--model-parallel``, ``--host-devices``, ``--distributed``) and
 ``--grad-compression`` raise: ROADMAP queue 1 item 9.

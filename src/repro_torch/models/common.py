@@ -6,7 +6,8 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.serve.paged import GARBAGE_BLOCK
 
@@ -227,21 +228,46 @@ def set_leaf(module: nn.Module, name: str, value) -> None:
         setattr(module, name, value)
 
 
+#: the aten ops whose outputs ``remat_policy="dots"`` saves: the matmuls
+#: with no batch dimensions (a 3-D ``x @ w`` reaches ``mm`` after its
+#: reshape).  ``bmm``/``baddbmm`` (attention's scores and P·V, the MoE
+#: experts' batched einsums) are recomputed, as JAX's
+#: ``dots_with_no_batch_dims_saveable`` recomputes batched ``dot_general``s.
+DOTS_SAVED = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default,
+                        torch.ops.aten._int_mm.default})
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat_policy="dots"``: save
+    the outputs of :data:`DOTS_SAVED`, recompute every other op."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def remat_of(cfg, fn):
     """``fn`` recomputed in the backward instead of saving its activations
     (JAX wraps each block in ``jax.checkpoint`` under ``remat_policy_of``):
-    ``torch.utils.checkpoint`` without reentrancy; only the block's inputs
-    stay alive between forward and backward.  Policy ``"nothing"`` saves
-    nothing inside the block; ``"dots"`` (save the matmul outputs) is
-    ROADMAP queue 1 item 8."""
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' is not ported yet: ROADMAP queue 1 item 8")
-    if cfg.remat_policy != "nothing":
+    ``torch.utils.checkpoint`` without reentrancy.  Policy ``"nothing"``
+    saves nothing inside the block: only its inputs stay alive between
+    forward and backward.  ``"dots"`` (JAX's
+    ``dots_with_no_batch_dims_saveable``) also keeps the outputs of the
+    un-batched matmuls (:func:`dots_policy`) and recomputes the rest.  The
+    port's hand-written kernels are called through ctypes, not as aten
+    ops, so no policy can save their outputs: under both policies they run
+    again in the backward (JAX's ``ste_luna_matmul`` may keep its integer
+    dot; that differs in memory only, never in values)."""
+    if cfg.remat_policy not in ("nothing", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+    extra = ({"context_fn": _dots_contexts} if cfg.remat_policy == "dots"
+             else {})
 
     def recomputed(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
     return recomputed
 
 

@@ -4,7 +4,11 @@
 scan forward and backward on the kernels), one Mamba2 layer
 (:func:`mamba2_layer_card_vs_cpu`), and the encdec and vlm families
 (:func:`modality_card_vs_cpu`: whisper-base, llava-next-mistral-7b,
-training and serving).
+training and serving), yi-9b under the quantized training modes
+(:func:`quant_training_card_vs_cpu`: ``int8``, ``int4_dequant``,
+``lut_nf4``; :func:`nf4_backward_card_vs_plain`: the ``lut_nf4``
+backward alone) and under ``remat_policy="dots"``
+(:func:`remat_dots_card_vs_cpu`).
 
 ``chip_smoke.py`` (phase 4) and ``tests/test_torch_cuda.py`` both run
 these checks.  Each raises ``AssertionError`` past its tolerance and
@@ -19,7 +23,10 @@ from dataclasses import replace
 import torch
 
 from repro_torch.core.layers import QuantConfig
+from repro_torch.core.lut import NF4_CODEBOOK
 from repro_torch.core.quant import ste_luna_matmul
+from repro_torch.kernels.lut_gemm.lut_gemm import lut_gemm
+from repro_torch.kernels.lut_gemm.ops import NF4MatmulFn, codebook_quantize
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.registry import get_config, get_model, input_specs
@@ -302,4 +309,119 @@ def modality_card_vs_cpu(dev, arch: str) -> dict:
     out["train_step params"] = train_step_err(
         cpu, cfg, dev, batch, gbatch,
         grads=[p.grad.clone() for p in leaves(a.params_tree())])
+    return out
+
+
+#: the model-level modes that train through plain autograd or, on the
+#: card, ``NF4MatmulFn`` (``lut_nf4``), each with its gradient bound.
+#: int8 quantizes the activations dynamically, a piecewise constant
+#: forward like the STE's: an activation within f32 rounding of a code
+#: boundary takes the next code on one device (``LUNA_GRAD_REL``).  The
+#: other two quantize only the weights, whose codes agree bitwise.
+QUANT_TRAIN_REL = {"int8": LUNA_GRAD_REL, "int4_dequant": GRAD_REL,
+                   "lut_nf4": GRAD_REL}
+
+
+def quant_training_card_vs_cpu(dev, mode: str) -> dict:
+    """Reduced f32 yi-9b (:func:`reduced_setup`) under ``mode`` on the
+    card against the CPU: the loss (``TOL``), every gradient
+    (``QUANT_TRAIN_REL[mode]`` of its leaf's scale) and one train step's
+    params (``TOL``; 2 lr where the gradient is within ``GRAD_REL`` of
+    0).  Under lut_nf4 the card runs the LUT GEMM kernel three times a
+    projection (the forward, remat's recompute and the backward's dx over
+    the transposed codes: ``NF4MatmulFn``).  Returns each check's largest
+    error and the launches."""
+    cfg, cpu, batch = reduced_setup()
+    cfg = replace(cfg, quant=QuantConfig(mode=mode))
+    gbatch = {k: t.to(dev) for k, t in batch.items()}
+    a, b = model_pair(cpu, cfg, dev)
+    la, _ = a.loss(batch)
+    la.backward()
+    launches, backward = lut_gemm.launches, NF4MatmulFn.backward_launches
+    lb, _ = b.loss(gbatch)
+    lb.backward()
+    got = {"lut_gemm": lut_gemm.launches - launches,
+           "lut_gemm backward": NF4MatmulFn.backward_launches - backward}
+    per = 7 * cfg.num_layers * (torch.device(dev).type == "cuda"
+                                and mode == "lut_nf4")
+    want = {"lut_gemm": 3 * per, "lut_gemm backward": per}
+    assert got == want, f"{mode}: launches {got}, want {want}"
+    torch.testing.assert_close(lb.detach().cpu(), la.detach(), rtol=TOL,
+                               atol=TOL)
+    err = scaled_grad_err(a, b)
+    rel = QUANT_TRAIN_REL[mode]
+    assert err <= rel, (f"{mode}: gradients differ by {err} of their "
+                        f"leaf's scale (> {rel})")
+    return {"loss": abs(lb.item() - la.item()), "grads (scaled)": err,
+            "launches": got,
+            "train_step params": train_step_err(
+                cpu, cfg, dev, batch, gbatch,
+                grads=[p.grad.clone() for p in leaves(a.params_tree())])}
+
+
+def nf4_backward_card_vs_plain(dev, m: int = 96, k: int = 256,
+                               n: int = 192, dtype=torch.bfloat16) -> dict:
+    """``NF4MatmulFn`` on the card (the LUT GEMM kernel forward and over
+    the transposed codes) against the same Function on the CPU (its plain
+    version, ``lut_gemm_ref``) on identical inputs: the output, dx and
+    d absmax within the kernels' 1e-4 of each tensor's scale (dx, cast to
+    x's dtype, also one ulp of that dtype at each element: two f32 values
+    1e-6 apart may round to neighbouring bf16 values); the forward
+    bitwise the one-launch ``lut_gemm(x, q, CB, absmax)``.  Returns the
+    errors as shares of the scale."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((m, k), generator=gen).to(dtype)
+    w = torch.randn((k, n), generator=gen) / k ** 0.5
+    g = torch.randn((m, n), generator=gen)
+    outs = []
+    for d in ("cpu", dev):
+        xd = x.to(d, copy=True).requires_grad_()
+        codes, absmax = codebook_quantize(w.to(d), NF4_CODEBOOK)
+        absmax = absmax.detach().requires_grad_()
+        y = NF4MatmulFn.apply(xd, codes, absmax)
+        if torch.device(d).type == "cuda":
+            with torch.no_grad():
+                one = lut_gemm(xd, codes, torch.as_tensor(
+                    NF4_CODEBOOK, device=d), absmax)
+            assert torch.equal(y.detach(), one), (
+                "NF4MatmulFn's forward is not the one-launch forward "
+                "bitwise")
+        y.backward(g.to(d))
+        outs.append([t.detach().float().cpu()
+                     for t in (y, xd.grad, absmax.grad)])
+    errs = {}
+    for name, ta, tb in zip(("out", "dx", "d absmax"), *outs):
+        scale = max(ta.abs().max().item(), 1e-30)
+        ulp = torch.finfo(dtype).eps * ta.abs() if name == "dx" else 0.0
+        errs[name] = (tb - ta).abs().max().item() / scale
+        assert bool(((tb - ta).abs() <= 1e-4 * scale + ulp).all()), (
+            f"NF4MatmulFn card vs plain, {name}: {errs[name]} of its scale")
+    return errs
+
+
+def remat_dots_card_vs_cpu(dev) -> dict:
+    """Reduced f32 yi-9b under ``remat_policy="dots"`` on the card
+    against the CPU (the loss at ``TOL``, every gradient at ``GRAD_REL``)
+    and against ``"nothing"`` on the card (the largest gradient
+    difference, as a share of its leaf's scale, held to ``GRAD_REL``;
+    bitwise where the card's kernels are deterministic).  Returns the
+    errors."""
+    cfg, cpu, batch = reduced_setup()
+    gbatch = {k: t.to(dev) for k, t in batch.items()}
+    dots = replace(cfg, remat_policy="dots")
+    a, b = model_pair(cpu, dots, dev)
+    _, c = model_pair(cpu, cfg, dev)
+    for m, bt in ((a, batch), (b, gbatch), (c, gbatch)):
+        m.loss(bt)[0].backward()
+    out = {"dots grads vs cpu (scaled)": scaled_grad_err(a, b),
+           "dots vs nothing on the card (scaled)": max(
+               ((pb.grad - pc.grad).abs().max()
+                / pc.grad.abs().max().clamp_min(1e-30)).item()
+               for pb, pc in zip(b.parameters(), c.parameters())),
+           "bitwise leaves": sum(torch.equal(pb.grad, pc.grad) for pb, pc in
+                                 zip(b.parameters(), c.parameters())),
+           "leaves": sum(1 for _ in b.parameters())}
+    for k in ("dots grads vs cpu (scaled)",
+              "dots vs nothing on the card (scaled)"):
+        assert out[k] <= GRAD_REL, f"remat dots: {k} {out[k]} > {GRAD_REL}"
     return out

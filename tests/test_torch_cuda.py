@@ -50,6 +50,10 @@ machine with the card and no JAX:
   step; ``repro_torch.train.card_vs_cpu``), and so do reduced f32
   whisper-base and llava-next-mistral-7b (loss, every gradient, one
   step, prefill and decode logits);
+* ``lut_nf4``'s backward (``NF4MatmulFn``: the LUT GEMM kernel over the
+  transposed codes) against its plain version, and reduced f32 yi-9b
+  trained on the card as on the CPU under ``int8``, ``int4_dequant``,
+  ``lut_nf4`` and ``remat_policy="dots"``;
 * the cache substrate on the card: the engine on the paged pool emits the
   dense slab's tokens (reduced bf16 yi-9b, decode on the LUT kernels) and
   a decode step over the pool gives the slab's logits bitwise; a warm
@@ -703,3 +707,37 @@ def test_modality_families_card_match_cpu(dev, arch):
     there."""
     from repro_torch.train.card_vs_cpu import modality_card_vs_cpu
     modality_card_vs_cpu(dev, arch)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nf4_backward_card_matches_plain(dev, dtype):
+    """``lut_nf4``'s autograd Function (``kernels.lut_gemm.ops.
+    NF4MatmulFn``) on the card against itself on the CPU (the plain
+    version, ``lut_gemm_ref``): the output, dx (the LUT GEMM kernel over
+    the transposed codes: bf16 at M = 96 on ``lut_gemm_wgmma.cu``, f32 on
+    ``lut_gemm.cu``) and d absmax at 1e-4 of their scale; the forward
+    bitwise the one-launch forward (``card_vs_cpu.
+    nf4_backward_card_vs_plain``)."""
+    from repro_torch.train.card_vs_cpu import nf4_backward_card_vs_plain
+    wg, bwd = tkern.lut_gemm.launches_wgmma, tops.NF4MatmulFn.backward_launches
+    nf4_backward_card_vs_plain(dev, dtype=dtype)
+    assert tops.NF4MatmulFn.backward_launches == bwd + 1
+    assert tkern.lut_gemm.launches_wgmma - wg == (
+        3 if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4_dequant", "lut_nf4"])
+def test_quant_training_card_matches_cpu(dev, mode):
+    """Reduced f32 yi-9b trained under ``mode`` on the card against the
+    CPU: the loss, every gradient, one train step; under lut_nf4 three
+    LUT GEMM launches a projection, one of them the backward's
+    (``card_vs_cpu.quant_training_card_vs_cpu``)."""
+    from repro_torch.train.card_vs_cpu import quant_training_card_vs_cpu
+    quant_training_card_vs_cpu(dev, mode)
+
+
+def test_remat_dots_card_matches_cpu(dev):
+    """Reduced f32 yi-9b under ``remat_policy="dots"``: card == CPU and
+    card "dots" == card "nothing" (``card_vs_cpu.remat_dots_card_vs_cpu``)."""
+    from repro_torch.train.card_vs_cpu import remat_dots_card_vs_cpu
+    remat_dots_card_vs_cpu(dev)
