@@ -140,7 +140,7 @@ result line):
    a. under the engine-level quant="lut4", then "nf4p" (frozen 4-bit
       decode projections on the D&C kernels, every launch on the
       tensor-core kernel);
-   b. on the first ``MODEL_LEVEL_LAYERS`` (6) of those layers, under the
+   b. on the first ``MODEL_LEVEL_LAYERS`` (3) of those layers, under the
       model-level modes
       luna_approx2, luna_dc (every projection
       of prefill and decode on luna_mm: prefill calls at M >= 32 on its
@@ -187,7 +187,7 @@ result line):
    an f32 copy of its weights;
 10. the rest of the serving stack at full width (bf16, random weights
    from seed 0), on phase 6's and phase 7's models:
-   a. yi-9b on the first ``SPEC_LAYERS`` (24) of its layers, under
+   a. yi-9b on the first ``SPEC_LAYERS`` (12) of its layers, under
       lut4: a plain run of phase 6's 8 requests (32 new
       tokens), then the same under ``spec="self_lut", spec_k=4`` (drafts
       on ``lut_gemm_dc_res``'s tensor-core kernel at M = 8, verify
@@ -313,7 +313,34 @@ result line):
       kernels at every (M, K, N) it gives them against their plain
       versions (``luna_mm`` bitwise, the D&C LUT GEMMs at 1e-4);
    the phase prints its seconds;
-each run of 6, 7, 9, 10, 11, 12, 14 and 15 asserting every request finished,
+16. the mesh's serving half on a one-rank NCCL group (joined through a
+   file store in a temporary directory, destroyed at the phase's end)
+   and ``make_host_mesh(model=1)``, after phase 15:
+   first the grouped partials (``torch.bmm`` with f32 output) at a
+   yi-9b tick's shapes, card against CPU within ``GROUPED_REL``;
+   a. yi-9b at phase 6's depth (bf16, random weights from seed 0) under
+      lut4, phase 6's 8 requests through ``Engine.serve()`` inside
+      ``activation_sharding(mesh)`` with ``decode_attn="sharded"``: f32
+      and ``bf16_grouped`` on the slab, ``bf16_grouped`` on the pool
+      (block 16); ``sharded_gqa_decode`` once a layer a decode tick and 3
+      all-reduces a call (a run that took the dense path fails); each
+      request's tokens equal the dense lut4 run's (phase 6a's, or one
+      served here when phase 6 did not run) or pass ``window_rule`` at
+      their first divergence; the bf16_grouped slab run profiled over 4
+      ticks: the sharded decode's device ms against the dense run's SDPA
+      range, the NCCL kernels, the tick's wall and idle share;
+   b. deepseek-v2-lite-16b (27 layers) under lut4, sharded (MLA has no
+      grouped form) on the slab and the pool: the same counts
+      (``sharded_mla_decode``) and token rule against phase 11a's lut4
+      run (or one served here);
+   c. ``quantized_psum`` on the one-rank group bitwise ``_q8``'s round
+      trip, and the host's time of one all-reduce call; 2 of phase 8's
+      steps (yi-9b depth 8, B 2 x S 4096) with
+      ``grad_compression=True``: step 1's loss bitwise the uncompressed
+      loss on the same params and batch, and the gradients it hands
+      AdamW bitwise ``compress_grads_int8`` of the uncompressed ones;
+   the phase prints its seconds;
+each run of 6, 7, 9, 10, 11, 12, 14, 15 and 16 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
 through it; then (after the counts are read) a torch.profiler window
@@ -321,8 +348,8 @@ over 4 decode ticks (and for mamba2 one prefill call, for zamba2 the
 8-prompt prefill): device time by kernel and the idle
 share (for the prefill call, device time as the union of the kernels'
 intervals: ``ssd_scan``'s side stream overlaps its other kernels).
-``--layers N`` cuts yi-9b's depth in phases 6, 9a and 10c (and 10a's
-to at most ``SPEC_LAYERS``).
+``--layers N`` cuts yi-9b's depth in phases 6, 9a, 10c and 16a (and
+10a's to at most ``SPEC_LAYERS``).
 
 Every line is one JSON object (``t_s``: seconds since the start); the
 ``{"kernels": [...]}`` line comes just before the last, which is
@@ -2540,8 +2567,11 @@ def profile_decode(eng, prompts, ticks: int = 4,
     ours_ms = sum(r[1] for r in rows
                   if any(t in r[0] for t in ("lut_gemm", "luna_mm",
                                              "splitk_reduce", "ssd_")))
+    nccl = [r for r in rows if "nccl" in r[0].lower()]
     out = {"profile": "decode ticks", "ticks": ticks, "wall_ms": wall_ms,
            "device_ms": device_ms if rows else "not measured",
+           "nccl_ms": sum(r[1] for r in nccl) if rows else "not measured",
+           "nccl_kernels": sum(r[2] for r in nccl),
            "port_kernels_ms": ours_ms if rows else "not measured",
            "device_idle_share": (1 - device_ms / wall_ms) if rows
            else "not measured",
@@ -2700,7 +2730,8 @@ def profile_prefill(eng, prompts: list) -> dict:
 
 def serve_once(dev, cfg, model, prompts, quant: str | None,
                kern: str | None, record: bool = False, profile: bool = True,
-               ranges: dict | None = None
+               ranges: dict | None = None, knobs: dict | None = None,
+               counted: dict | None = None, label: str | None = None
                ) -> tuple[dict, list, dict, dict]:
     """One main-path run: the engine serves the request mix; every kernel
     counter is set to 0 just before and read just after.  Returns the
@@ -2722,7 +2753,11 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     value: the run's decode tok/s and, with ``record``, each decode step's
     logits by (rid, step) (:func:`record_logits`; phase 10's reference).
     ``profile=False`` leaves the profiles out; ``ranges`` labels stages
-    of the decode profile (:func:`profile_decode`)."""
+    of the decode profile (:func:`profile_decode`).  ``knobs``: more
+    ``EngineConfig`` fields (``paged``, ``block_size``); ``counted``: name
+    -> an object whose ``calls`` counter is set to 0 just before the run
+    and read just after (the fourth value's ``"calls"``); ``label`` names
+    the run in its line."""
     from dataclasses import replace
 
     import torch
@@ -2740,7 +2775,8 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
             EngineConfig(max_batch=8, max_seq=1024), device=dev)
     else:
         eng = Engine(cfg, model, EngineConfig(quant=quant, max_batch=8,
-                                              max_seq=1024), device=dev)
+                                              max_seq=1024, **(knobs or {})),
+                     device=dev)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     finite, watched = watch_logits(eng)
@@ -2751,11 +2787,14 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(wrappers)
+    for c in (counted or {}).values():
+        c.calls = 0
     t0 = time.perf_counter()
     stats = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, tc = read_counters(wrappers)
+    calls = {k: c.calls for k, c in (counted or {}).items()}
     luna_tc = tc["luna_mm"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in watched:
@@ -2818,6 +2857,7 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
         if cfg.family == "hybrid":
             prof["prefill"] = profile_prefill(eng, prompts)
     emit({"main_path": quant or "bf16", "model": cfg.name,
+          **({"label": label, "calls": calls} if label else {}),
           "requests": len(reqs),
           "prompt_lens": [len(p) for p in prompts], "max_new": 32,
           "layers": layers, "decode_ticks": ticks,
@@ -2835,7 +2875,8 @@ def serve_once(dev, cfg, model, prompts, quant: str | None,
     gc.collect()
     torch.cuda.empty_cache()
     return counts, out, tc, {"decode_tok_s": stats["decode_tok_s"],
-                             "logits": rec}
+                             "logits": rec, "calls": calls, "ticks": ticks,
+                             "profile": prof}
 
 
 def add_launches(total: dict, counts: dict) -> None:
@@ -2846,18 +2887,23 @@ def add_launches(total: dict, counts: dict) -> None:
 
 
 #: phase 6b's model-level runs repeat phase 6a's serving path, host-bound
-#: (re-quantizing every weight each call): on the first 6 of the model's
+#: (re-quantizing every weight each call): on the first 3 of the model's
 #: layers (the same weights), which keeps the whole script in its time
-#: limit (24 when phase 9 came, 12 with phase 12, 6 with phase 13)
-MODEL_LEVEL_LAYERS = 6
-#: phase 10a's depth (yi-9b's first 24 layers, the same weights)
-SPEC_LAYERS = 24
+#: limit (24 when phase 9 came, 12 with phase 12, 6 with phase 13, 3
+#: with phase 16)
+MODEL_LEVEL_LAYERS = 3
+#: phase 10a's depth (yi-9b's first 12 layers, the same weights; 24
+#: before phase 16)
+SPEC_LAYERS = 12
 
 
-def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict, dict]:
+def main_path_phase(dev, cfg, model, prompts
+                    ) -> tuple[dict, dict, dict, dict]:
     """Phase 6: the engine at yi-9b's full width; returns launches by
-    kernel and by tensor-core route (``launches_tc``), and each run's
-    tokens by quant mode.  6a:
+    kernel and by tensor-core route (``launches_tc``), each run's tokens
+    by quant mode, and the lut4 run's (its tokens, each decode step's
+    logits, its profile with the dense attention's range: phase 16a's
+    reference).  6a:
     engine-level lut4 / nf4p (decode projections on the D&C kernels,
     prefill full precision).  6b: model-level luna_approx2 / luna_dc
     (every projection on luna_mm) and lut_nf4 (on lut_gemm), on the
@@ -2873,15 +2919,18 @@ def main_path_phase(dev, cfg, model, prompts) -> tuple[dict, dict, dict]:
                         ("luna_approx2", "luna_mm"), ("luna_dc", "luna_mm"),
                         ("lut_nf4", "lut_gemm")):
         full = quant in ("lut4", "nf4p")
-        counts, outs[quant], tc, _ = serve_once(
+        counts, outs[quant], tc, extra = serve_once(
             dev, cfg if full else cut, model if full else cut_model, prompts,
-            quant, kern)
+            quant, kern, record=quant == "lut4",
+            ranges=ATTN_RANGES if quant == "lut4" else None)
         add_launches(launches, counts)
         add_launches(tc_total, tc)
+        if quant == "lut4":
+            ref = dict(extra, tokens=outs["lut4"])
     # prefill runs the same full-precision model under lut4 and nf4p
     check([o[0] for o in outs["lut4"]] == [o[0] for o in outs["nf4p"]],
           "first (prefill) tokens differ between the lut4 and nf4p runs")
-    return launches, tc_total, outs
+    return launches, tc_total, outs, ref
 
 
 def ssm_main_path_phase(dev, cfg, model, prompts
@@ -4885,7 +4934,7 @@ def build_moe_model(dev, arch: str = "deepseek-v2-lite-16b"):
     return cfg, model, request_mix(cfg.vocab_size)
 
 
-def moe_phase(dev) -> tuple[dict, dict]:
+def moe_phase(dev) -> tuple[dict, dict, dict]:
     """Phase 11: deepseek-v2-lite-16b at its published widths (27 layers,
     bf16, random weights from seed 0) serves phase 6's 8 requests (32 new
     tokens each).  11a: quant None, lut4 and nf4p on the dense slab (each
@@ -4899,7 +4948,8 @@ def moe_phase(dev) -> tuple[dict, dict]:
     spec_k=4``: tokens 11a's lut4 run's, or the WINDOW_FACTOR rule at the
     first divergence.  11d: minitron-4b at its published widths (32
     layers, GELU, 256k vocab) under lut4: 6 LUT launches a layer a tick.
-    Returns (launches, by route)."""
+    Returns (launches, by route, the lut4 run's tokens and logits: phase
+    16b's reference)."""
     import torch
 
     t11 = time.perf_counter()
@@ -4942,6 +4992,7 @@ def moe_phase(dev) -> tuple[dict, dict]:
             extra["lut4"], "phase 11c deepseek-v2-lite self_lut",
             profile=False)):
         add_launches(total, part)
+    ref = dict(extra["lut4"], tokens=outs["lut4"])
     del model, extra
     gc.collect()
     torch.cuda.empty_cache()
@@ -4954,7 +5005,7 @@ def moe_phase(dev) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase11_s": time.perf_counter() - t11})
-    return launches, tc_total
+    return launches, tc_total, ref
 
 
 def small_hybrid_phase(dev):
@@ -5649,18 +5700,334 @@ def options_phase(dev) -> tuple[dict, dict, dict]:
     return launches, tc, nf4
 
 
+#: phase 16: the serving runs on a one-rank mesh of each model: (label,
+#: decode_attn_precision, EngineConfig knobs, profiled).  MLA has no
+#: grouped form.
+MESH_RUNS = {
+    "yi-9b": [("sharded f32", "f32", {}, False),
+              ("sharded bf16_grouped", "bf16_grouped", {}, True),
+              ("paged bf16_grouped", "bf16_grouped",
+               dict(paged=True, block_size=16), False)],
+    "deepseek-v2-lite-16b": [("sharded", "f32", {}, False),
+                             ("paged sharded", "f32",
+                              dict(paged=True, block_size=16), False)]}
+#: the decode attention's profile ranges (:data:`MOE_RANGES`' form): the
+#: dense SDPA and the sharded decode, each call's kernels
+ATTN_RANGES = {
+    "attn.sdpa": ("repro_torch.models.attention", "sdpa"),
+    "attn.sharded_gqa_decode": ("repro_torch.serve.decode_attention",
+                                "sharded_gqa_decode")}
+#: phase 16c: the grad-compressed steps of phase 8's model and shape
+MESH_TRAIN_STEPS = 2
+
+
+def one_rank_mesh():
+    """A context: a one-rank NCCL group joined through a file store in a
+    temporary directory (no TCP port), with a timeout, and
+    ``make_host_mesh(model=1)`` over it; the group destroyed on exit."""
+    import contextlib
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    @contextlib.contextmanager
+    def ctx():
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group(
+                "nccl", init_method=f"file://{d}/rdv", world_size=1, rank=0,
+                timeout=datetime.timedelta(seconds=120))
+            try:
+                yield make_host_mesh(model=1)
+            finally:
+                dist.destroy_process_group()
+    return ctx()
+
+
+def mesh_counters() -> dict:
+    """The sharded decode's counters (``calls`` attributes)."""
+    from repro_torch.serve import decode_attention as da
+    return {"sharded_gqa_decode": da.sharded_gqa_decode,
+            "sharded_mla_decode": da.sharded_mla_decode,
+            "all_reduce": da.all_reduce}
+
+
+def mesh_serve(dev, cfg, model, prompts, mesh, ref, sub: str
+               ) -> tuple[dict, dict]:
+    """Phase 16a/16b on one model: each run of :data:`MESH_RUNS` serves
+    phase 6's 8 requests (lut4, max_batch 8, max_seq 1024) through
+    ``Engine.serve()`` under ``activation_sharding(mesh)``.  Checks: the
+    sharded decode called once a layer a decode tick, 3 all-reduces a
+    call, the other sharded function never (a run that took the dense
+    path fails); each request's tokens equal ``ref``'s (the dense lut4
+    run's) or pass :func:`window_rule` at their first divergence (the
+    dense run's top-two margin there within ``WINDOW_FACTOR`` times the
+    two runs' logit distance).  Returns (launches, by tensor-core
+    route)."""
+    from dataclasses import replace
+
+    from repro_torch.parallel.act_sharding import activation_sharding
+
+    fn = "sharded_mla_decode" if cfg.mla else "sharded_gqa_decode"
+    launches, tc_total, attn = {}, {}, {}
+    for label, precision, knobs, profiled in MESH_RUNS[cfg.name]:
+        scfg = replace(cfg, decode_attn="sharded",
+                       decode_attn_precision=precision)
+        smodel = type(model).from_params(scfg, model.params_tree(),
+                                         device=dev)
+        with activation_sharding(mesh):
+            counts, out, tc, extra = serve_once(
+                dev, scfg, smodel, prompts, "lut4", "lut_gemm_dc",
+                record=True, profile=profiled, ranges=ATTN_RANGES,
+                knobs=knobs, counted=mesh_counters(),
+                label=f"phase {sub} {label}")
+        add_launches(launches, counts)
+        add_launches(tc_total, tc)
+        calls = cfg.num_layers * extra["ticks"]
+        want = {"sharded_gqa_decode": 0, "sharded_mla_decode": 0,
+                fn: calls, "all_reduce": 3 * calls}
+        check(extra["calls"] == want,
+              f"phase {sub} {label}: sharded calls {extra['calls']}, want "
+              f"{want}")
+        rules = [window_rule(i, out[i], ref["tokens"][i], extra["logits"],
+                             ref["logits"]) for i in range(len(prompts))]
+        check(all(r["equal"] or r.get("passed") for r in rules),
+              f"phase {sub} {label}: tokens outside the window rule: "
+              f"{[r for r in rules if not r['equal']]}")
+        if profiled:
+            p = extra["profile"]
+            attn[label] = dict(tick_profile(p), attention_ms=p[
+                "ranges_ms"]["attn.sharded_gqa_decode"], nccl_ms=p[
+                "nccl_ms"], nccl_kernels=p["nccl_kernels"])
+        emit({"phase16": sub, "run": label, "model": cfg.name,
+              "calls": extra["calls"], "decode_ticks": extra["ticks"],
+              "equal_requests": sum(r["equal"] for r in rules),
+              "first_divergences": [r for r in rules if not r["equal"]],
+              "decode_tok_s": extra["decode_tok_s"]})
+        del smodel, extra
+        gc.collect()
+    if attn:
+        p = ref["profile"]
+        emit({"phase16": sub, "attention_per_4_ticks": dict(attn, dense=dict(
+            tick_profile(p), attention_ms=p["ranges_ms"]["attn.sdpa"]))})
+    return launches, tc_total
+
+
+def tick_profile(p: dict) -> dict:
+    """A decode profile's (:func:`profile_decode`) tick wall, device ms a
+    tick and idle share."""
+    dev_ms = p["device_ms"]
+    return {"tick_wall_ms": p["wall_ms"] / p["ticks"],
+            "device_ms_tick": dev_ms / p["ticks"]
+            if not isinstance(dev_ms, str) else dev_ms,
+            "device_idle_share": p["device_idle_share"]}
+
+
+#: phase 16a's check of the grouped partials, card against CPU: max
+#: |diff| over max |CPU value| of m, l and o (f32 accumulation both: the
+#: card's bmm with f32 output on the tensor cores, whose f32 accumulation
+#: truncates, summing up to 1,024 columns; the CPU's on operands cast to
+#: f32).  A first reading put o at 1.1e-5; P's bf16 rounding, the grouped
+#: form's one difference from the f32 form, moves o by ~1e-3
+GROUPED_REL = 1e-4
+
+
+def grouped_partials_check(dev) -> dict:
+    """The bf16_grouped partials (``_gqa_partials``: ``torch.bmm`` with
+    ``out_dtype=torch.float32`` on the card) at a yi-9b decode tick's
+    shapes (B 8, H 32 on 4 KV heads of 128, 1,024 columns, each row valid
+    up to its own depth), bf16 operands, against the same function on the
+    CPU (both operands cast to f32) within ``GROUPED_REL``; and the f32
+    form on the card beside it (its distance from the grouped form: P's
+    rounding)."""
+    import torch
+
+    from repro_torch.serve.decode_attention import _gqa_partials
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (torch.randn(s, device=dev, generator=gen).to(torch.bfloat16)
+               for s in ((8, 1, 32, 128), (8, 1024, 4, 128),
+                         (8, 1024, 4, 128)))
+    depth = torch.tensor([437, 331, 269, 149, 167, 35, 52, 23],
+                         device=dev) + 16
+    ok = (torch.arange(1024, device=dev)[None, None, :]
+          <= depth[:, None, None])
+    kw = dict(g=8, sm_scale=1.0 / 128 ** 0.5)
+    card = _gqa_partials(q, k, v, ok, grouped_bf16=True, **kw)
+    cpu = _gqa_partials(q.cpu(), k.cpu(), v.cpu(), ok.cpu(),
+                        grouped_bf16=True, **kw)
+    f32 = _gqa_partials(q, k, v, ok, grouped_bf16=False, **kw)
+    rel = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(card, cpu)]
+    form = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(f32, card)]
+    check(max(rel) <= GROUPED_REL,
+          f"phase 16a: grouped partials card vs CPU {rel} > {GROUPED_REL}")
+    out = {"phase16": "16a", "grouped_partials_card_vs_cpu": rel,
+           "f32_form_vs_grouped": form, "tol": GROUPED_REL}
+    emit(out)
+    return out
+
+
+def mesh_collectives(dev, mesh) -> None:
+    """Phase 16c: ``quantized_psum`` on the one-rank group against
+    ``_q8``'s round trip (bitwise); then ``MESH_TRAIN_STEPS`` of phase 8's
+    step (yi-9b at depth ``TRAIN_LAYERS``, B 2 x S 4096) with
+    ``grad_compression=True``: step 1's loss bitwise the uncompressed
+    loss and backward's on the same params and batch, and the gradients
+    it hands AdamW bitwise ``compress_grads_int8`` of that backward's."""
+    from dataclasses import replace
+
+    import torch
+
+    import repro_torch.train.train_step as ts
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.parallel.collectives import (_roundtrip_q8,
+                                                  compress_grads_int8,
+                                                  quantized_psum)
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(4096, 4096, device=dev, generator=gen)
+    got = quantized_psum(x, mesh.groups["model"])
+    check(torch.equal(got, _roundtrip_q8(x)),
+          "phase 16c: quantized_psum on one rank is not _q8's round trip")
+    psum_ms = cuda_ms(lambda i: quantized_psum(x, mesh.groups["model"]),
+                      10)
+    # the host's cost of one all-reduce call on the one-rank group (the
+    # sharded decode makes 3 a layer), at a combine's (B, H, dh) size
+    from repro_torch.serve.decode_attention import all_reduce
+    o = torch.zeros(8, 32, 128, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        all_reduce(o, torch.distributed.ReduceOp.SUM, mesh.groups["model"])
+    torch.cuda.synchronize()
+    all_reduce_us = (time.perf_counter() - t0) * 1e3
+
+    cfg = replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS,
+                  attn_impl="chunked")
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)).requires_grad_(True)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(
+        0, dev)
+    loss0, _ = model.loss(batch)
+    loss0.backward()
+    flat = leaves(model.params_tree())
+    plain = [p.grad for p in flat]
+    for p in flat:
+        p.grad = None
+    opt = AdamW(lr=3e-4, schedule=cosine_schedule(1, MESH_TRAIN_STEPS))
+    state = opt.init(model.params_tree())
+    calls = []
+    compress = ts.compress_grads_int8
+
+    def recorded(grads):
+        calls.append((grads, compress(grads)))
+        return calls[-1][1]
+    ts.compress_grads_int8 = recorded
+    try:
+        step = ts.make_train_step(cfg, opt, grad_compression=True)
+        walls, losses = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(model, state, batch if i == 0 else
+                               SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                           seed=0).batch(i, dev))["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        ts.compress_grads_int8 = compress
+    raw, out = calls[0]
+    check(len(calls) == MESH_TRAIN_STEPS, f"phase 16c: {len(calls)} "
+          f"compressions in {MESH_TRAIN_STEPS} steps")
+    check(torch.equal(losses[0], loss0.detach()),
+          f"phase 16c: step 1's loss {losses[0].item()} is not the "
+          f"uncompressed step's {loss0.item()}")
+    same_raw = all(torch.equal(a, b) for a, b in zip(leaves(raw), plain))
+    want = compress_grads_int8(plain)
+    check(all(torch.equal(a, b) for a, b in zip(leaves(out), want)),
+          "phase 16c: step 1's gradients are not compress_grads_int8 of "
+          "the uncompressed step's")
+    moved = sum(not torch.equal(a, b) for a, b in zip(leaves(raw),
+                                                      leaves(out)))
+    emit({"phase16": "16c", "quantized_psum_bitwise_roundtrip": True,
+          "quantized_psum_ms_4096x4096": psum_ms,
+          "all_reduce_host_us_8x32x128": all_reduce_us,
+          "steps": MESH_TRAIN_STEPS, "loss": [v.item() for v in losses],
+          "step_s": walls, "step1_loss_bitwise_uncompressed": True,
+          "step1_raw_grads_bitwise_uncompressed": same_raw,
+          "step1_grads_bitwise_compressed_uncompressed": True,
+          "leaves": len(plain), "leaves_changed_by_compression": moved})
+    check(moved > 0, "phase 16c: the compression changed no gradient")
+    del model, state, opt, plain, calls, raw, out, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(dev, refs: dict, layers: int) -> tuple[dict, dict]:
+    """Phase 16: the mesh's serving half on a one-rank NCCL group
+    (:func:`one_rank_mesh`).  16a: yi-9b (``layers`` deep: 48 unless
+    ``--layers`` cuts it, as phase 6; bf16, random weights
+    from seed 0, lut4) through :func:`mesh_serve`, sharded f32 and
+    bf16_grouped on the slab (bf16_grouped profiled over 4 ticks: the
+    sharded decode's range, the NCCL kernels, the tick's wall and idle
+    share, beside the dense run's SDPA range) and bf16_grouped on the
+    pool;
+    16b: deepseek-v2-lite-16b (27 layers) sharded on the slab and the
+    pool; first :func:`grouped_partials_check`; 16c:
+    :func:`mesh_collectives`.  ``refs``: the dense lut4 runs
+    of phases 6a and 11a by model name (tokens, logits, profile); a model
+    whose phase did not run in this process is served dense here first.
+    Returns (launches, by tensor-core route)."""
+    import torch
+
+    t16 = time.perf_counter()
+    launches, tc_total = {}, {}
+    with one_rank_mesh() as mesh:
+        emit({"phase16": "mesh", "shape": mesh.shape,
+              "backend": "nccl", "world": mesh.size})
+        grouped_partials_check(dev)
+        for sub, build in (("16a", lambda: build_model(dev, layers)),
+                           ("16b", lambda: build_moe_model(dev))):
+            cfg, model, prompts = build()
+            ref = refs.get(cfg.name)
+            if ref is None:
+                counts, out, tc, extra = serve_once(
+                    dev, cfg, model, prompts, "lut4", "lut_gemm_dc",
+                    record=True, profile=not cfg.mla, ranges=ATTN_RANGES,
+                    label=f"phase {sub} dense")
+                add_launches(launches, counts)
+                add_launches(tc_total, tc)
+                ref = dict(extra, tokens=out)
+            for total, part in zip((launches, tc_total), mesh_serve(
+                    dev, cfg, model, prompts, mesh, ref, sub)):
+                add_launches(total, part)
+            del model, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh_collectives(dev, mesh)
+    emit({"phase16_s": time.perf_counter() - t16})
+    return launches, tc_total
+
+
 #: the phases ``--phases`` selects, in the order they run: "6" is yi-9b's
 #: serving (6, 9a, 10a, 10c), "7" mamba2-1.3b's (7, 9b, 10b), "8" the
 #: trainer's (8, 8b); 1 and 2 always run
-PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15")
+PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15", "16")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
                     help="depth of the full-width yi-9b in phases 6, 9a, "
-                         "10a and 10c (it has 48); mamba2-1.3b always runs "
-                         "all 48 of its layers")
+                         "10a, 10c and 16a (it has 48); mamba2-1.3b always "
+                         "runs all 48 of its layers")
     bench = ap.add_mutually_exclusive_group()
     bench.add_argument("--ssd-bench", metavar="ROOT",
                        help="only time ROOT's ssd_scan (ssd_bench)")
@@ -5754,6 +6121,7 @@ def main() -> int:
           "ptxas_ssd_scan_bwd": by_lib.get("ssd_scan_bwd")})
 
     kernels, launches, tc = {}, {}, {}
+    refs = {}                 # phase 16's dense references (phases 6, 11)
     flash_tc = luna_tc_train = 0
     if "3" in only:
         kernels = kernel_phase(dev)
@@ -5774,7 +6142,8 @@ def main() -> int:
         quant_matmul_phase(dev)
     if "6" in only:
         cfg, model, prompts = build_model(dev, args.layers)
-        launches, tc, outs = main_path_phase(dev, cfg, model, prompts)
+        launches, tc, outs, refs[cfg.name] = main_path_phase(
+            dev, cfg, model, prompts)
         for total, part in zip((launches, tc), substrate_phase(
                 dev, cfg, model, prompts, outs["lut4"])):
             add_launches(total, part)
@@ -5805,7 +6174,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     if "11" in only:
-        for total, part in zip((launches, tc), moe_phase(dev)):
+        *run, refs["deepseek-v2-lite-16b"] = moe_phase(dev)
+        for total, part in zip((launches, tc), run):
             add_launches(total, part)
     if "12" in only:
         for total, part in zip((launches, tc), hybrid_phase(dev)):
@@ -5828,6 +6198,11 @@ def main() -> int:
         launches_options, tc_options, nf4 = options_phase(dev)
         add_launches(launches, launches_options)
         add_launches(tc, tc_options)
+    if "16" in only:
+        for total, part in zip((launches, tc),
+                               mesh_phase(dev, refs, args.layers)):
+            add_launches(total, part)
+        refs.clear()
     if only != set(PHASES):
         emit({"phases_passed": sorted(only, key=PHASES.index),
               "launches": launches, "script_s": time.perf_counter() - T0})

@@ -7,9 +7,10 @@ backward), ``int8``, ``int4_dequant`` and ``lut_nf4`` train with
 ``jax.grad``'s gradients of JAX's modes (on the card ``lut_nf4``'s
 backward is the LUT GEMM kernel over the transposed codes).
 
-The port has no mesh: ``--model-parallel`` above 1 and
-``--grad-compression`` raise (ROADMAP queue 1 item 9), as the port's
-train CLI does.
+``--grad-compression`` sends every gradient through the int8 round trip
+before AdamW, as JAX's example does.  Training on a mesh is not ported:
+``--model-parallel`` above 1 raises (ROADMAP queue 1 item 9b), as the
+port's train CLI does.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py --device cpu --steps 20
       PYTHONPATH=src python examples/train_lm_torch.py --device cpu \\
@@ -47,10 +48,9 @@ def main(argv=None) -> list:
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--grad-compression", action="store_true")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1 or args.grad_compression:
+    if args.model_parallel > 1:
         raise NotImplementedError(
-            "meshes and gradient compression are not ported yet: ROADMAP "
-            "queue 1 item 9")
+            "training on a mesh is not ported yet: ROADMAP queue 1 item 9b")
 
     cfg = ModelConfig(
         name="demo-lm", family="dense", num_layers=args.layers,
@@ -61,7 +61,8 @@ def main(argv=None) -> list:
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=25,
                          ckpt_dir=args.ckpt_dir, log_every=10, lr=1e-3,
                          warmup=min(20, max(1, args.steps // 2)),
-                         microbatch=args.microbatch)
+                         microbatch=args.microbatch,
+                         grad_compression=args.grad_compression)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=0)
     trainer = Trainer(cfg, tcfg, device=args.device)
     _, hist = trainer.run(data)

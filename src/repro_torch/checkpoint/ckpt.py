@@ -10,7 +10,7 @@
   leaves are stored as f32 (exact) and cast back on restore.
 
 Elastic restore onto another mesh is the mesh's concern (ROADMAP queue 1
-item 9): the port restores onto one device.
+item 9b): the port restores onto one device.
 """
 from __future__ import annotations
 

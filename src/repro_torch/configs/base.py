@@ -92,6 +92,11 @@ class ModelConfig:
     attn_impl: str = "chunked"   # full | chunked | flash (forward-only)
     attn_chunk: int = 512
     remat: bool = True           # recompute each block in the backward
+    # decode attention: "dense" = plain cache update + SDPA (baseline);
+    # "sharded" = flash-decode over the mesh's model group
+    # (serve.decode_attention; taken under an active activation_sharding
+    # context whose model axis owns the cache's shard)
+    decode_attn: str = "dense"
     # "nothing" (full recompute, min memory); "dots" (save the outputs of
     # the matmuls with no batch dims, JAX's dots_with_no_batch_dims_saveable)
     remat_policy: str = "nothing"
@@ -99,6 +104,10 @@ class ModelConfig:
     # the operands in the model dtype with f32 scores and rounds P to the
     # operand dtype before P@V (flash-attention numerics)
     attn_f32: bool = True
+    # sharded flash-decode operand handling: "f32" (baseline) repeats KV to
+    # full H in f32; "bf16_grouped" keeps the cache-dtype operands and
+    # GQA-grouped products with f32 accumulation (no repeat)
+    decode_attn_precision: str = "f32"
     # fused scale+mask where() instead of mul + broadcast-bias add
     attn_fused_mask: bool = False
     # causal chunks attend only to keys <= the chunk's end

@@ -32,9 +32,11 @@ does; each trains with ``jax.grad``'s gradients (the ``luna_*`` modes
 through the STE; on the card ``lut_nf4``'s backward runs the LUT GEMM
 kernel over the transposed codes).  ``remat_policy="dots"`` is a config
 field, not a flag.  Checkpoints go to ``--ckpt-dir`` and a rerun
-resumes from the latest.  The mesh flags of the JAX CLI
-(``--model-parallel``, ``--host-devices``, ``--distributed``) and
-``--grad-compression`` raise: ROADMAP queue 1 item 9.
+resumes from the latest.  ``--grad-compression`` sends every gradient
+through the int8 round trip before AdamW (``parallel.collectives.
+compress_grads_int8``), as JAX's CLI does.  The mesh flags of the JAX CLI
+(``--model-parallel``, ``--host-devices``, ``--distributed``) raise:
+training on a mesh is ROADMAP queue 1 item 9b.
 """
 from __future__ import annotations
 
@@ -62,11 +64,10 @@ def main(argv=None):
     ap.add_argument("--distributed", action="store_true")
     args = ap.parse_args(argv)
 
-    if (args.model_parallel > 1 or args.host_devices or args.distributed
-            or args.grad_compression):
+    if args.model_parallel > 1 or args.host_devices or args.distributed:
         raise NotImplementedError(
-            "meshes, multi-host runs and gradient compression are not "
-            "ported yet: ROADMAP queue 1 item 9")
+            "training on a mesh and multi-host runs are not ported yet: "
+            "ROADMAP queue 1 item 9b")
 
     from dataclasses import replace
 
@@ -82,7 +83,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.quant != "bf16":
         cfg = replace(cfg, quant=QuantConfig(mode=args.quant))
-    tcfg = TrainerConfig(total_steps=args.steps, microbatch=args.microbatch)
+    tcfg = TrainerConfig(total_steps=args.steps, microbatch=args.microbatch,
+                         grad_compression=args.grad_compression)
     if args.ckpt_dir:
         tcfg.ckpt_dir = args.ckpt_dir
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)

@@ -25,8 +25,15 @@ no cache; under ``flash`` the one-S kernel route, which takes it only
 where the decoder's length equals the encoder's, as JAX's).  MLA
 (DeepSeek-V2) scores the absorbed form in f32:
 ``q_nope·W_uk`` against c_kv plus ``q_rope`` against k_rope, then
-``p·c_kv`` and ``·W_uv``, JAX's association.  Sharded decode is ROADMAP
-queue 1 item 9.
+``p·c_kv`` and ``·W_uv``, JAX's association.  Sharded decode
+(``cfg.decode_attn="sharded"``, JAX's branches): a one-token decode step
+under an active :func:`~repro_torch.parallel.act_sharding.
+activation_sharding` context whose model axis owns the layer's cache
+(:func:`~repro_torch.serve.decode_attention.owns_shard`: a one-rank axis,
+or a :class:`KVShard` that ``shard_cache`` cut) runs
+:mod:`repro_torch.serve.decode_attention` over the mesh's model group,
+GQA in f32 or ``bf16_grouped``, MLA on the f32 absorbed ``q_nope·W_uk``
+and ``·W_uv``; verify windows and prefill stay on the local path.
 """
 from __future__ import annotations
 
@@ -40,11 +47,19 @@ from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.common import (PagedRows, WindowTarget, apply_rope,
                                        paged_gather, paged_write, set_leaf,
                                        write_window)
+from repro_torch.parallel.act_sharding import current_mesh
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor   # (B, S_max, Hkv, Dh) [GQA] or c_kv (B, S_max, R) [MLA]
     v: torch.Tensor   # (B, S_max, Hkv, Dh) [GQA] or k_rope (B, S_max, dr)
+
+
+class KVShard(KVCache):
+    """A ``KVCache`` whose leaves hold this rank's shard along the model
+    axis (:func:`repro_torch.serve.decode_attention.shard_cache`); the
+    sharded decode takes it at any axis size."""
+    __slots__ = ()
 
 
 def _per_row(q_offset, kv_len) -> bool:
@@ -258,6 +273,19 @@ class GQAAttention(nn.Module):
             k = apply_rope(k, positions, cfg.rope_theta)
 
         kv_len, q_offset = None, 0
+        mesh = (current_mesh() if cache is not None and kv_x is None
+                and s == 1 and window is None
+                and cfg.decode_attn == "sharded" else None)
+        if mesh is not None:
+            from repro_torch.serve import decode_attention as da
+            if da.owns_shard(cache, mesh):
+                out, _, _ = da.sharded_gqa_decode(
+                    q, cache.k, cache.v, k, v, cache_index, mesh,
+                    sm_scale=1.0 / float(dh) ** 0.5,
+                    grouped_bf16=cfg.decode_attn_precision == "bf16_grouped",
+                    block_table=None if paged is None else paged.table)
+                out = out.reshape(b, s, h * dh)
+                return quant_matmul(out, self.wo, cfg.quant, "attn"), cache
         if cache is not None and kv_x is None:
             k, v, kv_len, q_offset = write_cache(
                 cache, k, v, cache_index=cache_index, paged=paged,
@@ -324,6 +352,24 @@ class MLAAttention(nn.Module):
         k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
 
         kv_len, q_offset = None, 0
+        mesh = (current_mesh() if cache is not None and s == 1
+                and window is None and cfg.decode_attn == "sharded"
+                else None)
+        if mesh is not None:
+            from repro_torch.serve import decode_attention as da
+            if da.owns_shard(cache, mesh):
+                q_abs = torch.einsum(
+                    "bqhd,rhd->bqhr", q_nope.float(),
+                    self.w_uk.reshape(rank, h, nope).float())
+                ctx_c, _, _ = da.sharded_mla_decode(
+                    q_abs, q_rope.float(), cache.k, cache.v, c_kv, k_rope,
+                    cache_index, mesh, sm_scale=1.0 / float(qd) ** 0.5,
+                    block_table=None if paged is None else paged.table)
+                ctx = torch.einsum(
+                    "bqhr,rhd->bqhd", ctx_c.float(),
+                    self.w_uv.reshape(rank, h, m.v_dim).float())
+                ctx = ctx.reshape(b, s, h * m.v_dim).to(x.dtype)
+                return quant_matmul(ctx, self.wo, cfg.quant, "attn"), cache
         if cache is not None:
             c_kv, k_rope, kv_len, q_offset = write_cache(
                 cache, c_kv, k_rope, cache_index=cache_index, paged=paged,

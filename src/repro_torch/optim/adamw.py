@@ -8,7 +8,7 @@ step counter IN PLACE (under ``torch.no_grad``): at full width the
 moments alone are 4x the bf16 weights, and a second copy would not fit.
 Not ``torch.optim.AdamW``: its moments take the parameters' dtype and
 its operation order differs.  ZeRO-1 sharding of the moments is the mesh's
-concern (ROADMAP queue 1 item 9).
+concern (ROADMAP queue 1 item 9b).
 """
 from __future__ import annotations
 

@@ -6,14 +6,17 @@ the in-place AdamW update.  JAX's version is a pure function jitted over
 (params, opt_state); here the model's parameters and the optimizer state
 are updated in place.  Microbatch accumulation is JAX's: gradients summed
 into f32 buffers, divided by the count, the last microbatch's loss
-reported, and no loss metrics.  Sharding and gradient compression are the
-mesh's (ROADMAP queue 1 item 9).
+reported, and no loss metrics.  ``grad_compression`` applies
+:func:`~repro_torch.parallel.collectives.compress_grads_int8` to the
+gradients before AdamW, as JAX's step does.  Sharding the step over a mesh
+is ROADMAP queue 1 item 9b's.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.parallel.collectives import compress_grads_int8
 from repro_torch.tree import leaves, tree_map
 
 
@@ -33,12 +36,9 @@ def make_train_step(cfg, optimizer: AdamW, *, microbatch: int = 0,
     > 1 splits the batch into that many accumulation chunks.  ``cfg`` is
     unused (the model carries its config); it keeps JAX's call
     ``make_train_step(cfg, optimizer)``, which the trainer and the parity
-    tests make in both packages alike."""
+    tests make in both packages alike.  ``grad_compression``: every
+    gradient leaf through the int8 round trip before the update."""
     del cfg
-    if grad_compression:
-        raise NotImplementedError(
-            "int8 gradient compression (parallel/collectives) is not ported "
-            "yet: ROADMAP queue 1 item 9")
 
     def train_step(model, opt_state: AdamWState, batch: dict) -> dict:
         params = model.params_tree()
@@ -61,8 +61,10 @@ def make_train_step(cfg, optimizer: AdamW, *, microbatch: int = 0,
             loss, metrics = model.loss(batch)
             loss.backward()
             grads = _grads(flat)
-        opt_metrics = optimizer.update(_unflatten(params, grads), opt_state,
-                                       params)
+        grads = _unflatten(params, grads)
+        if grad_compression:
+            grads = compress_grads_int8(grads)
+        opt_metrics = optimizer.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in (metrics or {}).items()}
         return dict(metrics, loss=loss.detach(), **opt_metrics)
 

@@ -270,14 +270,33 @@ def test_serve_luna_on_cpu(capsys, quant):
 
 @pytest.mark.parametrize("quant", ["int8", "int4_dequant", "lut_nf4",
                                    "luna_approx"])
-def test_train_lm_on_cpu(tmp_path, quant):
+def test_train_lm_on_cpu(tmp_path, monkeypatch, quant):
+    """The example trains under each mode; with ``--grad-compression``
+    each AdamW update gets JAX's ``compress_grads_int8`` of the step's
+    gradients, bitwise."""
     train = _load("examples/train_lm_torch.py", "train_lm_torch")
-    hist = train.main(["--device", "cpu", "--steps", "3", "--seq", "16",
-                       "--batch", "2", "--layers", "2", "--d-model", "64",
-                       "--quant", quant, "--ckpt-dir", str(tmp_path)])
+    args = ["--device", "cpu", "--seq", "16", "--batch", "2", "--layers",
+            "2", "--d-model", "64", "--quant", quant]
+    hist = train.main(args + ["--steps", "3", "--ckpt-dir",
+                              str(tmp_path / "a")])
     assert len(hist) == 3 and all(np.isfinite(hist))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train.main(["--device", "cpu", "--grad-compression"])
+    import repro_torch.train.train_step as ts
+    from repro.parallel.collectives import compress_grads_int8 as jax_q8
+    from repro_torch.tree import leaves
+    calls = []
+
+    def recorded(grads):
+        calls.append((grads, ts_compress(grads)))
+        return calls[-1][1]
+    ts_compress = ts.compress_grads_int8
+    monkeypatch.setattr(ts, "compress_grads_int8", recorded)
+    hist = train.main(args + ["--steps", "1", "--grad-compression",
+                              "--ckpt-dir", str(tmp_path / "b")])
+    assert len(hist) == 1 and np.isfinite(hist[0]) and len(calls) == 1
+    raw, out = calls[0]
+    for r, o in zip(leaves(raw), leaves(out)):
+        want = jax_q8(jnp.asarray(r.detach().numpy()))
+        np.testing.assert_array_equal(o.detach().numpy(), np.asarray(want))
 
 
 ENTRY_SCRIPTS = ("examples/quickstart_torch.py", "examples/serve_luna_torch.py",

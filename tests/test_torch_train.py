@@ -20,6 +20,9 @@
   first value within 30 steps; 12 steps then a rerun to 20 resumes from
   step 12; a run preempted by SIGTERM at step 12 and resumed ends
   bitwise where 20 straight steps do.
+* ``grad_compression`` (the step and the CLI's ``--grad-compression``):
+  AdamW gets JAX's ``compress_grads_int8`` of the step's gradients,
+  bitwise.
 * The train CLI on the CPU; what the slice leaves out raises naming its
   ROADMAP item.
 """
@@ -467,9 +470,70 @@ def test_bridge_round_trips_luna_mlp_after_training():
                               jparams["blocks"]["mlp"]["w_up"])
 
 
-def test_grad_compression_names_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make_train_step(None, AdamW(), grad_compression=True)
+def record_compression(monkeypatch) -> tuple[list, list]:
+    """Record each call of the train step's ``compress_grads_int8`` (its
+    input and output trees) and the gradient tree each ``AdamW.update``
+    receives."""
+    import repro_torch.train.train_step as ts
+    calls, updates = [], []
+    compress, update = ts.compress_grads_int8, AdamW.update
+
+    def recorded(grads):
+        calls.append((grads, compress(grads)))
+        return calls[-1][1]
+
+    def recorded_update(self, grads, *a, **kw):
+        updates.append(grads)
+        return update(self, grads, *a, **kw)
+    monkeypatch.setattr(ts, "compress_grads_int8", recorded)
+    monkeypatch.setattr(AdamW, "update", recorded_update)
+    return calls, updates
+
+
+def assert_compressed_as_jax(calls, updates):
+    """Every update got the output of one compression, and that output
+    is JAX's ``compress_grads_int8`` of its input, bitwise."""
+    from repro.parallel.collectives import compress_grads_int8 as jax_q8
+    assert calls and len(calls) == len(updates)
+
+    def arr(t):
+        return t.detach().float().numpy()
+    for (raw, out), got in zip(calls, updates):
+        assert got is out
+        want = jax_q8(jax.tree.map(lambda t: jnp.asarray(
+            arr(t), jnp.bfloat16 if t.dtype == torch.bfloat16
+            else jnp.float32), raw))
+        got_np = jax.tree.leaves(jax.tree.map(arr, out))
+        assert len(got_np) == len(jax.tree.leaves(want))
+        for a, b in zip(got_np, jax.tree.leaves(want)):
+            np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("microbatch", [0, 2])
+def test_grad_compression_matches_jax_bitwise(monkeypatch, microbatch):
+    """``grad_compression=True`` hands AdamW JAX's ``compress_grads_int8``
+    of the step's gradients, bitwise; those gradients and the loss are
+    the uncompressed step's, bitwise (luna-mlp, f32)."""
+    jcfg = replace(jax_config("luna-mlp"), dtype="float32")
+    jparams = _np_tree(jax_model(jcfg).init(jax.random.PRNGKey(3)))
+    cfg = get_config("luna-mlp", dtype="float32")
+    batch = SyntheticLM(256, 16, 4).batch(0, "cpu")
+    calls, updates = record_compression(monkeypatch)
+    loss = {}
+    for compress in (False, True):
+        model = params_from_numpy(jparams, cfg, "cpu").requires_grad_(True)
+        opt = AdamW(lr=1e-2)
+        step = make_train_step(cfg, opt, microbatch=microbatch,
+                               grad_compression=compress)
+        loss[compress] = step(model, opt.init(model.params_tree()),
+                              batch)["loss"]
+    assert len(updates) == 2 and len(calls) == 1
+    assert torch.equal(loss[True], loss[False])
+    for a, b in zip(leaves(calls[0][0]), leaves(updates[0])):
+        assert torch.equal(a, b)
+    assert_compressed_as_jax(calls, updates[1:])
+    assert any(not torch.equal(a, b) for a, b in
+               zip(leaves(calls[0][0]), leaves(calls[0][1])))
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +609,19 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     assert "luna_approx" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         main(["--device", "cpu", "--model-parallel", "2"])
+
+
+def test_train_cli_grad_compression_matches_jax(tmp_path, monkeypatch):
+    """``--grad-compression``: each step's AdamW update gets JAX's
+    ``compress_grads_int8`` of that step's gradients, bitwise."""
+    from repro_torch.launch.train import main
+    calls, updates = record_compression(monkeypatch)
+    hist = main(["--reduced", "--device", "cpu", "--steps", "2", "--seq",
+                 "16", "--batch", "2", "--grad-compression", "--ckpt-dir",
+                 str(tmp_path)])
+    assert len(hist) == 2 and all(np.isfinite(hist))
+    assert len(calls) == 2
+    assert_compressed_as_jax(calls, updates)
 
 
 def test_checkpoint_dir_default_is_the_ports_own(tmp_path, monkeypatch):

@@ -50,7 +50,7 @@ def main() -> int:
     if args.phase_3a:
         cs.kernel_phase(dev)
     cs.small_moe_phase(dev)
-    launches, tc = cs.moe_phase(dev)
+    launches, tc, _ = cs.moe_phase(dev)
     cs.emit({"phase11_launches": launches, "launches_tc": tc})
     return 0
 
