@@ -335,10 +335,23 @@ result line):
       run (or one served here);
    c. ``quantized_psum`` on the one-rank group bitwise ``_q8``'s round
       trip, and the host's time of one all-reduce call; 2 of phase 8's
-      steps (yi-9b depth 8, B 2 x S 4096) with
-      ``grad_compression=True``: step 1's loss bitwise the uncompressed
+      steps (yi-9b depth 8, B 2 x S 4096) through the mesh step
+      (``make_train_step(cfg, opt, mesh, grad_compression=True)`` on the
+      sharded model): step 1's loss bitwise the uncompressed no-mesh
       loss on the same params and batch, and the gradients it hands
       AdamW bitwise ``compress_grads_int8`` of the uncompressed ones;
+   d. training on the mesh: the mesh step (``parallel.fsdp.shard_model``,
+      leaves gathered at use, gradients reduced over the rows' axes)
+      against the no-mesh step on the same weights and batch, yi-9b at
+      phase 8's depth and shape and mamba2-1.3b at phase 13's (48 layers,
+      ``ssd_scan`` and ``ssd_scan_bwd`` launching under the mesh): step
+      1's loss, every gradient AdamW gets and every updated parameter
+      bitwise (one rank: every gather and reduction is the identity);
+      each step's wall, peak GB, launches by kernel and the mesh's
+      collectives; then the elastic round trip on reduced yi-9b: the mesh
+      ``Trainer`` preempted after step 1 and a no-mesh ``Trainer``
+      resuming its checkpoint, and the reverse, each bitwise a straight
+      4-step run (losses and final params);
    the phase prints its seconds;
 each run of 6, 7, 9, 10, 11, 12, 14, 15 and 16 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
@@ -5198,9 +5211,9 @@ def hybrid_phase(dev) -> tuple[dict, dict]:
 OPTION_ARCHS = (("yi-9b", TRAIN_LAYERS), ("mamba2-1.3b", None))
 #: 15b's train steps a mode
 OPTION_STEPS = 2
-#: 15a's timed train steps a policy (the first a warm-up, so 3 steady
-#: ones), then a profiled one
-REMAT_STEPS = 4
+#: 15a's timed train steps a policy (the first a warm-up, so 1 steady
+#: one), then a profiled one
+REMAT_STEPS = 2
 #: 15b's modes (yi-9b at depth 8, B 2 x S ``QAT_S``)
 QUANT_TRAIN_MODES = ("int8", "int4_dequant", "lut_nf4")
 
@@ -5719,6 +5732,12 @@ ATTN_RANGES = {
                                 "sharded_gqa_decode")}
 #: phase 16c: the grad-compressed steps of phase 8's model and shape
 MESH_TRAIN_STEPS = 2
+#: phase 16d: the mesh step against the no-mesh step: phase 15a's models
+#: (yi-9b at phase 8's depth, mamba2-1.3b's 48 layers) at B 2 x S 4096;
+#: then the elastic round trip's reduced run, ELASTIC_STEPS steps of
+#: (ELASTIC_B, ELASTIC_S), preempted after its first
+MESH_STEP_ARCHS = OPTION_ARCHS
+ELASTIC_STEPS, ELASTIC_B, ELASTIC_S = 4, 4, 64
 
 
 def one_rank_mesh():
@@ -5874,10 +5893,11 @@ def grouped_partials_check(dev) -> dict:
 def mesh_collectives(dev, mesh) -> None:
     """Phase 16c: ``quantized_psum`` on the one-rank group against
     ``_q8``'s round trip (bitwise); then ``MESH_TRAIN_STEPS`` of phase 8's
-    step (yi-9b at depth ``TRAIN_LAYERS``, B 2 x S 4096) with
-    ``grad_compression=True``: step 1's loss bitwise the uncompressed
-    loss and backward's on the same params and batch, and the gradients
-    it hands AdamW bitwise ``compress_grads_int8`` of that backward's."""
+    step (yi-9b at depth ``TRAIN_LAYERS``, B 2 x S 4096) through the mesh
+    step (the model sharded on ``mesh``) with ``grad_compression=True``:
+    step 1's loss bitwise the uncompressed no-mesh loss and backward's on
+    the same params and batch, and the gradients it hands AdamW bitwise
+    ``compress_grads_int8`` of that backward's."""
     from dataclasses import replace
 
     import torch
@@ -5889,6 +5909,7 @@ def mesh_collectives(dev, mesh) -> None:
     from repro_torch.parallel.collectives import (_roundtrip_q8,
                                                   compress_grads_int8,
                                                   quantized_psum)
+    from repro_torch.parallel.fsdp import local_tree, shard_model
     from repro_torch.tree import leaves
 
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -5921,17 +5942,18 @@ def mesh_collectives(dev, mesh) -> None:
     plain = [p.grad for p in flat]
     for p in flat:
         p.grad = None
+    shard_model(model, mesh)
     opt = AdamW(lr=3e-4, schedule=cosine_schedule(1, MESH_TRAIN_STEPS))
-    state = opt.init(model.params_tree())
+    state = opt.init(local_tree(model))
     calls = []
     compress = ts.compress_grads_int8
 
-    def recorded(grads):
-        calls.append((grads, compress(grads)))
+    def recorded(grads, *mesh_arg):
+        calls.append((grads, compress(grads, *mesh_arg)))
         return calls[-1][1]
     ts.compress_grads_int8 = recorded
     try:
-        step = ts.make_train_step(cfg, opt, grad_compression=True)
+        step = ts.make_train_step(cfg, opt, mesh, grad_compression=True)
         walls, losses = [], []
         for i in range(MESH_TRAIN_STEPS):
             torch.cuda.synchronize()
@@ -5956,7 +5978,8 @@ def mesh_collectives(dev, mesh) -> None:
           "the uncompressed step's")
     moved = sum(not torch.equal(a, b) for a, b in zip(leaves(raw),
                                                       leaves(out)))
-    emit({"phase16": "16c", "quantized_psum_bitwise_roundtrip": True,
+    emit({"phase16": "16c", "mesh_step": True,
+          "quantized_psum_bitwise_roundtrip": True,
           "quantized_psum_ms_4096x4096": psum_ms,
           "all_reduce_host_us_8x32x128": all_reduce_us,
           "steps": MESH_TRAIN_STEPS, "loss": [v.item() for v in losses],
@@ -5970,6 +5993,167 @@ def mesh_collectives(dev, mesh) -> None:
     torch.cuda.empty_cache()
 
 
+def recording_adamw(**kw):
+    """An AdamW whose ``update`` keeps a copy of the gradients it gets
+    (``.seen``; phase 16d's comparison)."""
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves
+
+    class Recording(AdamW):
+        def update(self, grads, state, params, **kwargs):
+            self.seen = [g.detach().clone() for g in leaves(grads)]
+            return super().update(grads, state, params, **kwargs)
+    return Recording(**kw)
+
+
+def mesh_step_run(dev, cfg, model, batch, mesh, wrappers) -> dict:
+    """One step of ``model`` through ``make_train_step`` (on ``mesh``:
+    the model sharded first), every launch count and the mesh's
+    collectives set to 0 just before it and read just after.  Returns the
+    loss, the gradients AdamW got, the step's wall, peak GB and the GB
+    already held when it started (the model, its AdamW state, and in the
+    mesh run the no-mesh run's params and gradients kept for the
+    comparison), launches and collectives."""
+    import torch
+
+    from repro_torch.parallel import fsdp
+    from repro_torch.train.train_step import make_train_step
+
+    if mesh is not None:
+        fsdp.shard_model(model, mesh)
+    opt = recording_adamw(lr=3e-4)
+    state = opt.init(fsdp.local_tree(model))
+    step = make_train_step(cfg, opt, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters(wrappers)
+    fsdp.counts.clear()
+    t0 = time.perf_counter()
+    metrics = step(model, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, _ = read_counters(wrappers)
+    out = {"loss": metrics["loss"], "grads": opt.seen, "wall_s": wall,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_before_gb": held / 1e9,
+           "launches": counts, "collectives": dict(fsdp.counts)}
+    del state, opt
+    return out
+
+
+def elastic_round_trip(dev, mesh) -> dict:
+    """Phase 16d's elastic round trip on reduced yi-9b (bf16): a straight
+    ``ELASTIC_STEPS``-step no-mesh ``Trainer`` run; the mesh ``Trainer``
+    preempted after step 1 (its checkpoint written through the mesh's
+    gathers) and a no-mesh ``Trainer`` resuming it; and the reverse.
+    Each round trip's losses and final params bitwise the straight
+    run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_config("yi-9b").reduced()
+    data = SyntheticLM(cfg.vocab_size, ELASTIC_S, ELASTIC_B, seed=0)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        def run(name, where, stop_first=False):
+            tcfg = TrainerConfig(total_steps=ELASTIC_STEPS, ckpt_every=2,
+                                 log_every=ELASTIC_STEPS,
+                                 ckpt_dir=os.path.join(d, name))
+            t = (Trainer(cfg, tcfg, mesh) if where == "mesh"
+                 else Trainer(cfg, tcfg, device=dev))
+            t._stop = stop_first
+            model, hist = t.run(data, install_signals=False)
+            with torch.no_grad():
+                params = [p.detach().clone()
+                          for p in leaves(model.params_tree())]
+            return hist, params
+
+        straight, final = run("straight", "none")
+        for first, then in (("mesh", "none"), ("none", "mesh")):
+            name = f"{first}_then_{then}"
+            h1, _ = run(name, first, stop_first=True)
+            h2, params = run(name, then)
+            same = (h1 + h2 == straight and len(params) == len(final)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(params, final)))
+            check(same, f"phase 16d: {name}'s losses {h1 + h2} or params "
+                  f"are not the straight run's {straight}")
+            out[name] = {"losses": h1 + h2, "resumed_at": len(h1),
+                         "bitwise": same}
+    out["straight_losses"] = straight
+    return out
+
+
+def mesh_train_phase(dev, mesh) -> dict:
+    """Phase 16d: for each of :data:`MESH_STEP_ARCHS`, the no-mesh step
+    and the mesh step (:func:`mesh_step_run`) from the same weights
+    (seed 0) on the same batch: loss, every gradient AdamW gets and every
+    updated parameter bitwise; the launches by kernel equal (mamba2: 2
+    ``ssd_scan`` and 1 ``ssd_scan_bwd`` a layer) and the mesh step's
+    gathers and gradient reductions issued.  Then
+    :func:`elastic_round_trip`.  Returns the mesh steps' launches."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.parallel.fsdp import local_tree
+    from repro_torch.tree import leaves
+
+    t16d = time.perf_counter()
+    wrappers = kernel_wrappers()
+    launches = {}
+    for arch, layers in MESH_STEP_ARCHS:
+        cfg, plain = option_model(dev, arch, layers)
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                            seed=0).batch(0, dev)
+        ref = mesh_step_run(dev, cfg, plain, batch, None, wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, model = option_model(dev, arch, layers)
+        got = mesh_step_run(dev, cfg, model, batch, mesh, wrappers)
+        want = scan_want(cfg, 1, wrappers)
+        check(ref["launches"] == want and got["launches"] == want,
+              f"phase 16d {arch}: launches {got['launches']} (no mesh "
+              f"{ref['launches']}), want {want}")
+        check(got["collectives"].get("gather", 0) > 0
+              and got["collectives"].get("grad", 0) > 0,
+              f"phase 16d {arch}: the mesh step issued "
+              f"{got['collectives']}")
+        loss_same = torch.equal(got["loss"], ref["loss"])
+        grads_same = sum(torch.equal(a, b)
+                         for a, b in zip(got["grads"], ref["grads"]))
+        with torch.no_grad():
+            params_same = sum(torch.equal(a, b) for a, b in zip(
+                leaves(local_tree(model)), leaves(plain.params_tree())))
+        n = len(ref["grads"])
+        check(loss_same and grads_same == n and params_same == n,
+              f"phase 16d {arch}: the mesh step is not the no-mesh step "
+              f"bitwise (loss {loss_same}, gradients {grads_same} of {n}, "
+              f"params {params_same} of {n})")
+        add_launches(launches, got["launches"])
+        emit({"phase16": "16d", "model": cfg.name,
+              "layers": cfg.num_layers, "batch": [TRAIN_B, TRAIN_S],
+              "loss": got["loss"].item(), "bitwise_loss": loss_same,
+              "bitwise_grads": grads_same, "bitwise_params": params_same,
+              "leaves": n, **{f"{k}{sfx}": r[k] for r, sfx in
+                              ((got, ""), (ref, "_no_mesh"))
+                              for k in ("wall_s", "peak_gb",
+                                        "held_before_gb", "launches")},
+              "collectives": got["collectives"]})
+        del plain, model, ref, got, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase16": "16d elastic", **elastic_round_trip(dev, mesh),
+          "16d_s": time.perf_counter() - t16d})
+    return launches
+
+
 def mesh_phase(dev, refs: dict, layers: int) -> tuple[dict, dict]:
     """Phase 16: the mesh's serving half on a one-rank NCCL group
     (:func:`one_rank_mesh`).  16a: yi-9b (``layers`` deep: 48 unless
@@ -5981,9 +6165,10 @@ def mesh_phase(dev, refs: dict, layers: int) -> tuple[dict, dict]:
     pool;
     16b: deepseek-v2-lite-16b (27 layers) sharded on the slab and the
     pool; first :func:`grouped_partials_check`; 16c:
-    :func:`mesh_collectives`.  ``refs``: the dense lut4 runs
-    of phases 6a and 11a by model name (tokens, logits, profile); a model
-    whose phase did not run in this process is served dense here first.
+    :func:`mesh_collectives`; 16d: :func:`mesh_train_phase`.  ``refs``:
+    the dense lut4 runs of phases 6a and 11a by model name (tokens,
+    logits, profile); a model whose phase did not run in this process is
+    served dense here first.
     Returns (launches, by tensor-core route)."""
     import torch
 
@@ -6012,6 +6197,7 @@ def mesh_phase(dev, refs: dict, layers: int) -> tuple[dict, dict]:
             gc.collect()
             torch.cuda.empty_cache()
         mesh_collectives(dev, mesh)
+        add_launches(launches, mesh_train_phase(dev, mesh))
     emit({"phase16_s": time.perf_counter() - t16})
     return launches, tc_total
 

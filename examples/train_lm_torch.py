@@ -8,13 +8,18 @@ backward), ``int8``, ``int4_dequant`` and ``lut_nf4`` train with
 backward is the LUT GEMM kernel over the transposed codes).
 
 ``--grad-compression`` sends every gradient through the int8 round trip
-before AdamW, as JAX's example does.  Training on a mesh is not ported:
-``--model-parallel`` above 1 raises (ROADMAP queue 1 item 9b), as the
-port's train CLI does.
+before AdamW, as JAX's example does.  ``--host-devices N`` trains on N
+local gloo ranks on the CPU over a ("data", "model") mesh with
+``--model-parallel`` ranks on its model axis (JAX's example forces 4 host
+devices and a model axis of 2: ``--host-devices 4 --model-parallel 2``),
+through the train CLI's ``launch.train.in_world`` and ``fit``; the
+default trains on one device.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py --device cpu --steps 20
       PYTHONPATH=src python examples/train_lm_torch.py --device cpu \\
           --steps 10 --quant lut_nf4
+      PYTHONPATH=src python examples/train_lm_torch.py --device cpu \\
+          --steps 20 --host-devices 4 --model-parallel 2
       python examples/train_lm_torch.py --steps 200       # on the card
 (kill it mid-run and re-run: it resumes from the last checkpoint.)
 """
@@ -29,7 +34,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.layers import QuantConfig  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
-from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.launch.train import fit, in_world  # noqa: E402
+from repro_torch.train.trainer import TrainerConfig  # noqa: E402
 
 
 def main(argv=None) -> list:
@@ -46,11 +52,10 @@ def main(argv=None) -> list:
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="train on N local gloo ranks on the CPU")
     ap.add_argument("--grad-compression", action="store_true")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "training on a mesh is not ported yet: ROADMAP queue 1 item 9b")
 
     cfg = ModelConfig(
         name="demo-lm", family="dense", num_layers=args.layers,
@@ -64,13 +69,14 @@ def main(argv=None) -> list:
                          microbatch=args.microbatch,
                          grad_compression=args.grad_compression)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=0)
-    trainer = Trainer(cfg, tcfg, device=args.device)
-    _, hist = trainer.run(data)
+    hist, events, where = in_world(
+        fit, cfg, tcfg, data, args.model_parallel, args.device,
+        host_devices=args.host_devices, device=args.device)
     print(f"first-10 mean loss {sum(hist[:10])/max(len(hist[:10]),1):.4f} -> "
           f"last-10 mean loss {sum(hist[-10:])/max(len(hist[-10:]),1):.4f}"
-          f"  ({args.quant}, {trainer.device})")
-    if trainer.straggler_events:
-        print(f"straggler events at steps: {trainer.straggler_events}")
+          f"  ({args.quant}, {where})")
+    if events:
+        print(f"straggler events at steps: {events}")
     return hist
 
 

@@ -1,6 +1,7 @@
 """Shared model building blocks (mirrors ``repro.models.common``)."""
 from __future__ import annotations
 
+from contextlib import ExitStack, contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -9,6 +10,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.parallel import act_sharding
 from repro_torch.serve.paged import GARBAGE_BLOCK
 
 
@@ -263,12 +265,33 @@ def remat_of(cfg, fn):
     dot; that differs in memory only, never in values)."""
     if cfg.remat_policy not in ("nothing", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
-    extra = ({"context_fn": _dots_contexts} if cfg.remat_policy == "dots"
-             else {})
+    dots = cfg.remat_policy == "dots"
 
     def recomputed(*args, **kwargs):
+        state = act_sharding.snapshot()
+        if state is None:
+            extra = {"context_fn": _dots_contexts} if dots else {}
+        else:
+            extra = {"context_fn": lambda: _mesh_contexts(state, dots)}
         return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
     return recomputed
+
+
+def _mesh_contexts(state, dots: bool):
+    """(forward, recompute) contexts of a block run on a mesh: the
+    recompute re-enters the forward's activation-sharding context (it may
+    run on autograd's device thread, which does not see the caller's), so
+    it issues the forward's collectives with the forward's groups."""
+    fwd, rec = _dots_contexts() if dots else (nullcontext(), nullcontext())
+    return fwd, _entered(rec, act_sharding.restored(state))
+
+
+@contextmanager
+def _entered(*contexts):
+    with ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
 
 
 def dtype_of(cfg) -> torch.dtype:

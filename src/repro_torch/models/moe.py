@@ -34,6 +34,7 @@ from torch import nn
 
 from repro_torch.core.layers import quant_matmul
 from repro_torch.models.common import set_leaf
+from repro_torch.parallel import act_sharding
 
 
 def moe_shapes(cfg) -> dict:
@@ -156,9 +157,14 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg, *, window: bool = False):
     xg_in = groups(x, window)
     probs, top_e, sel_gate, sel_idx = route(params["router"], xg_in, cfg)
 
-    # Switch-style load-balance aux loss
+    # Switch-style load-balance aux loss: both means are over the whole
+    # batch, so a mesh step averages them over the ranks that split its
+    # rows (identity backward: the ranks' gradients sum to JAX's once)
     importance = probs.mean((0, 1))
     load = F.one_hot(top_e[..., 0], e).float().mean((0, 1))
+    if act_sharding.rows_axes():
+        importance, load = act_sharding.batch_mean(
+            torch.stack([importance, load])).unbind(0)
     aux = e * torch.sum(importance * load) * mc.aux_loss_coef
 
     valid = (sel_gate > 0.0).float()

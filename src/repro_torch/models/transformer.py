@@ -42,6 +42,7 @@ from repro_torch.models.common import (CacheSpec, cache_targets,
                                        set_leaf, token_positions)
 from repro_torch.models.mlp import MLP, mlp_shapes
 from repro_torch.models.moe import MoE, moe_shapes
+from repro_torch.parallel import act_sharding
 
 #: the families this module serves (``vlm``: the backbone of
 #: :class:`~repro_torch.models.vlm.VLM`)
@@ -348,7 +349,14 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
     """Sequence-chunked cross entropy (JAX's ``chunked_xent``): the
     logits of one ``chunk`` of positions at a time, summed in order.
     Under autograd each chunk is recomputed in the backward, so (S, V)
-    logits are never held for S > ``chunk``."""
+    logits are never held for S > ``chunk``.
+
+    In a mesh step whose rows are split over ranks (``parallel.
+    act_sharding.rows_axes``) the divisor is the GLOBAL token count
+    (``act_sharding.batch_sum``), so each rank's loss is its rows' sum
+    over the global count and the ranks' losses and gradients sum to
+    JAX's; an unmasked mean is the rank's mean over the rank count (every
+    rank holds equally many rows)."""
     b, s, _ = hidden.shape
     if s <= chunk:
         return _xent((hidden @ head).float(), labels, mask)
@@ -374,7 +382,7 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
         t, c = run(hidden[:, i:i + chunk], labels[:, i:i + chunk],
                    mask[:, i:i + chunk])
         tot, cnt = tot + t, cnt + c
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / torch.clamp_min(act_sharding.batch_sum(cnt.detach()), 1.0)
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -384,5 +392,8 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
-    return nll.mean()
+        return torch.sum(nll * mask) / torch.clamp_min(
+            act_sharding.batch_sum(mask.sum().detach()), 1.0)
+    n = act_sharding.row_ranks()
+    mean = nll.mean()
+    return mean if n == 1 else mean / torch.full_like(mean, n)

@@ -7,8 +7,14 @@ update, :meth:`AdamW.update` writes the parameters, the moments and the
 step counter IN PLACE (under ``torch.no_grad``): at full width the
 moments alone are 4x the bf16 weights, and a second copy would not fit.
 Not ``torch.optim.AdamW``: its moments take the parameters' dtype and
-its operation order differs.  ZeRO-1 sharding of the moments is the mesh's
-concern (ROADMAP queue 1 item 9b).
+its operation order differs.
+
+ZeRO-1, as JAX's: on a mesh (:mod:`repro_torch.parallel.fsdp`) the
+parameters are this rank's shards, so :meth:`AdamW.init` makes moments of
+the shards' shapes and the update is elementwise on them; the moments are
+never replicated.  The one cross-rank quantity is the clip's global norm:
+:func:`global_norm` given the mesh and the leaves' specs sums each leaf's
+squares over the ranks that shard it, counting a replicated leaf once.
 """
 from __future__ import annotations
 
@@ -49,12 +55,15 @@ class AdamW:
         return AdamWState(step, zeros, tree_map(torch.clone, zeros))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params) -> dict:
+    def update(self, grads, state: AdamWState, params, *, mesh=None,
+               specs=None) -> dict:
         """One step: ``params``, ``state.m``, ``state.v`` and
         ``state.step`` are updated in place.  Returns ``{"grad_norm",
-        "lr"}`` (() f32 tensors on the device)."""
+        "lr"}`` (() f32 tensors on the device).  ``mesh``/``specs``: the
+        trees hold shards (``specs``: their specs in leaf order), and the
+        norm is the whole tree's (:func:`global_norm`)."""
         state.step.add_(1)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh, specs)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp_max(
@@ -77,10 +86,29 @@ class AdamW:
         return {"grad_norm": gnorm, "lr": lr}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+
+    On a mesh the leaves are shards (``specs``: their specs in leaf
+    order): a leaf's sum is taken on the ranks whose coordinate is 0 on
+    every axis its spec does not name, which hold its blocks once each,
+    and one all-reduce over the world adds them (zeros elsewhere, so a
+    one-rank world gives the unsharded sum bitwise)."""
+    sums = torch.stack([torch.sum(torch.square(x.float()))
+                        for x in leaves(tree)])
+    if mesh is not None:
+        import torch.distributed as dist
+        owns = torch.tensor([_owns(mesh, spec) for spec in specs],
+                            device=sums.device)
+        sums = torch.where(owns, sums, torch.zeros_like(sums))
+        dist.all_reduce(sums)
+    return torch.sqrt(torch.sum(sums))
+
+
+def _owns(mesh, spec: tuple) -> bool:
+    named = {a for ax in spec if ax is not None
+             for a in (ax if isinstance(ax, tuple) else (ax,))}
+    return all(c == 0 for a, c in mesh.coords.items() if a not in named)
 
 
 def cosine_schedule(warmup: int, total: int, floor: float = 0.1):

@@ -7,34 +7,145 @@ model runs on one device.  Under ``decode_attn="sharded"`` the decode step
 of GQA and MLA attention reads it and runs
 :mod:`repro_torch.serve.decode_attention` over the mesh's model group.
 
+A train step on a mesh also names the axes its batch rows are split over
+(:func:`rows_split_over`, read by :func:`rows_axes`).  The few places
+where rows meet (the cross entropy's token count, the MoE load-balance
+means) sum over those ranks through :func:`batch_sum` /
+:func:`batch_mean`, and the weight gradients of
+:mod:`repro_torch.parallel.fsdp` likewise.  :data:`counts` counts the
+collectives a mesh step issues.
+
 The context is thread-local, as JAX's: ``Engine.serve()`` inside it takes
 the sharded path, while ``Engine.start()``'s loop thread does not see it.
+Recomputation in the backward can run on autograd's device thread, so
+``models.common.remat_of`` takes a :func:`snapshot` at the forward and
+re-enters it (:func:`restored`) for the recompute.
 
 JAX's ``shard_hidden`` / ``shard_heads`` are not here.  They are XLA
-sharding hints with no numerical effect; what sequence and head
-parallelism mean under ``torch.distributed`` is ROADMAP queue 1 item 9b's
-(with the param, batch and cache sharding rules and training on a mesh).
+placement hints for sequence and head parallelism and never change a
+value, so a port step equals JAX's with or without them.  Under
+``torch.distributed`` the ranks of the ``model`` axis compute the same
+rows redundantly; tensor- and sequence-parallel compute over ``model``
+(Megatron splits of heads, FFN hidden, vocabulary and experts, these
+hints as sequence and head parallelism) is ROADMAP queue 1 item 9d.
 ``sequence_parallel`` is kept in the context for them.
 """
 from __future__ import annotations
 
+import math
 import threading
+from collections import Counter
 from contextlib import contextmanager
+
+import torch
+import torch.distributed as dist
 
 _CTX = threading.local()
 
+#: collectives a mesh step issued: "rows" (a forward all-reduce of
+#: :func:`batch_sum`), and :mod:`~repro_torch.parallel.fsdp`'s "gather" (a
+#: leaf at use) and "grad" (a gradient's sum over the row axes)
+counts: Counter = Counter()
+
+
+def _state() -> dict:
+    return getattr(_CTX, "state", None) or {}
+
 
 @contextmanager
-def activation_sharding(mesh, *, sequence_parallel: bool = True):
+def _with(**updates):
     prev = getattr(_CTX, "state", None)
-    _CTX.state = (mesh, sequence_parallel)
+    _CTX.state = dict(prev or {}, **updates)
     try:
         yield
     finally:
         _CTX.state = prev
 
 
+def activation_sharding(mesh, *, sequence_parallel: bool = True):
+    return _with(mesh=mesh, sequence_parallel=sequence_parallel)
+
+
+def rows_split_over(axes: tuple[str, ...]):
+    """The batch rows of the enclosed step are split over ``axes`` (every
+    rank of a line along them holds different rows; ``()``: every rank
+    holds all rows)."""
+    return _with(rows=tuple(axes))
+
+
 def current_mesh():
     """The mesh of the active activation-sharding context (None outside)."""
-    state = getattr(_CTX, "state", None)
-    return state[0] if state is not None else None
+    return _state().get("mesh")
+
+
+def rows_axes() -> tuple[str, ...]:
+    """The axes the current step's rows are split over (``()`` outside a
+    mesh step)."""
+    return _state().get("rows", ()) if current_mesh() is not None else ()
+
+
+def snapshot():
+    """The context as it stands (None outside any)."""
+    return getattr(_CTX, "state", None)
+
+
+@contextmanager
+def restored(state):
+    """Re-enter a :func:`snapshot` (on any thread)."""
+    prev = getattr(_CTX, "state", None)
+    _CTX.state = state
+    try:
+        yield
+    finally:
+        _CTX.state = prev
+
+
+# ---------------------------------------------------------------------------
+# where rows meet
+# ---------------------------------------------------------------------------
+
+def _rows_group():
+    """(group, ranks) of the axes the step's rows are split over, or
+    (None, 1) when they are not split."""
+    axes = rows_axes()
+    if not axes:
+        return None, 1
+    mesh = current_mesh()
+    return mesh.group(axes), math.prod(mesh.shape[a] for a in axes)
+
+
+class _RowSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone().contiguous()
+        dist.all_reduce(out, group=group)
+        counts["rows"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks that split the step's rows, with an
+    identity backward (Megatron's *g*: each rank's loss then carries the
+    global sum, and the gradients summed over those ranks count it once);
+    ``x`` itself outside a mesh step or when the rows are not split."""
+    group, _ = _rows_group()
+    return x if group is None else _RowSum.apply(x, group)
+
+
+def row_ranks() -> int:
+    """How many ranks split the step's rows (1 outside a mesh step)."""
+    return _rows_group()[1]
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the row ranks of a per-rank mean of equally many
+    rows: :func:`batch_sum` divided by the rank count (a division by 1 on
+    one rank, so the value is the local one bitwise)."""
+    if not rows_axes():
+        return x
+    n = torch.full((), row_ranks(), dtype=x.dtype, device=x.device)
+    return batch_sum(x) / n

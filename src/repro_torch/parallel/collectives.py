@@ -23,13 +23,16 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
-def _q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(int8 codes in [-127, 127], the f32 scale max|x| / 127)."""
+def _q8(x: torch.Tensor, amax: torch.Tensor | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes in [-127, 127], the f32 scale max|x| / 127).
+    ``amax``: the max |x| of the whole leaf when ``x`` is a shard."""
     qmax = torch.tensor(127.0, dtype=x.dtype, device=x.device)
-    scale = torch.clamp_min(x.abs().max(), 1e-12) / qmax
+    amax = x.abs().max() if amax is None else amax
+    scale = torch.clamp_min(amax, 1e-12) / qmax
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -63,12 +66,26 @@ class ErrorFeedback:
         return compressed
 
 
-def _roundtrip_q8(x: torch.Tensor) -> torch.Tensor:
-    q, scale = _q8(x.float())
+def _roundtrip_q8(x: torch.Tensor, amax: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    q, scale = _q8(x.float(), amax)
     return (q.float() * scale).to(x.dtype)
 
 
-def compress_grads_int8(grads):
+def compress_grads_int8(grads, mesh=None):
     """Quantize-dequantize every gradient leaf of a tree (the all-reduce
-    that follows then carries int8-precision payloads)."""
-    return tree_map(_roundtrip_q8, grads)
+    that follows then carries int8-precision payloads).
+
+    ``mesh``: the leaves are shards of the whole gradients (ZeRO,
+    :mod:`repro_torch.parallel.fsdp`).  ``_q8``'s scale is per leaf, so
+    every shard takes its whole leaf's max |g|: one ``all_reduce(MAX)``
+    over the world of the shards' maxima (a replica's max is its
+    shard's, so the world's max is the leaf's, exactly).  Each shard is
+    then the block of the compression of the whole leaf, bitwise."""
+    if mesh is None:
+        return tree_map(_roundtrip_q8, grads)
+    flat = leaves(grads)
+    amax = torch.stack([g.float().abs().max() for g in flat])
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    it = iter(amax.unbind(0))
+    return tree_map(lambda g: _roundtrip_q8(g, next(it)), grads)

@@ -9,6 +9,7 @@
   ROADMAP item that ports it; what it ports (every arch of the JAX
   registry, the encdec and vlm families last) loads, serves and trains.
 """
+import math
 import os
 import subprocess
 import sys
@@ -164,7 +165,7 @@ def test_ssm_unported_parts_name_their_roadmap_item():
                                               paged=True), device="cpu")
 
 
-def test_unported_parts_name_their_roadmap_item():
+def test_unported_parts_name_their_roadmap_item(tmp_path):
     # starcoder2 (queue 1 item 4) is ported: it loads as JAX's config
     assert get_config("starcoder2-15b").mlp_type == "gelu"
     # zamba2 (the hybrid, queue 1 item 7) is ported: it loads and builds
@@ -195,9 +196,16 @@ def test_unported_parts_name_their_roadmap_item():
     q = torch.zeros(1, 4, 2, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="no backward"):
         sdpa(q, q, q, impl="flash")
+    # training on a mesh (queue 1 item 9b) is ported: the CLI's mesh
+    # flags train on 4 local gloo ranks, a (2, 2) mesh
     from repro_torch.launch.train import main as train_main
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train_main(["--device", "cpu", "--model-parallel", "2"])
+    hist = train_main(["--device", "cpu", "--host-devices", "4",
+                       "--model-parallel", "2", "--steps", "2", "--seq",
+                       "16", "--batch", "4", "--ckpt-dir",
+                       str(tmp_path / "mesh")])
+    assert len(hist) == 2 and all(map(math.isfinite, hist))
+    with pytest.raises(ValueError, match="--device cpu"):
+        train_main(["--host-devices", "4", "--device", "cuda"])
     # the moe family is ported (queue 1 item 7's first part), and the vlm
     # family's backbone is a TransformerLM (item 8a); a transformer of a
     # family it does not serve, and a family outside the six, still name

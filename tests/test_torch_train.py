@@ -607,7 +607,12 @@ def test_train_cli_on_cpu(tmp_path, capsys):
                  str(tmp_path / "b"), "--arch", "luna-mlp"])
     assert len(hist) == 2 and all(np.isfinite(hist))
     assert "luna_approx" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    # on a mesh: 4 local gloo ranks, (data 2, model 2)
+    hist = main(["--device", "cpu", "--host-devices", "4", "--model-parallel",
+                 "2", "--steps", "2", "--seq", "16", "--batch", "4",
+                 "--ckpt-dir", str(tmp_path / "mesh")])
+    assert len(hist) == 2 and all(np.isfinite(hist))
+    with pytest.raises(RuntimeError, match="init_process_group"):
         main(["--device", "cpu", "--model-parallel", "2"])
 
 

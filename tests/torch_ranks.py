@@ -1,26 +1,29 @@
 """Rank processes of the port's gloo tests (``test_torch_decode_attention``,
-``test_torch_collectives``): imports torch, numpy and the port, never jax.
+``test_torch_collectives``, ``test_torch_mesh_train``): imports torch,
+numpy and the port, never jax.
 
-    python tests/torch_ranks.py JOB DIR
+    python tests/torch_ranks.py JOB DIR [RANKS]
 
-starts ``WORLD`` (4) processes from one spawn context; each pins torch to
-one intra-op thread, joins a gloo group through ``file://DIR/rdv`` (no
-TCP port to collide across test workers) with a timeout, so a rank that
-misses a collective fails instead of hanging, runs ``JOBS[JOB](rank,
-DIR)`` on ``DIR/in.pkl`` and writes its result to ``DIR/out_<rank>.pkl``.
-The launcher exits nonzero if any rank does; the caller bounds it with a
-subprocess timeout.  The pickles are written and read by these tests
-only.
+starts ``WORLD`` (4; ``RANKS`` if given) ranks through the port's
+``launch.mesh.spawn_host_ranks`` (processes of one spawn context, one
+intra-op thread each, a gloo group joined through a file store, so no TCP
+port collides across test workers; a rank that misses a collective fails
+after ``GROUP_TIMEOUT_S`` instead of hanging); each runs ``JOBS[JOB](rank,
+DIR)`` on ``DIR/in.pkl``, and the launcher writes rank r's result to
+``DIR/out_<r>.pkl``.  It exits nonzero if any rank fails; the caller
+bounds it with a subprocess timeout.  The pickles are written and read by
+these tests only.
 """
 from __future__ import annotations
 
-import datetime
 import os
 import pickle
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.launch.mesh import spawn_host_ranks  # noqa: E402
 WORLD = 4
 #: a collective that waits longer than this fails the rank
 GROUP_TIMEOUT_S = 60
@@ -178,47 +181,209 @@ def collectives_job(rank: int, workdir: str) -> dict:
             "coords": mesh.coords, "production_refused": refused}
 
 
-JOBS = {"decode": decode_job, "collectives": collectives_job}
+# ---------------------------------------------------------------------------
+# job: training on a mesh (test_torch_mesh_train)
+# ---------------------------------------------------------------------------
 
+def _mesh_step(model, cfg, batch, mesh, *, grad_compression=False,
+               microbatch=0) -> dict:
+    """One ``make_train_step`` step of ``model`` (a fresh copy each call:
+    sharded in place when ``mesh`` is given) on the global ``batch``.
+    Returns the reported loss, AdamW's ``grad_norm``, the gradients AdamW
+    received and the updated params (whole leaves, f32 numpy, in leaf
+    order), the compression's inputs when ``grad_compression``, and the
+    collectives the step issued."""
+    import copy
 
-def _rank(job: str, workdir: str, rank: int) -> None:
     import torch
+
+    import repro_torch.train.train_step as ts
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import fsdp
+    from repro_torch.tree import leaves
+
+    model = copy.deepcopy(model).requires_grad_(True)
+    if mesh is not None:
+        fsdp.shard_model(model, mesh)
+    specs = fsdp.spec_leaves(model)
+    seen = {}
+
+    class Recording(AdamW):
+        def update(self, grads, state, params, **kw):
+            seen["grads"] = [g.detach().clone() for g in leaves(grads)]
+            return super().update(grads, state, params, **kw)
+
+    compress = ts.compress_grads_int8
+
+    def recorded(grads, *a):
+        seen["raw"] = [g.detach().clone() for g in leaves(grads)]
+        return compress(grads, *a)
+
+    ts.compress_grads_int8 = recorded
+    try:
+        opt = Recording()
+        state = opt.init(fsdp.local_tree(model))
+        step = ts.make_train_step(cfg, opt, mesh, microbatch=microbatch,
+                                  grad_compression=grad_compression)
+        before = dict(fsdp.counts)
+        metrics = step(model, state, batch)
+        issued = {k: fsdp.counts[k] - before.get(k, 0) for k in fsdp.counts}
+    finally:
+        ts.compress_grads_int8 = compress
+
+    def whole(tensors):
+        if mesh is None:
+            return [t.detach().float().numpy() for t in tensors]
+        return [fsdp.gather_leaf(t.detach(), spec, mesh).float().numpy()
+                for t, spec in zip(tensors, specs)]
+    with torch.no_grad():
+        out = {"loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "grads": whole(seen["grads"]),
+               "params": whole(leaves(fsdp.local_tree(model))),
+               "issued": issued}
+        if grad_compression:
+            out["raw"] = whole(seen["raw"])
+    out["local_shapes"] = [tuple(p.shape) for p in
+                           leaves(fsdp.local_tree(model))]
+    return out
+
+
+def _torch_batch(batch: dict) -> dict:
+    import torch
+    return {k: (torch.from_numpy(v).long() if v.dtype.kind in "iu"
+                else torch.from_numpy(v)) for k, v in batch.items()}
+
+
+def mesh_train_job(rank: int, workdir: str) -> dict:
+    """Every case of ``in.pkl``: the mesh step of each arch on its meshes
+    (and the no-mesh step where a case holds the mesh to the port's own),
+    the trainer runs, and ``pipeline_apply``."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_config
+
+    job = _inputs(workdir)
+    meshes = {tuple(s): Mesh(tuple(s), ("data", "model"))
+              for s in job["meshes"]}
+    pod = Mesh((2, 2), ("pod", "data"))
+    out = {"steps": {}}
+    for case in job["cases"]:
+        cfg = get_config(case["arch"]).reduced(**case["reduced"])
+        if case.get("aux_loss_coef") is not None:
+            cfg = replace(cfg, moe=replace(
+                cfg.moe, aux_loss_coef=case["aux_loss_coef"]))
+        model = params_from_numpy(case["params"], cfg, "cpu")
+        batch = _torch_batch(case["batch"])
+        if case["self_ref"]:
+            out["steps"][(case["name"], None)] = _mesh_step(
+                model, cfg, batch, None,
+                grad_compression=case["compress"])
+        for s in case["meshes"]:
+            out["steps"][(case["name"], tuple(s))] = _mesh_step(
+                model, cfg, batch, meshes[tuple(s)],
+                grad_compression=case["compress"],
+                microbatch=case.get("microbatch", 0))
+    out["trainer"] = trainer_case(job["trainer"], meshes[(2, 2)])
+    p = job["pipeline"]
+    with torch.no_grad():
+        from repro_torch.parallel.pipeline import pipeline_apply
+        w = torch.from_numpy(p["w"][pod.coords["pod"]])
+        out["pipeline"] = pipeline_apply(
+            lambda w, x: torch.tanh(x @ w), w, torch.from_numpy(p["xs"]),
+            mesh=pod).numpy()
+    return out
+
+
+def trainer_case(case: dict, mesh) -> dict:
+    """The luna-mlp ``Trainer`` on ``mesh`` (JAX's ``TRAIN_SNIPPET``): 30
+    steps; 12 steps, then a rerun to 20 (resumes from 12); a straight f32
+    run of 10 steps, whose step-5 checkpoint the elastic restores read;
+    returns each history."""
+    import io
+    from contextlib import redirect_stdout
+    from dataclasses import replace
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("luna-mlp")
+    out = {}
+
+    def run(name, steps, ckpt, c=cfg):
+        tcfg = TrainerConfig(total_steps=steps, ckpt_every=5, log_every=5,
+                             ckpt_dir=ckpt, lr=3e-3, warmup=2)
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            _, hist = Trainer(c, tcfg, mesh).run(
+                SyntheticLM(c.vocab_size, 32, 8, seed=0),
+                install_signals=False)
+        out[name] = {"hist": hist, "stdout": buf.getvalue()}
+
+    run("falls", 30, case["dirs"]["falls"])
+    run("first", 12, case["dirs"]["resume"])
+    run("resumed", 20, case["dirs"]["resume"])
+    run("straight", 10, case["dirs"]["straight"],
+        replace(cfg, dtype="float32"))
+    return out
+
+
+def elastic_job(rank: int, workdir: str) -> dict:
+    """The f32 luna-mlp ``Trainer`` resumed to step 10 from ``in.pkl``'s
+    checkpoint directory (its latest: step 5) on this world's ("data",
+    "model") mesh (``WORLD`` ranks, model axis 1)."""
+    import io
+    from contextlib import redirect_stdout
+    from dataclasses import replace
+
     import torch.distributed as dist
 
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{workdir}/rdv", world_size=WORLD,
-        rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    job = _inputs(workdir)
+    cfg = replace(get_config("luna-mlp"), dtype="float32")
+    tcfg = TrainerConfig(total_steps=10, ckpt_every=5, log_every=5,
+                         ckpt_dir=job["dir"], lr=3e-3, warmup=2)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        _, hist = Trainer(cfg, tcfg, make_host_mesh(model=1)).run(
+            SyntheticLM(cfg.vocab_size, 32, 8, seed=0),
+            install_signals=False)
+    return {"hist": hist, "stdout": buf.getvalue(),
+            "world": dist.get_world_size()}
+
+
+JOBS = {"decode": decode_job, "collectives": collectives_job,
+        "mesh_train": mesh_train_job, "elastic": elastic_job}
+
+
+def _job(job: str, workdir: str):
+    import torch.distributed as dist
+    return JOBS[job](dist.get_rank(), workdir)
+
+
+def main(job: str, workdir: str, world: int = WORLD) -> int:
     try:
-        out = JOBS[job](rank, workdir)
+        outs = spawn_host_ranks(world, _job, job, workdir,
+                                group_timeout_s=GROUP_TIMEOUT_S,
+                                join_timeout_s=JOIN_TIMEOUT_S)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 1
+    for rank, out in enumerate(outs):
         with open(os.path.join(workdir, f"out_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def main(job: str, workdir: str) -> int:
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(job, workdir, r))
-             for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    codes = [p.exitcode for p in procs]
-    if any(codes):
-        print(f"rank exit codes {codes}", file=sys.stderr)
-        return 1
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:3]))
+    sys.exit(main(sys.argv[1], sys.argv[2],
+                  *(int(a) for a in sys.argv[3:4])))
