@@ -353,6 +353,22 @@ result line):
       resuming its checkpoint, and the reverse, each bitwise a straight
       4-step run (losses and final params);
    the phase prints its seconds;
+17. the dry run against the card (``launch.dryrun``, ``launch.cost``),
+   after phase 16: each cell of ``DRYRUN_CELLS`` counted by the dry run
+   (meta tensors, a one-rank fake world, in a child process started
+   first) and run on the card on one one-rank NCCL mesh under the same
+   cost mode: (a) yi-9b at phase 8's depth and shape, (b) mamba2-1.3b's
+   48 layers at that shape (``ssd_scan``, ``ssd_scan_bwd``), (c) one lut4
+   ``decode_step`` of yi-9b at that depth, 8 rows on a 1,024-token
+   cache, ``decode_attn="sharded"``.  Checks: the FLOPs, every
+   collective's count and every kernel's launches, FLOPs and bytes equal
+   on meta and on the card, the kernels' launches equal the wrappers'
+   counters, the argument bytes from the specs within ``ARG_REL`` of
+   ``memory_allocated()``.  Prints each step's median wall of 3 after the
+   counted one, ``step_time_lb_s``, the roofline fraction of the wall,
+   ``mfu_bf16_dense`` (model FLOPs over wall × 989 TFLOP/s) and the peak
+   estimate beside ``max_memory_allocated()``, with the card's name and
+   power limit; the phase prints its seconds;
 each run of 6, 7, 9, 10, 11, 12, 14, 15 and 16 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
@@ -384,12 +400,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet)
-HBM_BYTES_S = 3.35e12
-BF16_FLOP_S = 989e12
-INT8_OP_S = 1979e12
-F32_FLOP_S = 67e12           # outside the tensor cores
-TF32_FLOP_S = 494.7e12
+from repro_torch.launch import cost as kcost  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+
+#: H100 SXM peaks (NVIDIA data sheet; ``repro_torch.launch.roofline``)
+HBM_BYTES_S = roofline.HBM_BW
+BF16_FLOP_S = roofline.PEAK_FLOPS
+INT8_OP_S = roofline.INT8_OPS
+F32_FLOP_S = roofline.F32_FLOPS   # outside the tensor cores
+TF32_FLOP_S = roofline.TF32_FLOPS
 #: (K, N) of yi-9b's decode projections, in layer order wq wk wv wo
 #: w_gate w_up w_down
 LAYER_SHAPES = [(4096, 4096), (4096, 512), (4096, 512), (4096, 4096),
@@ -530,11 +549,11 @@ def bound_ms(m: int, k: int, n: int, x_bytes: int, table_bytes: int,
              peak: float = BF16_FLOP_S) -> tuple[float, str]:
     """Least time for one call: each input read once (x, codes, tables,
     ``vec_bytes`` per output channel), the 4-byte output written once,
-    against ``ops`` (default 2MKN) at ``peak``; the larger of the two."""
-    nbytes = m * k * x_bytes + k * n + table_bytes + vec_bytes * n + m * n * 4
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = (2 * m * k * n if ops is None else ops) / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    against ``ops`` (default 2MKN) at ``peak``; the larger of the two
+    (``kcost.lut_gemm_cost``, the package's formula, which the dry run
+    reads too)."""
+    return roofline.bound_ms(*kcost.lut_gemm_cost(
+        m, k, n, x_bytes, table_bytes, vec_bytes, ops), peak)
 
 
 def layer_summary(name: str, rows: list, m: int, shapes=LAYER_SHAPES,
@@ -862,8 +881,7 @@ def kernel_phase(dev, device_times: bool = True):
 
 LUNA_MODES = ("conventional", "opt_dc", "dc", "approx_dc", "approx_dc2")
 #: digit-plane contractions each mode runs (approx_dc2 adds colsum(W))
-LUNA_PLANES = {"conventional": 1, "dc": 2, "opt_dc": 2, "approx_dc": 1,
-               "approx_dc2": 1}
+LUNA_PLANES = kcost.LUNA_PLANES
 
 
 #: phase 3b's tile edges of the tensor-core kernel (M, K, N): M at and
@@ -881,10 +899,9 @@ LUNA_M = (8, 512, 2048)
 def luna_bound_ms(m: int, k: int, n: int, mode: str) -> tuple[float, str]:
     """Least time of one luna_mm call: y and w read once and the int32
     output written once, against 2MKN int8 operations per digit plane the
-    mode runs (plus K N adds of approx_dc2's colsum) at 1,979 TOP/s."""
-    ops = (2 * m * k * n * LUNA_PLANES[mode]
-           + (k * n if mode == "approx_dc2" else 0))
-    return bound_ms(m, k, n, 1, 0, 0, ops, INT8_OP_S)
+    mode runs (plus K N adds of approx_dc2's colsum) at 1,979 TOP/s
+    (``kcost.luna_mm_cost``)."""
+    return roofline.bound_ms(*kcost.luna_mm_cost(m, k, n, mode), INT8_OP_S)
 
 
 def luna_kernel_phase(dev):
@@ -1315,25 +1332,7 @@ SSD_ZAMBA2_CASES = [("prefill", 1, 448, 438), ("resumed", 1, 128, None),
                     ("window", len(SSD_WINDOW_VALID), 5, SSD_WINDOW_VALID)]
 
 
-def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
-              carried: bool) -> int:
-    """Operations the chunk scan needs over the real positions: per chunk
-    of q positions, C·Bᵀ once per group on the causal triangle, and per
-    head the decay mask, the intra-chunk (C·Bᵀ ⊙ L)(x·dt), the
-    inter-chunk C·S with its decay, and the state update
-    (seg_end·B)ᵀ(x·dt) with its decay; a multiply-add counts 2.  Chunk 0
-    meets the initial state, so its inter-chunk C·S and state decay count
-    only when that state is ``carried`` non-zero; a zero state needs none
-    of them."""
-    total = 0
-    for c in range(-(-s // chunk)):
-        q = min(chunk, s - c * chunk)
-        tri = q * (q + 1) // 2
-        total += g * 2 * tri * n
-        total += h * (tri + 2 * tri * p + 2 * q * n * p + q * n)
-        if c > 0 or carried:
-            total += h * (2 * q * n * p + q * p + n * p)
-    return b * total
+ssd_flops = kcost.ssd_flops
 
 
 def ssd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
@@ -1343,11 +1342,10 @@ def ssd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
     each (the 3xTF32 split, 494.7 TFLOP/s); the larger of the two, and
     beside it the f32 SIMT bound (the same bytes, one product each at
     f32's 67 TFLOP/s)."""
-    nbytes = (4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                   + (1 + (init is not None)) * b * h * p * n)
-              + masked * b * s)
+    flops, nbytes = kcost.ssd_scan_cost(b, s, h, p, g, n, chunk,
+                                        bool(masked), init is not None,
+                                        init == "random")
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    flops = ssd_flops(b, s, h, p, g, n, chunk, init == "random")
     t_ops = 3 * flops / TF32_FLOP_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1597,28 +1595,7 @@ SSD_BWD_CASES = [("mamba2", 2, 4096, SSD_WIDTHS, None, None),
                  ("zamba2", 2, 4096, SSD_ZAMBA2_WIDTHS, None, None)]
 
 
-def ssd_bwd_flops(b: int, s: int, h: int, p: int, g: int, n: int,
-                  chunk: int, carried: bool, per_head: bool = False) -> int:
-    """Operations the scan's backward needs over the real positions: per
-    chunk of q positions and head, the chunk's adjoint Σ exp(cum) dy ⊗ C
-    (2qPN), D = dy·xdtᵀ ⊙ L on the causal triangle (2·tri·P + tri), the
-    intra-chunk dxdt (2·tri·P + tri), the state's dxdt and dB terms (2qNP
-    each), dC's inter term (2qPN, where a state enters: chunk 0 only from a
-    carried initial state) and the reverse state pass (2PN); per group, dB's
-    and dC's intra-chunk products (2·tri·N each) on D summed over the
-    group's heads (``per_head``: per head, as the f32-FMA kernels took
-    them).  C·Bᵀ and the states are the forward's.  A multiply-add counts
-    2."""
-    total = 0
-    for c in range(-(-s // chunk)):
-        q = min(chunk, s - c * chunk)
-        tri = q * (q + 1) // 2
-        per = (2 * q * p * n + 2 * (2 * tri * p + tri) + 4 * q * n * p
-               + 2 * p * n)
-        if c > 0 or carried:
-            per += 2 * q * p * n
-        total += h * per + (h if per_head else g) * 4 * tri * n
-    return b * total
+ssd_bwd_flops = kcost.ssd_bwd_flops
 
 
 def ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
@@ -1630,18 +1607,10 @@ def ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, masked, init) -> dict:
     f32-accurate tensor-core rate); beside it the f32 SIMT bound (one
     product each at 67 TFLOP/s) and the bound with dB's and dC's products
     per head (``bound_ms_per_head``, the f32-FMA kernels' count)."""
-    nc = -(-s // chunk)
-    tri = sum(min(chunk, s - c * chunk) * (min(chunk, s - c * chunk) + 1)
-              // 2 for c in range(nc))
-    floats = (3 * b * s * h * p                # x, dy; dx
-              + 2 * (b * s * h + h)              # dt, a; ddt, da
-              + 4 * b * s * g * n                # B, C; dB, dC
-              + b * h * p * n                    # the final state's cotangent
-              + b * g * tri                      # the forward's C·Bᵀ
-              + b * (nc - 1) * h * p * n         # its chunk states
-              + (2 * b * h * p * n if init is not None else 0))
-    t_bytes = (4 * floats + masked * b * s) / HBM_BYTES_S * 1e3
-    flops = ssd_bwd_flops(b, s, h, p, g, n, chunk, init == "random")
+    flops, nbytes = kcost.ssd_scan_bwd_cost(b, s, h, p, g, n, chunk,
+                                            bool(masked), init is not None,
+                                            init == "random")
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
     per_head = ssd_bwd_flops(b, s, h, p, g, n, chunk, init == "random",
                              per_head=True)
     t_ops = 3 * flops / TF32_FLOP_S * 1e3
@@ -1997,11 +1966,8 @@ def flash_bound_ms(b, s, h, hkv, d, itemsize, causal,
     """Least time of one call: q, k, v read once and o written once, against
     the operations the mask leaves (4 B H S^2 D, halved when causal) at the
     input type's peak; the larger of the two."""
-    nbytes = itemsize * (2 * b * s * h * d + 2 * b * s * hkv * d)
-    flops = 4 * b * h * s * s * d * (0.5 if causal else 1.0)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline.bound_ms(*kcost.flash_cost(b, s, h, hkv, d, itemsize,
+                                               causal), peak)
 
 
 def bf16_ulps(got, want) -> float:
@@ -6202,10 +6168,214 @@ def mesh_phase(dev, refs: dict, layers: int) -> tuple[dict, dict]:
     return launches, tc_total
 
 
+#: phase 17: the dry run's record of a cell (``launch.dryrun`` on meta
+#: tensors and a one-rank fake world) against the same cell on the card
+#: under the same cost mode: (sub, arch, depth (None: all its layers),
+#: kind, batch, sequence, quant, overrides).  (a) phase 8's training shape
+#: and depth; (b) mamba2-1.3b's 48 layers at the same shape (the scan and
+#: its backward); (c) one lut4 decode step of phase 6's batch of 8 on a
+#: 1024-token cache through the sharded decode
+DRYRUN_CELLS = [
+    ("17a", "yi-9b", TRAIN_LAYERS, "train", TRAIN_B, TRAIN_S, "bf16", {}),
+    ("17b", "mamba2-1.3b", None, "train", TRAIN_B, TRAIN_S, "bf16", {}),
+    ("17c", "yi-9b", TRAIN_LAYERS, "decode", 8, 1024, "lut4",
+     {"decode_attn": "sharded"})]
+#: the step's argument bytes from the specs against the card's
+#: ``memory_allocated()`` once the model, its state and the inputs are built
+ARG_REL = 5e-3
+#: steps timed after the counted one (which is the warm-up)
+DRYRUN_TIMED = 3
+
+
+def dryrun_config(arch, layers, kind, b, s, quant, over):
+    """(cfg, shape) of a :data:`DRYRUN_CELLS` cell."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+
+    o = dict(over)
+    if layers is not None:
+        o.update(num_layers=layers, attn_impl="chunked")
+    return (dr.cell_config(arch, quant, o),
+            ShapeConfig(f"{kind}_{s}", s, b, kind))
+
+
+def dryrun_meta(sub, arch, layers, kind, b, s, quant, over) -> dict:
+    """The dry run's side of a cell: rank 0's count on meta tensors in a
+    one-rank fake world (``launch.dryrun.count_cell``), the step's
+    argument bytes from the specs and the parameter count."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    cfg, shape = dryrun_config(arch, layers, kind, b, s, quant, over)
+    meta_model = get_model(cfg, device="meta")
+    rec = dr.count_cell(cfg, shape, (1, 1), quant=quant)
+    rec["argument_bytes"] = dr.argument_bytes(
+        cfg, shape, AbstractMesh((1, 1), ("data", "model")), meta_model,
+        quant)
+    rec["n_params"] = roofline.count_params(meta_model)
+    rec["meta_s"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_meta_main(path: str) -> None:
+    """Every cell's :func:`dryrun_meta`, as JSON to ``path``: phase 17's
+    meta side, run in a process of its own beside the card's runs."""
+    recs = [dryrun_meta(*cell) for cell in DRYRUN_CELLS]
+    with open(path, "w") as f:
+        json.dump(recs, f)
+
+
+def dryrun_card(dev, mesh, sub, arch, layers, kind, b, s, quant, over,
+                wrappers) -> dict:
+    """The card's side of a cell on ``mesh`` (one rank): the model at
+    random weights from seed 0 (``launch.dryrun.prepare_step``), its step
+    counted under ``launch.cost.CostMode`` once (the warm-up) and timed
+    :data:`DRYRUN_TIMED` times; the wrappers' launches in the counted
+    step, and the bytes the card holds once the step's arguments are
+    built."""
+    import torch
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    cfg, shape = dryrun_config(arch, layers, kind, b, s, quant, over)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    run, model = dr.prepare_step(
+        cfg, shape, mesh, quant=quant, device=dev,
+        model=get_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    prep_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(wrappers)
+    got = dr.count_step(run, kind == "train")
+    torch.cuda.synchronize()
+    launches, _ = read_counters(wrappers)
+    peak = torch.cuda.max_memory_allocated() - base
+    count_s = time.perf_counter() - t0 - prep_s
+    walls = []
+    for _ in range(DRYRUN_TIMED):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    del run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(got, launches={k: n for k, n in launches.items() if n},
+                held=held, peak=peak, walls=walls, cfg=cfg, shape=shape,
+                prep_s=prep_s, count_s=count_s,
+                card_s=time.perf_counter() - t0)
+
+
+def dryrun_check(sub, arch, kind, quant, want: dict, got: dict,
+                 smi: str) -> None:
+    """Phase 17's checks of one cell, the dry run's count ``want`` against
+    the card's ``got``: FLOPs, every collective's count and every kernel's
+    launches, FLOPs and bytes equal; the kernels' launches equal the
+    wrappers' counters; the argument bytes within :data:`ARG_REL` of
+    what the card holds.  Emits the cell's line: the roofline of the
+    card's count against the median wall, and the MFU."""
+    import statistics
+
+    what = f"phase {sub} {arch} {kind}"
+    check(got["flops"] == want["flops"],
+          f"{what}: the card counted {got['flops']} FLOPs, the dry run "
+          f"{want['flops']}")
+    counts = {k: v["count"] for k, v in got["collectives"].items()}
+    check(counts == {k: v["count"] for k, v in want["collectives"].items()},
+          f"{what}: collectives {got['collectives']} on the card, "
+          f"{want['collectives']} on meta")
+    check(got["kernels"] == want["kernels"],
+          f"{what}: kernels {got['kernels']} on the card, {want['kernels']} "
+          "on meta")
+    check({k: v["launches"] for k, v in got["kernels"].items()}
+          == got["launches"],
+          f"{what}: the cost mode saw {got['kernels']}, the wrappers "
+          f"counted {got['launches']}")
+    args = want["argument_bytes"]
+    check(abs(got["held"] - args["total"]) <= ARG_REL * args["total"],
+          f"{what}: the card holds {got['held']} bytes of arguments, the "
+          f"specs say {args['total']}")
+    cfg, shape = got["cfg"], got["shape"]
+    wall = statistics.median(got["walls"])
+    terms = roofline.roofline_terms(got["flops"], got["bytes"],
+                                    got["collective_bytes"], 1)
+    n = want["n_params"]
+    mf = roofline.model_flops(cfg, shape, n, roofline.active_params(cfg, n))
+    emit({"phase17": sub, "model": cfg.name, "layers": cfg.num_layers,
+          "kind": kind, "batch": [shape.global_batch, shape.seq_len],
+          "quant": quant, "decode_attn": cfg.decode_attn, "nvidia_smi": smi,
+          "flops": got["flops"], "flops_meta": want["flops"],
+          "bytes": got["bytes"], "bytes_meta": want["bytes"],
+          "collectives": counts,
+          "collective_bytes": got["collective_bytes"],
+          "collective_bytes_meta": want["collective_bytes"],
+          "kernels": got["kernels"], "argument_bytes": args,
+          "held_bytes": got["held"], "saved_bytes_meta": want["saved_bytes"],
+          "peak_estimate_bytes": args["total"] + want["saved_bytes"],
+          "max_memory_allocated": got["peak"], "walls_s": got["walls"],
+          "wall_s": wall, "model_flops": mf, "n_params": n,
+          "step_time_lb_s": terms["step_time_lb_s"],
+          "dominant": terms["dominant"],
+          "roofline_fraction_of_wall": terms["step_time_lb_s"] / wall,
+          "mfu_bf16_dense": mf / (wall * roofline.PEAK_FLOPS),
+          "counted_flops_per_s": got["flops"] / wall,
+          "meta_s": want["meta_s"], "card_s": got["card_s"],
+          "card_prep_s": got["prep_s"], "card_count_s": got["count_s"]})
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 17: each of :data:`DRYRUN_CELLS` counted by the dry run
+    (:func:`dryrun_meta`, in a child process started first, so its
+    counting overlaps the card's runs) and run on the card
+    (:func:`dryrun_card`), then held to each other (:func:`dryrun_check`).
+    Returns the card's launches."""
+    import tempfile
+
+    t17 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    wrappers = kernel_wrappers()
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "meta.json")
+        child = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.dryrun_meta_main({path!r})"],
+            cwd=ROOT)
+        try:
+            with one_rank_mesh() as mesh:
+                cards = [dryrun_card(dev, mesh, *cell, wrappers)
+                         for cell in DRYRUN_CELLS]
+            rc = child.wait(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        check(rc == 0, f"phase 17: the dry run's process exited with {rc}")
+        with open(path) as f:
+            metas = json.load(f)
+    for cell, want, got in zip(DRYRUN_CELLS, metas, cards):
+        sub, arch, _, kind, _, _, quant, _ = cell
+        dryrun_check(sub, arch, kind, quant, want, got, smi)
+        add_launches(launches, got["launches"])
+    emit({"phase17_s": time.perf_counter() - t17})
+    return launches
+
+
 #: the phases ``--phases`` selects, in the order they run: "6" is yi-9b's
 #: serving (6, 9a, 10a, 10c), "7" mamba2-1.3b's (7, 9b, 10b), "8" the
 #: trainer's (8, 8b); 1 and 2 always run
-PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15", "16")
+PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15", "16",
+          "17")
 
 
 def main() -> int:
@@ -6389,6 +6559,8 @@ def main() -> int:
                                mesh_phase(dev, refs, args.layers)):
             add_launches(total, part)
         refs.clear()
+    if "17" in only:
+        add_launches(launches, dryrun_phase(dev))
     if only != set(PHASES):
         emit({"phases_passed": sorted(only, key=PHASES.index),
               "launches": launches, "script_s": time.perf_counter() - T0})

@@ -100,6 +100,11 @@ class ModelConfig:
     # "nothing" (full recompute, min memory); "dots" (save the outputs of
     # the matmuls with no batch dims, JAX's dots_with_no_batch_dims_saveable)
     remat_policy: str = "nothing"
+    # serving param sharding (read by the dry run, launch.dryrun): "fsdp"
+    # (as training: weights sharded over data + model, gathered at use) |
+    # "tp" (replicated over data, sharded over model only:
+    # parallel.sharding.param_specs(serve_tp=True))
+    serve_param_sharding: str = "fsdp"
     # attention operand precision: True casts K/V/P to f32; False keeps
     # the operands in the model dtype with f32 scores and rounds P to the
     # operand dtype before P@V (flash-attention numerics)

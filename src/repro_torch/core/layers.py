@@ -45,6 +45,7 @@ from repro_torch.core import lut
 from repro_torch.core.luna import LunaMode
 from repro_torch.core.quant import (QuantizedWeight, calibrate, dequantize,
                                     nf4_encode, quantize, ste_luna_matmul)
+from repro_torch.device import takes_kernels
 
 LUNA_MODE_OF = {
     "luna_conventional": LunaMode.CONVENTIONAL,
@@ -84,7 +85,7 @@ def _int_mm_exact(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     """
     m, k = qx.shape
     n = qw.shape[1]
-    if qx.device.type != "cuda":
+    if not takes_kernels(qx):
         return qx.to(torch.int32) @ qw.to(torch.int32)
     if m > 16 and k % 8 == 0 and n % 8 == 0:
         return torch._int_mm(qx.contiguous(), qw.contiguous())
@@ -139,7 +140,7 @@ def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
         return _int8_matmul(x, w).to(x.dtype)
     if cfg.mode == "int4_dequant":
         return _int4_dequant_matmul(x, w)
-    if x.device.type == "cuda":                      # lut_nf4
+    if takes_kernels(x):                             # lut_nf4
         from repro_torch.kernels.lut_gemm import ops as lut_ops
         out = lut_ops.nf4_matmul_kernel(
             x.reshape(-1, x.shape[-1]).contiguous(), w)

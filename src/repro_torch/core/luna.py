@@ -26,6 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import takes_kernels
+
 DIGIT_BITS = 2  # the paper's radix-4 split
 RADIX = 1 << DIGIT_BITS
 
@@ -104,7 +106,7 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     partial sum of code products is an integer far below 2**53, hence
     exact in any order.
     """
-    if a.device.type == "cuda":
+    if takes_kernels(a):
         return (a.double() @ b.double()).to(torch.int32)
     return a.to(torch.int32) @ b.to(torch.int32)
 

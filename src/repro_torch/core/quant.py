@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.luna import LunaMode, luna_matmul
+from repro_torch.device import takes_kernels
 
 
 class QParams(NamedTuple):
@@ -116,7 +117,7 @@ class _SteLunaMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, mode, bits):
         ctx.save_for_backward(x, w)
-        if x.device.type == "cuda":
+        if takes_kernels(x):
             from repro_torch.kernels.luna_mm import ops as luna_ops
             return luna_ops.luna_matmul_f32_kernel(
                 x, w, mode=LunaMode(mode).value, bits=bits)

@@ -26,3 +26,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def takes_kernels(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's route through the models: a CUDA
+    tensor, or a ``meta`` one (the dry run's stand-in for the card, on
+    which each kernel wrapper records its cost and computes nothing).  A
+    CPU tensor takes the plain versions."""
+    return t.device.type in ("cuda", "meta")

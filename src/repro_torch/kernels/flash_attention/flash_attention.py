@@ -15,10 +15,13 @@ call raises; which kernel is fixed by type and head width alone
 * f32, and bf16 at D in (16, 32): the SIMT kernel
   (``csrc/flash_attention.cu``: f32 FMAs).
 
-Both build on first use.  A CPU tensor takes the plain version of the
-kernel its type and width select: ``ref.attention_ref``, with
-``p_dtype=torch.bfloat16, block_k=BLOCK_K`` for the tensor-core kernel.  Nothing
-falls back.  ``flash_attention.launches`` counts every kernel launch,
+Both build on first use.  A ``meta`` tensor (the dry run,
+``repro_torch.launch.dryrun``) returns empty outputs of the kernel's shapes
+and records its cost formula (``launch.cost``) without computing anything.
+A CPU tensor takes the plain version of the kernel its type and width
+select: ``ref.attention_ref``, with ``p_dtype=torch.bfloat16,
+block_k=BLOCK_K`` for the tensor-core kernel.  Nothing falls back.
+``flash_attention.launches`` counts every kernel launch,
 ``flash_attention.launches_tc`` those of the tensor-core kernel.  The
 kernels are forward-only, as the TPU kernel is: they have no backward.
 
@@ -57,6 +60,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_ref_tiled)
+from repro_torch.launch import cost
 
 F32_TOL = 2e-5
 BF16_RTOL = 4e-3
@@ -204,8 +208,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, sm_scale=sm_scale, causal=causal,
                              num_q_heads=num_q_heads,
                              num_kv_heads=num_kv_heads, **rounded)
+    if cost.ACTIVE is not None:
+        bh, s, d = q.shape
+        cost.ACTIVE.kernel("flash_attention", *cost.flash_cost(
+            bh // num_q_heads, s, num_q_heads, num_kv_heads, d,
+            q.element_size(), causal))
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
     out = _launch(q, k, v, sm_scale, causal, num_q_heads, num_kv_heads, tc)
     flash_attention.launches += 1

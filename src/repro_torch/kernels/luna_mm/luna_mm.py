@@ -43,6 +43,9 @@ measured, 8.
 
 Both build on first use.  A CPU tensor takes the plain version
 :func:`~repro_torch.kernels.luna_mm.ref.luna_mm_ref`; nothing falls back.
+A ``meta`` tensor (the dry run, ``repro_torch.launch.dryrun``) returns
+empty outputs of the kernel's shapes and records its cost formula
+(``launch.cost``) without computing anything.
 ``luna_mm.launches`` counts every launch, ``luna_mm.launches_tc`` those of
 the tensor-core kernel.
 
@@ -58,6 +61,7 @@ import torch
 
 from repro_torch.core.luna import LunaMode
 from repro_torch.kernels.luna_mm.ref import luna_mm_ref
+from repro_torch.launch import cost
 
 #: the __dp4a kernel's geometry (mirrors the constants in csrc/luna_mm.cu)
 BLOCK_N = 512
@@ -240,15 +244,20 @@ def luna_mm(y_codes: torch.Tensor, w_codes: torch.Tensor,
     _check(y_codes, w_codes)
     if y_codes.device.type == "cpu":
         return luna_mm_ref(y_codes, w_codes, mode)
+    m, k = y_codes.shape
+    n = w_codes.shape[1]
+    if cost.ACTIVE is not None:
+        cost.ACTIVE.kernel("luna_mm", *cost.luna_mm_cost(m, k, n,
+                                                         mode.value))
+    if y_codes.device.type == "meta":
+        return torch.empty((m, n), dtype=torch.int32, device="meta")
     if y_codes.device.type != "cuda":
-        raise ValueError(f"luna_mm runs on cuda or cpu, not "
+        raise ValueError(f"luna_mm runs on cuda, cpu or meta, not "
                          f"{y_codes.device}")
     layout = w_layout(w_codes)
     if layout is None or not y_codes.is_contiguous():
         raise ValueError("luna_mm takes a contiguous y_codes and a "
                          "row-major or K-major w_codes")
-    m, k = y_codes.shape
-    n = w_codes.shape[1]
     aligned = (y_codes.data_ptr() % TC_ALIGN == 0
                and w_codes.data_ptr() % TC_ALIGN == 0)
     tc = takes_tc(m, k, n, layout, aligned)

@@ -11,7 +11,10 @@
   ``lut_gemm.py:168 lut_gemm_dc_res``.
 
 A CUDA tensor launches a kernel on ``torch.cuda.current_stream()``, or the
-call raises; a CPU tensor takes the plain version in ``ref.py`` (for
+call raises; a ``meta`` tensor (the dry run, ``repro_torch.launch.
+dryrun``) returns empty outputs of the kernel's shape and records its cost
+formula (``launch.cost``), computing nothing; a CPU tensor takes the plain
+version in ``ref.py`` (for
 :func:`lut_gemm`, JAX's ``lut_gemm_ref``, which folds the scale into the
 weight before the matmul; the kernels apply it after, as the Pallas
 kernel does).  Nothing falls back.  Which kernel a call launches is fixed
@@ -65,6 +68,7 @@ import torch
 from repro_torch.kernels.lut_gemm.ref import (lut_gemm_dc_ref,
                                               lut_gemm_dc_res_ref,
                                               lut_gemm_ref)
+from repro_torch.launch import cost
 
 KERNEL_RTOL = 1e-4
 KERNEL_ATOL = 1e-4
@@ -375,6 +379,20 @@ def _launch_dc(x, w_codes, scale, hi_tab, lo_tab, residual, zero_point):
                    zero_point), False
 
 
+def _cost(x, w_codes, table_bytes: int, vec_bytes: int = 8):
+    """(operations, bytes) of one call (``cost.lut_gemm_cost``)."""
+    m, k = x.shape
+    return cost.lut_gemm_cost(m, k, w_codes.shape[1], x.element_size(),
+                              table_bytes, vec_bytes)
+
+
+def _meta_out(x, w_codes) -> torch.Tensor:
+    """The kernels' (M, N) f32 output on ``meta`` (the dry run: nothing
+    is computed)."""
+    return torch.empty((x.shape[0], w_codes.shape[1]), dtype=torch.float32,
+                       device=x.device)
+
+
 def lut_gemm_dc(x: torch.Tensor, w_codes: torch.Tensor, hi_tab: torch.Tensor,
                 lo_tab: torch.Tensor, zero_point: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
@@ -387,8 +405,14 @@ def lut_gemm_dc(x: torch.Tensor, w_codes: torch.Tensor, hi_tab: torch.Tensor,
            scale, zero_point)
     if x.device.type == "cpu":
         return lut_gemm_dc_ref(x, w_codes, hi_tab, lo_tab, zero_point, scale)
+    if cost.ACTIVE is not None:
+        cost.ACTIVE.kernel("lut_gemm_dc", *_cost(x, w_codes,
+                                                 cost.DC_TABLE_BYTES))
+    if x.device.type == "meta":
+        return _meta_out(x, w_codes)
     if x.device.type != "cuda":
-        raise ValueError(f"lut_gemm_dc runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"lut_gemm_dc runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     out, tc = _launch_dc(x, w_codes, scale, hi_tab, lo_tab, None,
                          zero_point)
     lut_gemm_dc.launches += 1
@@ -410,8 +434,13 @@ def lut_gemm_dc_res(x: torch.Tensor, w_codes: torch.Tensor,
     if x.device.type == "cpu":
         return lut_gemm_dc_res_ref(x, w_codes, hi_tab, lo_tab, residual,
                                    zero_point, scale)
+    if cost.ACTIVE is not None:
+        cost.ACTIVE.kernel("lut_gemm_dc_res", *_cost(
+            x, w_codes, cost.DC_RES_TABLE_BYTES))
+    if x.device.type == "meta":
+        return _meta_out(x, w_codes)
     if x.device.type != "cuda":
-        raise ValueError(f"lut_gemm_dc_res runs on cuda or cpu, not "
+        raise ValueError(f"lut_gemm_dc_res runs on cuda, cpu or meta, not "
                          f"{x.device}")
     out, tc = _launch_dc(x, w_codes, scale, hi_tab, lo_tab, residual,
                          zero_point)
@@ -430,8 +459,14 @@ def lut_gemm(x: torch.Tensor, w_codes: torch.Tensor, codebook: torch.Tensor,
     _check(x, w_codes, (("codebook", codebook, 16),), scale)
     if x.device.type == "cpu":
         return lut_gemm_ref(x, w_codes, codebook, scale)
+    if cost.ACTIVE is not None:
+        cost.ACTIVE.kernel("lut_gemm", *_cost(x, w_codes,
+                                              cost.FULL_TABLE_BYTES, 4))
+    if x.device.type == "meta":
+        return _meta_out(x, w_codes)
     if x.device.type != "cuda":
-        raise ValueError(f"lut_gemm runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"lut_gemm runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     m, k = x.shape
     aligned = (x.data_ptr() % TC_ALIGN == 0
                and w_codes.data_ptr() % TC_ALIGN == 0)

@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.lut import NF4_CODEBOOK, codebook_dequant
 from repro_torch.core.quant import (QuantizedWeight, dequantize, nf4_encode,
                                     quantize_weight)
+from repro_torch.device import takes_kernels
 from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
                                                    lut_gemm_dc_res)
 
@@ -147,7 +148,7 @@ def quantized_matmul(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
         f"quantized_matmul expects a per-layer 2-D weight, got "
         f"{tuple(qw.codes.shape)}")
     if qw.kernel in ("lut_dc", "nf4_dc"):
-        if x.device.type == "cuda":
+        if takes_kernels(x):
             x2 = x.reshape(-1, x.shape[-1]).contiguous()
             if qw.kernel == "lut_dc":
                 out = lut_gemm_dc(x2, qw.codes, qw.hi_tab, qw.lo_tab,

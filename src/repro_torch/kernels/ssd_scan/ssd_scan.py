@@ -7,7 +7,10 @@ the Pallas ``repro/kernels/ssd_scan/ssd_scan.py:81 ssd_scan``.
 A CUDA tensor launches the kernels (``csrc/ssd_scan_tc.cu``, built on
 first use) on ``torch.cuda.current_stream()``, or the call raises; a CPU
 tensor takes the plain version, ``repro_torch.models.ssm._ssd_chunked``
-(JAX's jnp scan).  Nothing falls back.  A call is four device kernels:
+(JAX's jnp scan); a ``meta`` tensor (the dry run,
+``repro_torch.launch.dryrun``) returns empty outputs of the kernel's
+shapes and records its cost formula (``launch.cost``), computing nothing.
+Nothing falls back.  A call is four device kernels:
 ``ssd_cb`` (C·Bᵀ per group and chunk, causal tiles only),
 ``ssd_chunk_state`` (each chunk's cumsum and its chunk-local state, all
 chunks in parallel), ``ssd_state_pass`` (the state carried across chunks,
@@ -59,6 +62,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.launch import cost
 
 KERNEL_TOL = 1e-4
 
@@ -174,6 +179,11 @@ def _launch(x, dt, a, b, c, chunk, initial_state, mask):
     return y, final, ws
 
 
+def _sizes(x, b) -> tuple[int, ...]:
+    """(B, S, H, P, G, N) of a call."""
+    return (*x.shape, *b.shape[2:])
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int,
              initial_state: torch.Tensor | None = None,
@@ -199,8 +209,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         out = _ssd_chunked(x, dt, a, b, c, chunk,
                            initial_state=initial_state, mask=mask)
         return (*out, None) if keep_workspace else out
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, a, b, c, initial_state)):
@@ -208,6 +219,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             "ssd_scan's kernels return no grad_fn: differentiate the scan "
             "through repro_torch.kernels.ssd_scan.ops.ssd_chunked_kernel "
             "(SSDScanFn, whose backward is ssd_scan_bwd)")
+    if cost.ACTIVE is not None:
+        cost.ACTIVE.kernel("ssd_scan", *cost.ssd_scan_cost(
+            *_sizes(x, b), chunk, mask is not None,
+            initial_state is not None, initial_state is not None))
+    if x.device.type == "meta":
+        bb, _, h, p = x.shape
+        final = torch.empty((bb, h, p, b.shape[3]), dtype=torch.float32,
+                            device="meta")
+        y = torch.empty_like(x)
+        return (y, final, None) if keep_workspace else (y, final)
     y, final, ws = _launch(x, dt, a, b, c, chunk, initial_state, mask)
     ssd_scan.launches += 1
     return (y, final, ws) if keep_workspace else (y, final)
@@ -250,8 +271,18 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
         return ssd_scan_bwd_ref(x, dt, a, b, c, dy, dfinal, chunk=chunk,
                                 initial_state=initial_state, mask=mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan_bwd runs on cuda, cpu or meta, not "
+                         f"{x.device}")
+    if cost.ACTIVE is not None:
+        cost.ACTIVE.kernel("ssd_scan_bwd", *cost.ssd_scan_bwd_cost(
+            *_sizes(x, b), chunk, mask is not None,
+            initial_state is not None, initial_state is not None))
+    if x.device.type == "meta":
+        return (torch.empty_like(x), torch.empty_like(dt),
+                torch.empty_like(a), torch.empty_like(b),
+                torch.empty_like(c), None if initial_state is None
+                else torch.empty_like(initial_state))
     if p > PMAX:
         raise ValueError(f"ssd_scan_bwd takes head dims up to {PMAX}, not "
                          f"{p}")

@@ -40,6 +40,9 @@ UNPORTED_ARCHS: dict[str, str] = {}
 
 ARCH_IDS = [a for a in ARCH_MODULES if a != "luna-mlp"]
 
+#: archs with sub-quadratic sequence mixing (they run the long_500k cell)
+SUBQUADRATIC = {"zamba2-1.2b", "mamba2-1.3b"}
+
 
 def get_config(arch: str, **overrides) -> ModelConfig:
     if arch in UNPORTED_ARCHS:
@@ -81,6 +84,15 @@ def get_model(cfg: ModelConfig, device=None):
     ``.init(generator)`` or load weights through
     :mod:`repro_torch.bridge`."""
     return model_class(cfg)(cfg, device=device)
+
+
+def cell_supported(arch: str, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether this (arch x shape) cell runs, and why not if skipped
+    (JAX's rule, word for word)."""
+    if shape.name == "long_500k" and arch not in SUBQUADRATIC:
+        return False, ("SKIP: pure full-attention arch; 500k decode needs "
+                       "sub-quadratic attention (DESIGN.md section 5)")
+    return True, ""
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,

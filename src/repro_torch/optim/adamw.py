@@ -98,10 +98,13 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
                         for x in leaves(tree)])
     if mesh is not None:
         import torch.distributed as dist
+
+        from repro_torch.parallel.act_sharding import note
         owns = torch.tensor([_owns(mesh, spec) for spec in specs],
                             device=sums.device)
         sums = torch.where(owns, sums, torch.zeros_like(sums))
         dist.all_reduce(sums)
+        note("norm", sums.numel() * sums.element_size())
     return torch.sqrt(torch.sum(sums))
 
 

@@ -43,9 +43,19 @@ import torch.distributed as dist
 _CTX = threading.local()
 
 #: collectives a mesh step issued: "rows" (a forward all-reduce of
-#: :func:`batch_sum`), and :mod:`~repro_torch.parallel.fsdp`'s "gather" (a
-#: leaf at use) and "grad" (a gradient's sum over the row axes)
+#: :func:`batch_sum`), :mod:`~repro_torch.parallel.fsdp`'s "gather" (a
+#: leaf at use) and "grad" (a gradient's sum over the row axes), AdamW's
+#: "norm" (the global norm's all-reduce) and the gradient compression's
+#: "compress" (its scales' all-reduce); beside each, ``"<kind>_bytes"``,
+#: the payload: the whole tensor the collective acts on (an all-gather's
+#: output), as :mod:`repro_torch.launch.cost`'s ledger counts it
 counts: Counter = Counter()
+
+
+def note(kind: str, nbytes: int) -> None:
+    """Count one collective of ``kind`` with ``nbytes`` of payload."""
+    counts[kind] += 1
+    counts[f"{kind}_bytes"] += nbytes
 
 
 def _state() -> dict:
@@ -119,7 +129,7 @@ class _RowSum(torch.autograd.Function):
     def forward(ctx, x, group):
         out = x.detach().clone().contiguous()
         dist.all_reduce(out, group=group)
-        counts["rows"] += 1
+        note("rows", out.numel() * out.element_size())
         return out
 
     @staticmethod

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel.act_sharding import note
 from repro_torch.tree import leaves, tree_map
 
 
@@ -87,5 +88,6 @@ def compress_grads_int8(grads, mesh=None):
     flat = leaves(grads)
     amax = torch.stack([g.float().abs().max() for g in flat])
     dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    note("compress", amax.numel() * amax.element_size())
     it = iter(amax.unbind(0))
     return tree_map(lambda g: _roundtrip_q8(g, next(it)), grads)

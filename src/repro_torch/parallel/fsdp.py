@@ -30,8 +30,10 @@ XLA inserts the all-gathers and reduce-scatters.  Here they are explicit:
 Compute stays data-parallel: ranks along ``model`` hold the same rows
 and compute them redundantly (tensor-parallel compute is ROADMAP queue 1
 item 9d).  The gathers and gradient reductions are counted in
-``act_sharding.counts`` (``"gather"``, ``"grad"``; ``counts`` here is the
-same object), for the card's check that a step took this path.
+``act_sharding.counts`` (``"gather"``, ``"grad"`` and their payloads'
+``"gather_bytes"``, ``"grad_bytes"``; ``counts`` here is the same
+object), for the card's check that a step took this path and the dry
+run's check that its collective ledger is the traffic a step issues.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
-from repro_torch.parallel.act_sharding import counts, rows_axes
+from repro_torch.parallel.act_sharding import counts, note, rows_axes
 from repro_torch.parallel.sharding import param_specs
 from repro_torch.tree import leaves_with_path
 
@@ -99,7 +101,7 @@ def gather_leaf(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         x = out.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=mesh.group(axes))
-        counts["gather"] += 1
+        note("gather", n * x.numel() * x.element_size())
         out = torch.cat(parts, dim=d)
     return out
 
@@ -122,7 +124,7 @@ class GatherLeaf(torch.autograd.Function):
             if buf is grad:
                 buf = grad.clone()
             dist.all_reduce(buf, group=ctx.rows)
-            counts["grad"] += 1
+            note("grad", buf.numel() * buf.element_size())
             grad = buf
         out = block(grad, ctx.spec, ctx.mesh)
         return (out.clone() if out is not grad else out), None, None
@@ -167,16 +169,19 @@ def _owners(model) -> dict:
     return out
 
 
-def shard_model(model, mesh):
+def shard_model(model, mesh, specs=None):
     """Replace every leaf of ``model.params_tree()`` by this rank's shard
-    (its spec from :func:`~repro_torch.parallel.sharding.param_specs`),
-    gathered at each read; returns ``model``.  Call it after ``init`` (or
-    a weight load): the shard is cut from the full leaf, so every rank
-    starts from the unsharded model's weights."""
+    (its spec from :func:`~repro_torch.parallel.sharding.param_specs`, or
+    from ``specs``, a tree of specs of the same structure: the serving
+    layout ``param_specs(..., serve_tp=True)``), gathered at each read;
+    returns ``model``.  Call it after ``init`` (or a weight load): the
+    shard is cut from the full leaf, so every rank starts from the
+    unsharded model's weights."""
     if getattr(model, "fsdp_specs", None) is not None:
         raise ValueError("the model is already sharded")
     tree = model.params_tree()
-    specs = param_specs(tree, mesh)
+    if specs is None:
+        specs = param_specs(tree, mesh)
     owners = _owners(model)
     for (_, leaf), spec in zip(leaves_with_path(tree), flat_specs(specs)):
         module, name = owners[id(leaf)]

@@ -52,6 +52,7 @@ import functools
 import torch
 import torch.distributed as dist
 
+from repro_torch.device import takes_kernels
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models.attention import KVCache, KVShard
 
@@ -161,7 +162,7 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (batched) with f32 results, f32 accumulation."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if takes_kernels(a):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

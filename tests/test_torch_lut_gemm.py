@@ -183,10 +183,12 @@ def test_wrappers_reject_bad_operands():
                           q.zero_point[:-1], q.scale)
     with pytest.raises(ValueError, match="codebook"):
         tkern.lut_gemm(x, q.codes, q.hi_tab, q.scale)
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        tkern.lut_gemm_dc(x.to("meta"), q.codes.to("meta"),
-                          q.hi_tab.to("meta"), q.lo_tab.to("meta"),
-                          q.zero_point.to("meta"), q.scale.to("meta"))
+    # meta operands (the dry run) take the kernel's shapes, computing nothing
+    out = tkern.lut_gemm_dc(x.to("meta"), q.codes.to("meta"),
+                            q.hi_tab.to("meta"), q.lo_tab.to("meta"),
+                            q.zero_point.to("meta"), q.scale.to("meta"))
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (x.shape[0], q.codes.shape[1]), torch.float32)
 
 
 @pytest.mark.parametrize("kernel,prune", [

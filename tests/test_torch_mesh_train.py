@@ -184,15 +184,20 @@ def ranks(tmp_path_factory):
     dirs = {k: str(ck / k) for k in ("falls", "resume", "straight")}
     pipe = {"w": (rng.standard_normal((2, 16, 16)) * 0.3).astype(np.float32),
             "xs": rng.standard_normal((4, 3, 16)).astype(np.float32)}
+    dryrun = [{"name": arch, "arch": arch, "reduced": WIDTHS, "mesh": m,
+               "b": 8, "s": 32} for arch in JAX_ARCHS for m in MESHES]
     with open(workdir / "in.pkl", "wb") as f:
         pickle.dump({"meshes": MESHES, "cases": cases,
-                     "trainer": {"dirs": dirs}, "pipeline": pipe}, f)
+                     "trainer": {"dirs": dirs}, "pipeline": pipe,
+                     "dryrun": dryrun}, f)
     proc = _run_ranks("mesh_train", workdir)
     refs = {arch: _jax_reference(arch, *jax_in[arch]) for arch in JAX_ARCHS}
     refs["microbatch"] = _jax_reference("yi-9b", *jax_in["yi-9b"],
                                         microbatch=MICRO,
                                         grads=refs["yi-9b"][1])
     outs = _collect(proc, workdir, 4)
+    with open(os.path.join(workdir, "launcher.pkl"), "rb") as f:
+        dryrun = pickle.load(f)
 
     # the elastic restores: 4 ranks wrote step 5; resume on 2 and on none
     def step5(dst):
@@ -213,7 +218,8 @@ def ranks(tmp_path_factory):
     elastic2 = _collect(proc, two, 2)
     return {"outs": outs, "refs": refs, "cases": {c["name"]: c
                                                   for c in cases},
-            "elastic2": elastic2, "elastic_none": hist_none, "pipe": pipe}
+            "elastic2": elastic2, "elastic_none": hist_none, "pipe": pipe,
+            "dryrun": dryrun}
 
 
 def _norm_held(got, norm, what):
@@ -269,6 +275,30 @@ def test_mesh_step_matches_jax(ranks, arch, mesh):
     ranks0 = ranks["outs"][0]["steps"][(arch, mesh)]
     for r in ranks["outs"][1:]:
         assert r["steps"][(arch, mesh)]["loss"] == ranks0["loss"]
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=["x".join(map(str, m))
+                                               for m in MESHES])
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_collective_ledger_equals_the_gloo_traffic(ranks, arch, mesh):
+    """The dry run's collective ledger of the same reduced step on the same
+    mesh (rank 0, counted on meta tensors in a fake world,
+    ``launch.dryrun.count_cell``) equals what each gloo rank's step issued
+    (``act_sharding.counts``): the all-gathers are the leaves' gathers,
+    the all-reduces the gradient sums, the row sums and AdamW's norm; in
+    count and in payload bytes."""
+    ledger = ranks["dryrun"][(arch, mesh)]["collectives"]
+    for out in ranks["outs"]:
+        got = out["steps"][(arch, mesh)]["issued"]
+        assert ledger["all_gather"] == {"count": got["gather"],
+                                        "bytes": got["gather_bytes"]}
+        reduces = ("grad", "rows", "norm")
+        assert ledger["all_reduce"] == {
+            "count": sum(got.get(k, 0) for k in reduces),
+            "bytes": sum(got.get(f"{k}_bytes", 0) for k in reduces)}
+        assert got["norm"] == 1
+        assert all(v == {"count": 0, "bytes": 0} for k, v in ledger.items()
+                   if k not in ("all_gather", "all_reduce"))
 
 
 def test_mesh_microbatch_step_matches_jax(ranks):

@@ -10,7 +10,8 @@ intra-op thread each, a gloo group joined through a file store, so no TCP
 port collides across test workers; a rank that misses a collective fails
 after ``GROUP_TIMEOUT_S`` instead of hanging); each runs ``JOBS[JOB](rank,
 DIR)`` on ``DIR/in.pkl``, and the launcher writes rank r's result to
-``DIR/out_<r>.pkl``.  It exits nonzero if any rank fails; the caller
+``DIR/out_<r>.pkl`` (and a job's own launcher part, ``LAUNCHER_JOBS``, to
+``DIR/launcher.pkl``).  It exits nonzero if any rank fails; the caller
 bounds it with a subprocess timeout.  The pickles are written and read by
 these tests only.
 """
@@ -365,6 +366,28 @@ JOBS = {"decode": decode_job, "collectives": collectives_job,
         "mesh_train": mesh_train_job, "elastic": elastic_job}
 
 
+def mesh_train_dryrun(workdir: str) -> dict:
+    """The launcher's part of the mesh_train job, run after the ranks
+    (this process holds no process group): the dry run's count of each
+    ``in.pkl`` ``"dryrun"`` cell (a reduced step on a mesh, counted on
+    meta tensors in a fake world of the mesh's size), by (name, mesh)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.models.registry import get_config
+
+    out = {}
+    for case in _inputs(workdir).get("dryrun", []):
+        cfg = get_config(case["arch"]).reduced(**case["reduced"])
+        shape = ShapeConfig("step", case["s"], case["b"], "train")
+        out[(case["name"], tuple(case["mesh"]))] = count_cell(
+            cfg, shape, tuple(case["mesh"]))
+    return out
+
+
+#: a job's part run by the launcher after its ranks (``DIR/launcher.pkl``)
+LAUNCHER_JOBS = {"mesh_train": mesh_train_dryrun}
+
+
 def _job(job: str, workdir: str):
     import torch.distributed as dist
     return JOBS[job](dist.get_rank(), workdir)
@@ -380,6 +403,10 @@ def main(job: str, workdir: str, world: int = WORLD) -> int:
         return 1
     for rank, out in enumerate(outs):
         with open(os.path.join(workdir, f"out_{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    if job in LAUNCHER_JOBS:
+        out = LAUNCHER_JOBS[job](workdir)
+        with open(os.path.join(workdir, "launcher.pkl"), "wb") as f:
             pickle.dump(out, f)
     return 0
 
