@@ -369,6 +369,35 @@ result line):
    ``mfu_bf16_dense`` (model FLOPs over wall × 989 TFLOP/s) and the peak
    estimate beside ``max_memory_allocated()``, with the card's name and
    power limit; the phase prints its seconds;
+18. tensor-parallel compute over ``model`` (``parallel.tensor_parallel``:
+   heads, FFN hidden and vocabulary split), on a one-rank NCCL group (a
+   one-card machine runs the model axis at one rank; the multi-rank
+   values are held on the CPU by the gloo tests):
+   a. yi-9b at phase 8's depth and shape through the mesh step, bf16 and
+      ``lut_nf4``, against the no-mesh step on the same weights and
+      batch: loss, every gradient AdamW gets and every updated parameter
+      bitwise; the TP collectives (``act_sharding.counts``) at
+      ``TP_REDUCES`` a layer plus 2 (the embedding's reduce, the head's
+      copy), no TP gather; ``lut_gemm`` launches (forward, recompute, dx)
+      and ``NF4MatmulFn``'s backward launches counted;
+   b. every yi-9b decode projection cut as the split cuts it (wq, wk, wv,
+      w_gate, w_up by columns, wo, w_down by rows) for model axes 4 and
+      16, each rank's shard after the other in this process, through
+      ``lut_gemm_dc`` and ``lut_gemm_dc_res`` at M = 8 and ``lut_gemm`` at
+      M = 8,192 (forward and dx): column shards concatenated equal the
+      whole call within ``TP_SHARD_REL`` of its scale (bitwise where they
+      are), row partials summed likewise, every shard on the tensor-core
+      route (``launches_tc`` / ``launches_wgmma``); rank 0's 7 decode
+      shards timed device-only beside the whole layer and the shards'
+      byte bound;
+   c. lut4 and nf4 ``decode_step`` of yi-9b at that depth under
+      ``serve_param_sharding="tp"`` and ``decode_attn="sharded"`` (a
+      full-precision split prefill of 8 prompts, then ``TP_TICKS``
+      greedy ticks): logits bitwise the whole-weight layout's on the same
+      mesh, tokens the no-mesh decode's (or within the window rule at a
+      near-tie), the frozen leaves the specs' blocks, ``lut_gemm_dc`` /
+      ``_res`` launches 7 a layer a tick, the TP collectives counted;
+   the phase prints its seconds;
 each run of 6, 7, 9, 10, 11, 12, 14, 15 and 16 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
@@ -6371,11 +6400,385 @@ def dryrun_phase(dev) -> dict:
     return launches
 
 
+#: phase 18a: the TP all-reduces a layer of a mesh step at one rank
+#: (forward: attention's and the MLP's reduce; the recompute: attention's
+#: again (non-reentrant checkpointing stops before the MLP's); backward:
+#: the two copies' all-reduces; lut_nf4 adds wo's and w_down's absmax
+#: maxima in the forward and the recompute and their gradients' sums),
+#: plus 2 a step: the embedding's reduce, the head's copy
+TP_REDUCES = {"bf16": 5, "lut_nf4": 11}
+#: phase 18b: the model axes and their bound: shards against the whole
+#: call, as a share of its max |value| (the kernels' own tolerance
+#: against their plain versions)
+TP_AXES = (4, 16)
+TP_SHARD_REL = 1e-4
+#: phase 18b: yi-9b's decode projections, split by columns or rows
+TP_SPLIT = ("col", "col", "col", "row", "col", "col", "row")
+#: phase 18c: greedy ticks after the prefill, 8 prompts of TP_PROMPT
+TP_TICKS, TP_PROMPT = 16, 64
+
+
+def tp_train_phase(dev, mesh, wrappers) -> dict:
+    """Phase 18a: yi-9b at ``TRAIN_LAYERS`` through the mesh step on the
+    one-rank ``mesh`` against the no-mesh step, bf16 and lut_nf4
+    (:func:`mesh_step_run` each, counters set to 0 just before).  Returns
+    the mesh steps' launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.lut_gemm.ops import NF4MatmulFn
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.parallel.fsdp import local_tree
+    from repro_torch.tree import leaves
+
+    layers = TRAIN_LAYERS
+    cfg0 = replace(get_config("yi-9b"), num_layers=layers,
+                   attn_impl="chunked")
+    batch = SyntheticLM(cfg0.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(
+        0, dev)
+    launches = {}
+    for mode in TP_REDUCES:
+        cfg = replace(cfg0, quant=QuantConfig(mode=mode))
+
+        def build():
+            return get_model(cfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(0)).requires_grad_(
+                    True)
+        plain = build()
+        ref = mesh_step_run(dev, cfg, plain, batch, None, wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build()
+        back0 = NF4MatmulFn.backward_launches
+        got = mesh_step_run(dev, cfg, model, batch, mesh, wrappers)
+        back = NF4MatmulFn.backward_launches - back0
+        split = tp.describe(model)
+        loss_same = torch.equal(got["loss"], ref["loss"])
+        grads_same = sum(torch.equal(a, b)
+                         for a, b in zip(got["grads"], ref["grads"]))
+        with torch.no_grad():
+            params_same = sum(torch.equal(a, b) for a, b in zip(
+                leaves(local_tree(model)), leaves(plain.params_tree())))
+        n = len(ref["grads"])
+        coll = got["collectives"]
+        want_tp = TP_REDUCES[mode] * layers + 2
+        want_lut = 21 * layers if mode == "lut_nf4" else 0
+        emit({"phase18": "18a", "mode": mode, "layers": layers,
+              "batch": [TRAIN_B, TRAIN_S], "split": split,
+              "loss": got["loss"].item(), "bitwise_loss": loss_same,
+              "bitwise_grads": grads_same, "bitwise_params": params_same,
+              "leaves": n, "tp_reduce": coll.get("tp_reduce", 0),
+              "tp_reduce_want": want_tp,
+              "tp_reduce_bytes": coll.get("tp_reduce_bytes", 0),
+              "tp_gather": coll.get("tp_gather", 0),
+              "collectives": coll, "nf4_backward_launches": back,
+              **{f"{k}{sfx}": r[k] for r, sfx in ((got, ""),
+                                                  (ref, "_no_mesh"))
+                 for k in ("wall_s", "peak_gb", "launches")}})
+        check(split == {"attention": "split", "mlp": "split",
+                        "vocab": "split"},
+              f"phase 18a {mode}: the model computes {split}")
+        check(loss_same and grads_same == n and params_same == n,
+              f"phase 18a {mode}: the split mesh step is not the no-mesh "
+              f"step bitwise (loss {loss_same}, gradients {grads_same} of "
+              f"{n}, params {params_same} of {n})")
+        check(coll.get("tp_reduce", 0) == want_tp
+              and coll.get("tp_gather", 0) == 0,
+              f"phase 18a {mode}: TP collectives {coll}, want {want_tp} "
+              "all-reduces and no gather")
+        check(got["launches"] == ref["launches"]
+              and got["launches"]["lut_gemm"] == want_lut
+              and back == (7 * layers if want_lut else 0),
+              f"phase 18a {mode}: launches {got['launches']} (no mesh "
+              f"{ref['launches']}), backward {back}; want {want_lut} "
+              "lut_gemm")
+        add_launches(launches, got["launches"])
+        del plain, model, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+class RankOf:
+    """Rank ``r`` of a model axis of ``m`` for the sharding helpers
+    (``fsdp.shard_leaf``, ``QuantizedWeight.shard``): its shape, order
+    and coordinate, no process group."""
+
+    def __init__(self, m: int, r: int):
+        self.shape, self.axis_names, self.r = {"model": m}, ("model",), r
+
+    def canonical(self, axes):
+        return tuple(axes) if isinstance(axes, tuple) else (axes,)
+
+    def index(self, axes) -> int:
+        return self.r
+
+
+def tp_shard_phase(dev) -> dict:
+    """Phase 18b: each yi-9b decode projection (random bf16 weights, seed
+    18) frozen whole (lut4's ``lut_dc``, nf4's ``nf4_dc``; ``lut_nf4``'s
+    codes and absmax), cut into each rank's shard by its split
+    (``TP_SPLIT``) for each of ``TP_AXES``, and every shard run in turn:
+    the D&C kernels at M = 8, ``lut_gemm`` at M = 8,192 forward and dx
+    (the backward's call over the transposed codes).  Column shards
+    concatenated and row partials summed against the whole call; routes;
+    rank 0's layer of 7 decode shards device-only."""
+    import torch
+
+    from repro_torch.core.lut import NF4_CODEBOOK
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
+                                                       lut_gemm_dc_res)
+    from repro_torch.kernels.lut_gemm.ops import codebook_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cb = torch.tensor(NF4_CODEBOOK, device=dev)
+    out = {"worst": {}, "routes": {}, "bitwise_col": {}}
+
+    def dc(kind, x, q):
+        if kind == "lut4":
+            return lut_gemm_dc(x, q.codes, q.hi_tab, q.lo_tab,
+                               q.zero_point, q.scale)
+        return lut_gemm_dc_res(x, q.codes, q.hi_tab, q.lo_tab, q.residual,
+                               q.zero_point, q.scale)
+
+    def hold(what, parts, whole, how):
+        got = torch.cat(parts, -1) if how == "col" else sum(parts)
+        scale = whole.abs().max().item()
+        err = (got - whole).abs().max().item() / scale
+        out["worst"][what] = max(out["worst"].get(what, 0.0), err)
+        if how == "col":
+            out["bitwise_col"][what] = (out["bitwise_col"].get(what, True)
+                                        and torch.equal(got, whole))
+        check(err <= TP_SHARD_REL, f"phase 18b {what}: shards {how} off "
+              f"the whole call by {err} of its scale > {TP_SHARD_REL}")
+
+    layer_ms = {}
+    x8 = {}
+    for (k, n), how in zip(LAYER_SHAPES, TP_SPLIT):
+        w = (torch.randn(k, n, device=dev, generator=gen)
+             / k ** 0.5).to(torch.bfloat16)
+        frozen = {q: quantize_weight(w, kern) for q, kern in
+                  (("lut4", "lut_dc"), ("nf4", "nf4_dc"))}
+        codes, absmax = codebook_quantize(w, NF4_CODEBOOK)
+        x = x8.setdefault(k, torch.randn(8, k, device=dev, generator=gen)
+                          .to(torch.bfloat16))
+        xl = torch.randn(8192, k, device=dev, generator=gen).to(
+            torch.bfloat16)
+        g = (torch.randn(8192, n, device=dev, generator=gen)
+             * absmax).to(torch.bfloat16)
+        ones_k = torch.ones(k, device=dev)
+        whole = {q: synced(f"18b whole {q}", lambda q=q: dc(q, x, fq))
+                 for q, fq in frozen.items()}
+        whole["fwd"] = synced("18b whole lut_gemm", lambda: lut_gemm(
+            xl, codes, cb, absmax))
+        whole["dx"] = synced("18b whole dx", lambda: lut_gemm(
+            g, codes.t().contiguous(), cb, ones_k))
+        for m in TP_AXES:
+            spec = (None, "model") if how == "col" else ("model", None)
+            parts = {key: [] for key in whole}
+            for r in range(m):
+                rank = RankOf(m, r)
+                lut_gemm_dc.launches_tc = lut_gemm_dc_res.launches_tc = 0
+                lut_gemm.launches_wgmma = 0
+                sh = {q: fq.shard(spec, rank) for q, fq in frozen.items()}
+                cols = slice(r * n // m, (r + 1) * n // m)
+                rows = slice(r * k // m, (r + 1) * k // m)
+                if how == "col":
+                    xs, xls, gs = x, xl, g[:, cols].contiguous()
+                    c = codes[:, cols].contiguous()
+                    a = absmax[cols].contiguous()
+                    ok = ones_k
+                else:
+                    xs = x[:, rows].contiguous()
+                    xls = xl[:, rows].contiguous()
+                    gs, c, a = g, codes[rows].contiguous(), absmax
+                    ok = ones_k[rows].contiguous()
+                for q in frozen:
+                    parts[q].append(synced(f"18b {q} shard", lambda q=q: dc(
+                        q, xs, sh[q])))
+                parts["fwd"].append(synced("18b lut_gemm shard", lambda: (
+                    lut_gemm(xls, c, cb, a))))
+                parts["dx"].append(synced("18b dx shard", lambda: lut_gemm(
+                    gs, c.t().contiguous(), cb, ok)))
+                routes = (lut_gemm_dc.launches_tc,
+                          lut_gemm_dc_res.launches_tc,
+                          lut_gemm.launches_wgmma)
+                check(routes == (1, 1, 2), f"phase 18b ({k}, {n}) m {m} rank "
+                      f"{r}: tensor-core launches {routes}, want (1, 1, 2)")
+                if r == 0:
+                    layer_ms.setdefault(m, []).append((sh, xs))
+            dx_how = "row" if how == "col" else "col"
+            for key in ("lut4", "nf4", "fwd"):
+                hold(f"{key} {how}", parts[key], whole[key], how)
+            hold(f"dx {dx_how}", parts["dx"], whole["dx"], dx_how)
+            out["routes"][f"{k}x{n} m{m}"] = "tc, tc, wgmma x2"
+        layer_ms.setdefault(1, []).append((frozen, x))
+        del xl, g, parts, whole
+    timed = {}
+    for m, calls in layer_ms.items():
+        for q in ("lut4", "nf4"):
+            seven = [(sh[q], xs) for sh, xs in calls]
+            timed[f"{q} m{m}"] = 7 * graph_ms(
+                lambda i: dc(q, seven[i % 7][1], seven[i % 7][0]), 7 * 4)
+        bound = sum(bound_ms(8, sh["lut4"].codes.shape[0],
+                             sh["lut4"].codes.shape[1], 2,
+                             kcost.DC_TABLE_BYTES)[0] for sh, _ in calls)
+        timed[f"bound m{m}"] = bound
+    out["layer_device_ms"] = timed
+    emit({"phase18": "18b", **out})
+    return out
+
+
+def greedy_ticks(model, prefill_model, prompts, ticks, mesh=None):
+    """The prompts' prefill (``prefill_model``), then ``ticks`` greedy
+    ``decode_step`` s of ``model``, under ``activation_sharding(mesh)`` on
+    the cache's one-rank shard when ``mesh`` is given.  Returns (tokens
+    (B, ticks), logits (ticks, B, V) f32)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.parallel.act_sharding import activation_sharding
+    from repro_torch.serve import decode_attention as da
+
+    b, p = prompts.shape
+    ctx = (activation_sharding(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    toks, logits = [], []
+    with torch.no_grad(), ctx:
+        cache = prefill_model.init_cache(b, p + ticks)
+        lg, cache = prefill_model.prefill(prompts, cache)
+        if mesh is not None:
+            cache = da.shard_cache(cache, mesh)
+        for i in range(ticks):
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok[:, 0])
+            lg, cache = model.decode_step(tok, cache, p + i)
+            logits.append(lg[:, 0].float())
+    return torch.stack(toks, 1), torch.stack(logits)
+
+
+def tp_decode_phase(dev, mesh, wrappers) -> dict:
+    """Phase 18c: yi-9b at ``TRAIN_LAYERS``, ``decode_attn="sharded"``:
+    for lut4 and nf4, the no-mesh decode, the whole-weight layout
+    (``serve_param_sharding="fsdp"``) on ``mesh`` and the split one
+    (``"tp"``; counters set to 0 just before it).  Returns the split
+    runs' launches."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.parallel import act_sharding
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.tree import leaves
+
+    layers = TRAIN_LAYERS
+    cfg = replace(get_config("yi-9b"), num_layers=layers,
+                  decode_attn="sharded", serve_param_sharding="tp")
+    model = get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    whole = type(model).from_params(replace(
+        cfg, serve_param_sharding="fsdp"), model.params_tree(), device=dev)
+    prompts = torch.randint(1, cfg.vocab_size, (8, TP_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(18))
+    kern = {"lut4": "lut_gemm_dc", "nf4": "lut_gemm_dc_res"}
+    launches = {}
+    for quant, name in kern.items():
+        plain_toks, plain_lg = greedy_ticks(
+            tp.serving_model(model, None, quant), model, prompts, TP_TICKS)
+        _, whole_lg = greedy_ticks(tp.serving_model(whole, mesh, quant),
+                                   tp.serving_model(whole, mesh), prompts,
+                                   TP_TICKS, mesh)
+        frozen = tp.serving_model(model, mesh, quant)
+        full = tp.serving_model(model, mesh)
+        # one rank: every leaf's block is the whole leaf
+        shapes_ok = all(
+            tuple((q.codes if hasattr(q, "codes") else q).shape)
+            == tuple(w.shape)
+            for q, w in zip(leaves(frozen.params_tree()),
+                            leaves(model.params_tree())))
+        reset_counters(wrappers)
+        act_sharding.counts.clear()
+        t0 = time.perf_counter()
+        toks, lg = greedy_ticks(frozen, full, prompts, TP_TICKS, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, tc = read_counters(wrappers)
+        coll = dict(act_sharding.counts)
+        same_lg = torch.equal(lg, whole_lg)
+        rows = []
+        for i in range(prompts.shape[0]):
+            t = next((j for j in range(TP_TICKS)
+                      if toks[i, j] != plain_toks[i, j]), None)
+            if t is None:
+                rows.append({"row": i, "equal": True})
+                continue
+            top = plain_lg[t, i].topk(2).values
+            marg = (top[0] - top[1]).item()
+            dist = (lg[t - 1 if t else 0, i]
+                    - plain_lg[t - 1 if t else 0, i]).abs().max().item()
+            rows.append({"row": i, "equal": False, "first_divergence": t,
+                         "plain_margin": marg, "logit_distance": dist,
+                         "passed": marg <= WINDOW_FACTOR * dist})
+        want = {name: 7 * layers * TP_TICKS}
+        emit({"phase18": "18c", "quant": quant, "layers": layers,
+              "ticks": TP_TICKS, "split": tp.describe(frozen),
+              "bitwise_whole_layout": same_lg,
+              "equal_rows": sum(r["equal"] for r in rows),
+              "divergences": [r for r in rows if not r["equal"]],
+              "launches": counts, "launches_tc": tc, "collectives": coll,
+              "wall_s": wall, "frozen_shapes_held": shapes_ok})
+        check(same_lg, f"phase 18c {quant}: the split decode's logits are "
+              "not the whole-weight layout's bitwise")
+        check(all(r["equal"] or r["passed"] for r in rows),
+              f"phase 18c {quant}: tokens outside the window rule: {rows}")
+        check(shapes_ok, f"phase 18c {quant}: a frozen leaf is not its "
+              "spec's block")
+        check(counts[name] == want[name] == tc[name]
+              and all(v == 0 for k, v in counts.items() if k != name),
+              f"phase 18c {quant}: launches {counts} (tc {tc}), want "
+              f"{want}")
+        check(coll.get("tp_reduce", 0) == (2 * layers + 1) * TP_TICKS + (
+                  2 * layers + 1)
+              and coll.get("tp_gather", 0) == (3 * layers + 1) * (
+                  TP_TICKS + 1),
+              f"phase 18c {quant}: TP collectives {coll}")
+        add_launches(launches, counts)
+        del frozen, full
+        gc.collect()
+    del model, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_phase(dev) -> dict:
+    """Phase 18 (the module docstring): 18a and 18c on a one-rank NCCL
+    group, 18b on the kernels alone.  Returns the main-path launches of
+    18a and 18c."""
+    t18 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    launches = {}
+    with one_rank_mesh() as mesh:
+        add_launches(launches, tp_train_phase(dev, mesh, wrappers))
+        tp_shard_phase(dev)
+        add_launches(launches, tp_decode_phase(dev, mesh, wrappers))
+    emit({"phase18_s": time.perf_counter() - t18})
+    return launches
+
+
 #: the phases ``--phases`` selects, in the order they run: "6" is yi-9b's
 #: serving (6, 9a, 10a, 10c), "7" mamba2-1.3b's (7, 9b, 10b), "8" the
 #: trainer's (8, 8b); 1 and 2 always run
 PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15", "16",
-          "17")
+          "17", "18")
 
 
 def main() -> int:
@@ -6561,6 +6964,8 @@ def main() -> int:
         refs.clear()
     if "17" in only:
         add_launches(launches, dryrun_phase(dev))
+    if "18" in only:
+        add_launches(launches, tp_phase(dev))
     if only != set(PHASES):
         emit({"phases_passed": sorted(only, key=PHASES.index),
               "launches": launches, "script_s": time.perf_counter() - T0})

@@ -46,6 +46,7 @@ from repro_torch.core.luna import LunaMode
 from repro_torch.core.quant import (QuantizedWeight, calibrate, dequantize,
                                     nf4_encode, quantize, ste_luna_matmul)
 from repro_torch.device import takes_kernels
+from repro_torch.parallel.act_sharding import rows_axes
 
 LUNA_MODE_OF = {
     "luna_conventional": LunaMode.CONVENTIONAL,
@@ -92,9 +93,18 @@ def _int_mm_exact(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     return (qx.double() @ qw.double()).to(torch.int32)
 
 
-def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    xq = calibrate(x, 8, axis=None, symmetric=True)
-    wq = calibrate(w, 8, axis=-1, symmetric=True)
+def _k_axes(split: bool) -> tuple[str, ...]:
+    """The mesh axes a row-parallel split cuts K over."""
+    return ("model",) if split else ()
+
+
+def _int8_matmul(x: torch.Tensor, w: torch.Tensor, split: bool = False
+                 ) -> torch.Tensor:
+    # x's per-tensor scale spans the step's whole batch (JAX's jnp.min/max
+    # of the global x) and, split, the whole K
+    xq = calibrate(x, 8, axis=None, symmetric=True,
+                   across=rows_axes() + _k_axes(split))
+    wq = calibrate(w, 8, axis=-1, symmetric=True, across=_k_axes(split))
     qx = (quantize(x, xq) - xq.zero_point).to(torch.int8)
     qw = (quantize(w, wq) - wq.zero_point).to(torch.int8)
     acc = _int_mm_exact(qx.reshape(-1, x.shape[-1]), qw)
@@ -102,16 +112,28 @@ def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.float() * (xq.scale * wq.scale)
 
 
-def _int4_dequant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    wq = calibrate(w, 4, axis=-1)
+def _int4_dequant_matmul(x: torch.Tensor, w: torch.Tensor,
+                         split: bool = False) -> torch.Tensor:
+    wq = calibrate(w, 4, axis=-1, across=_k_axes(split))
     w_hat = dequantize(quantize(w, wq), wq).to(x.dtype)
     return x @ w_hat
 
 
-def _nf4_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def nf4_absmax(w: torch.Tensor, split: bool = False) -> torch.Tensor:
+    """NF4's per-column scale: ``max(|w|)`` over K, at least 1e-8;
+    ``split``: over the whole K a row-parallel split cuts."""
+    amax = torch.amax(torch.abs(w), dim=0)
+    if split:
+        from repro_torch.parallel.tensor_parallel import mesh_amax
+        amax = mesh_amax(amax, ("model",))
+    return torch.clamp_min(amax, 1e-8)
+
+
+def _nf4_matmul(x: torch.Tensor, w: torch.Tensor, split: bool = False
+                ) -> torch.Tensor:
     """Weight-only NF4 through the mux tree (JAX's library order: the
     absmax scale folded into the weight before the matmul)."""
-    absmax = torch.clamp_min(torch.amax(torch.abs(w), dim=0), 1e-8)
+    absmax = nf4_absmax(w, split)
     codes = nf4_encode(w / absmax).to(torch.int32)
     cb = torch.as_tensor(lut.NF4_CODEBOOK, device=w.device)
     w_hat = lut.codebook_dequant(codes, cb) * absmax
@@ -119,11 +141,17 @@ def _nf4_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
-                 group: str = "mlp") -> torch.Tensor:
+                 group: str = "mlp", split_k: bool = False) -> torch.Tensor:
     """``x @ w`` under the configured quantization mode.
 
     ``x``: (..., K); ``w``: (K, N) or a frozen :class:`QuantizedWeight`.
-    Output dtype follows ``x``.
+    Output dtype follows ``x``.  ``split_k``: ``x`` and ``w`` are this
+    rank's blocks of K in a row-parallel split over the mesh's model axis
+    (the result is a partial sum): ``int8``, ``int4_dequant`` and
+    ``lut_nf4`` calibrate over the whole K (``calibrate(across=)``,
+    :func:`nf4_absmax`); the ``luna_*`` modes are never split
+    (``parallel.tensor_parallel.splits_quant``).  ``int8``'s activation
+    scale also spans the step's rows (``act_sharding.rows_axes``).
     """
     if isinstance(w, QuantizedWeight):
         from repro_torch.kernels.lut_gemm import ops as lut_ops
@@ -137,12 +165,12 @@ def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
                                LUNA_MODE_OF[cfg.mode].value,
                                cfg.bits).to(x.dtype)
     if cfg.mode == "int8":
-        return _int8_matmul(x, w).to(x.dtype)
+        return _int8_matmul(x, w, split_k).to(x.dtype)
     if cfg.mode == "int4_dequant":
-        return _int4_dequant_matmul(x, w)
+        return _int4_dequant_matmul(x, w, split_k)
     if takes_kernels(x):                             # lut_nf4
         from repro_torch.kernels.lut_gemm import ops as lut_ops
         out = lut_ops.nf4_matmul_kernel(
-            x.reshape(-1, x.shape[-1]).contiguous(), w)
+            x.reshape(-1, x.shape[-1]).contiguous(), w, split=split_k)
         return out.reshape(*x.shape[:-1], -1).to(x.dtype)
-    return _nf4_matmul(x, w)
+    return _nf4_matmul(x, w, split_k)

@@ -38,10 +38,16 @@ class QParams(NamedTuple):
 
 
 def calibrate(x: torch.Tensor, bits: int = 4, axis: int | None = None,
-              symmetric: bool = False) -> QParams:
+              symmetric: bool = False, across: tuple[str, ...] = ()
+              ) -> QParams:
     """Min/max affine calibration to unsigned codes.
 
     ``axis``: the kept (per-channel) axis; None = per-tensor.
+    ``across``: mesh axes whose ranks hold the other blocks of the
+    dimensions the reduction runs over (a row-parallel projection's K over
+    ``model``, a step's rows over the batch axes), so the minima and
+    maxima are the whole dimensions' (``parallel.tensor_parallel.
+    mesh_amin`` / ``mesh_amax``).
     """
     qmax = (1 << bits) - 1
     if axis is None:
@@ -49,6 +55,10 @@ def calibrate(x: torch.Tensor, bits: int = 4, axis: int | None = None,
     else:
         red = tuple(i for i in range(x.ndim) if i != axis % x.ndim)
         lo, hi = torch.amin(x, dim=red), torch.amax(x, dim=red)
+    if across:
+        from repro_torch.parallel.tensor_parallel import (mesh_amax,
+                                                          mesh_amin)
+        lo, hi = mesh_amin(lo, across), mesh_amax(hi, across)
     if symmetric:
         amax = torch.maximum(lo.abs(), hi.abs())
         lo, hi = -amax, amax
@@ -182,6 +192,20 @@ class QuantizedWeight:
     def __getitem__(self, i) -> "QuantizedWeight":
         """Slice the leading (stacked-layer) axis of every child."""
         return self._map(lambda t: t[i])
+
+    def shard(self, spec: tuple, mesh) -> "QuantizedWeight":
+        """This rank's block under the (K, N) weight's ``spec``
+        (``parallel.sharding``): ``codes`` cut on both dimensions,
+        ``scale`` and ``zero_point`` with N; the tables stay whole, as
+        computed from the whole weight (a shard is never recalibrated).
+        Each cut is its own contiguous tensor, so the kernels' alignment
+        rules see a fresh base."""
+        from repro_torch.parallel.fsdp import shard_leaf
+        kw = {f.name: getattr(self, f.name) for f in fields(self)}
+        kw["codes"] = shard_leaf(self.codes, spec, mesh)
+        for name in ("scale", "zero_point"):
+            kw[name] = shard_leaf(kw[name], spec[-1:], mesh)
+        return QuantizedWeight(**kw)
 
     @property
     def qparams(self) -> QParams:

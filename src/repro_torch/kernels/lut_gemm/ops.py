@@ -41,22 +41,28 @@ from repro_torch.kernels.lut_gemm.lut_gemm import (lut_gemm, lut_gemm_dc,
                                                    lut_gemm_dc_res)
 
 
-def codebook_quantize(w: torch.Tensor, codebook
+def codebook_quantize(w: torch.Tensor, codebook, split: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel absmax normalise + nearest-codebook-entry encode
     -> (codes (K, N) int8, scale (N,) f32).  The normalisation runs in
-    ``w``'s dtype, as in JAX."""
-    scale = torch.clamp_min(torch.amax(torch.abs(w), dim=0), 1e-8)
+    ``w``'s dtype, as in JAX.  ``split``: ``w`` is this rank's block of
+    rows in a row-parallel split, and the absmax the whole K's
+    (``core.layers.nf4_absmax``), so the codes are the matching block of
+    the whole weight's."""
+    from repro_torch.core.layers import nf4_absmax
+    scale = nf4_absmax(w, split)
     codes = nf4_encode(w / scale, codebook)
     return codes, scale.float()
 
 
-def nf4_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def nf4_matmul_kernel(x: torch.Tensor, w: torch.Tensor,
+                      split: bool = False) -> torch.Tensor:
     """``(x @ NF4[codes]) * absmax`` -> (M, N) f32 through the full-table
-    LUT GEMM.  x: (M, K) f32/bf16; w: (K, N) float.  Where x or w needs a
-    gradient the call goes through :class:`NF4MatmulFn` (the same forward
-    result, bitwise)."""
-    codes, scale = codebook_quantize(w, NF4_CODEBOOK)
+    LUT GEMM.  x: (M, K) f32/bf16; w: (K, N) float (``split``: this
+    rank's rows of a row-parallel split; the result is its partial sum).
+    Where x or w needs a gradient the call goes through
+    :class:`NF4MatmulFn` (the same forward result, bitwise)."""
+    codes, scale = codebook_quantize(w, NF4_CODEBOOK, split)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return NF4MatmulFn.apply(x, codes, scale)
     return lut_gemm(x, codes, torch.as_tensor(NF4_CODEBOOK, device=w.device),

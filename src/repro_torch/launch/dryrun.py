@@ -16,10 +16,13 @@ For each supported cell this module:
      :mod:`repro_torch.launch.accounting` and extrapolates to full depth;
   5. writes the record to ``results_torch/dryrun/<cell>.json``.
 
-What is counted is what the port runs, not what XLA would compile: ranks
-along ``model`` compute the same rows (``"model_axis_compute":
-"replicated"``; tensor-parallel compute is ROADMAP queue 1 item 9d), so
-the roofline shows what that item would buy.  Where the port has no code
+What is counted is what the port runs, not what XLA would compile: the
+dense GQA decoder's attention heads, FFN hidden dimension and vocabulary
+are split over ``model`` (:mod:`repro_torch.parallel.tensor_parallel`),
+while the experts, MLA, the SSM and hybrid mixers and whisper compute the
+same rows on every rank of the axis (ROADMAP queue 1 item 9d); the record's
+``"model_axis_compute"`` says which part does which
+(``tensor_parallel.describe``).  Where the port has no code
 path for a cell, the record is a skip naming the reason; nothing is
 invented.  The argument bytes are rank 0's share of the params, the AdamW
 moments, the batch and the caches under JAX's specs (exact); the saved
@@ -58,6 +61,7 @@ from repro_torch.models.registry import (ARCH_IDS, cell_supported,
                                          get_config, get_model, input_specs)
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel import fsdp
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.act_sharding import activation_sharding
 from repro_torch.parallel.sharding import (batch_specs, cache_specs,
                                            param_specs)
@@ -115,7 +119,9 @@ def port_gap(cfg, shape: ShapeConfig, mesh_shape: dict, quant: str
                     f"over a model axis > 1 ({ITEM_9D})")
         if cfg.decode_attn != "sharded":
             return ("SKIP: decode over a model axis > 1 needs "
-                    "decode_attn='sharded': the port has no cache-gathering "
+                    "decode_attn='sharded' (the port runs it, with "
+                    "serve_param_sharding='tp' on split weights: hillclimb's "
+                    "sharded_decode+tp): the port has no cache-gathering "
                     f"decode ({ITEM_9D})")
     return None
 
@@ -138,11 +144,16 @@ def argument_bytes(cfg, shape: ShapeConfig, mesh, model, quant: str
     two f32 moments and step for training, the batch (``input_specs``) and
     the caches (``init_cache`` of the global batch, ``cache_specs``).
     Frozen decode weights (an engine-level ``quant``) stay whole on every
-    rank, as the port serves them."""
+    rank under ``serve_param_sharding="fsdp"``, as the port serves them;
+    under ``"tp"`` each rank holds its model shard
+    (``tensor_parallel.serving_model``)."""
     tree = model.params_tree()
     out = {}
-    if quant in ENGINE_QUANT_MODES and shape.kind == "decode":
+    if (quant in ENGINE_QUANT_MODES and shape.kind == "decode"
+            and cfg.serve_param_sharding != "tp"):
         out["params"] = cost.tree_bytes(quantize_decode_params(tree, quant))
+    elif quant in ENGINE_QUANT_MODES and shape.kind == "decode":
+        out["params"] = _frozen_shard_bytes(tree, quant, mesh)
     else:
         serve_tp = (shape.kind != "train"
                     and cfg.serve_param_sharding == "tp")
@@ -164,6 +175,29 @@ def argument_bytes(cfg, shape: ShapeConfig, mesh, model, quant: str
             for part in _global_cache(cfg, shape, model))
     out["total"] = sum(out.values())
     return out
+
+
+def _frozen_shard_bytes(tree, quant: str, mesh) -> int:
+    """Rank 0's bytes of the frozen decode tree cut by
+    ``param_specs(serve_tp=True)``: a ``QuantizedWeight``'s codes, scales
+    and zero points by the weight's spec, its tables whole."""
+    from repro_torch.core.quant import QuantizedWeight
+    frozen = quantize_decode_params(tree, quant)
+    specs = fsdp.flat_specs(param_specs(tree, mesh, serve_tp=True))
+    total = 0
+    for leaf, spec in zip(leaves(frozen), specs):
+        if not isinstance(leaf, QuantizedWeight):
+            total += cost.shard_bytes(tuple(leaf.shape), leaf.element_size(),
+                                      spec, mesh)
+            continue
+        for name, t in vars(leaf).items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            sp = {"codes": spec, "scale": spec[-1:],
+                  "zero_point": spec[-1:]}.get(name, ())
+            total += cost.shard_bytes(tuple(t.shape), t.element_size(), sp,
+                                      mesh)
+    return total
 
 
 def _global_cache(cfg, shape, model) -> list:
@@ -202,7 +236,9 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, *, quant: str = "bf16",
     ``mesh``, and ``model`` the model it runs (built on ``meta`` when not
     given; a given one is unsharded and on ``device``).  The params are
     sharded under JAX's specs; frozen decode weights (an engine-level
-    ``quant``) are not sharded, as the engine serves them."""
+    ``quant``) are cut to rank 0's model shard under
+    ``serve_param_sharding="tp"`` (``tensor_parallel.serving_model``),
+    and stay whole under ``"fsdp"``, as the engine serves them."""
     if model is None:
         model = get_model(cfg, device=device)
     engine_quant = quant in ENGINE_QUANT_MODES
@@ -217,8 +253,7 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, *, quant: str = "bf16",
     rows, _ = local_rows(batch, mesh)
     b = next(iter(rows.values())).shape[0]
     if shape.kind == "decode" and engine_quant:
-        frozen = quantize_decode_params(model.params_tree(), quant)
-        model = type(model).from_params(cfg, frozen, device=device)
+        model = tp.serving_model(model, mesh, quant)
     else:
         serve_tp = cfg.serve_param_sharding == "tp"
         fsdp.shard_model(model, mesh, param_specs(model.params_tree(), mesh,
@@ -276,9 +311,10 @@ def count_cell(cfg, shape: ShapeConfig, mesh_shape: tuple,
     depth on a ``mesh_shape`` mesh, inside a fake world of that size."""
     t0 = time.time()
     with fake_world(math.prod(mesh_shape)):
-        run, _ = prepare_step(cfg, shape, Mesh(mesh_shape, axes),
-                              quant=quant)
+        run, model = prepare_step(cfg, shape, Mesh(mesh_shape, axes),
+                                  quant=quant)
         rec = count_step(run, shape.kind == "train")
+        rec["model_axis_compute"] = tp.describe(model)
     rec["count_s"] = round(time.time() - t0, 2)
     rec["num_layers"] = cfg.num_layers
     return rec
@@ -304,6 +340,7 @@ def account_cell(arch: str, shape_name: str, multi_pod: bool,
     out["probes"] = [{"num_layers": r["num_layers"], "flops": r["flops"],
                       "count_s": r["count_s"], "kernels": r["kernels"]}
                      for r in recs]
+    out["model_axis_compute"] = recs[-1]["model_axis_compute"]
     return out
 
 
@@ -337,7 +374,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "status": "ok", "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16", "chips": chips,
         "quant": quant, "device": "meta", "constants": CONSTANTS,
-        "model_axis_compute": "replicated",
+        "model_axis_compute": acct["model_axis_compute"],
         "n_params": n_params, "n_active_params": n_active,
         "count_s": round(time.time() - t0, 2),
         "flops": flops, "bytes": nbytes, "collective_bytes": coll,

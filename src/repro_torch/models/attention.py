@@ -34,6 +34,11 @@ or a :class:`KVShard` that ``shard_cache`` cut) runs
 :mod:`repro_torch.serve.decode_attention` over the mesh's model group,
 GQA in f32 or ``bf16_grouped``, MLA on the f32 absorbed ``q_nope·W_uk``
 and ``·W_uv``; verify windows and prefill stay on the local path.
+Tensor-parallel GQA (``GQAAttention.split``, set by
+:func:`repro_torch.parallel.tensor_parallel.plan` on a sharded model):
+the block computes its ``model`` shard of the heads, Megatron's
+column-parallel ``wq``/``wk``/``wv`` and row-parallel ``wo``
+(:meth:`GQAAttention._split_forward`); MLA stays gathered.
 """
 from __future__ import annotations
 
@@ -47,7 +52,9 @@ from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.common import (PagedRows, WindowTarget, apply_rope,
                                        paged_gather, paged_write, set_leaf,
                                        write_window)
-from repro_torch.parallel.act_sharding import current_mesh
+from repro_torch.parallel import tensor_parallel as tp
+from repro_torch.parallel.act_sharding import (current_mesh, model_rank,
+                                               model_size)
 
 
 class KVCache(NamedTuple):
@@ -227,13 +234,18 @@ def gqa_shapes(cfg, num_heads=None, num_kv_heads=None, head_dim=None
 
 class GQAAttention(nn.Module):
     """``num_heads``, ``num_kv_heads``, ``head_dim``: overrides of
-    ``cfg``'s (the hybrid's shared block)."""
+    ``cfg``'s (the hybrid's shared block).  ``split``: None, or the
+    mode of the K/V leaves that ``tensor_parallel.plan`` set
+    (``tensor_parallel.LOCAL``: column shards; ``WHOLE``: whole leaves):
+    the block computes its ``model`` shard of the heads
+    (:meth:`_split_forward`)."""
 
     def __init__(self, cfg, params: dict, *, num_heads=None,
                  num_kv_heads=None, head_dim=None):
         super().__init__()
         self.cfg = cfg
         self.heads = gqa_heads(cfg, num_heads, num_kv_heads, head_dim)
+        self.split = None
         for name in gqa_shapes(cfg):
             set_leaf(self, name, params[name])
 
@@ -258,6 +270,9 @@ class GQAAttention(nn.Module):
         slab or pool); ``n_valid`` (B,): its real tokens a row, the rest
         write nowhere (or on the garbage block) and are masked out of
         attention through ``kv_len``."""
+        if self.split is not None:
+            return self._split_forward(x, positions, cache, cache_index,
+                                       paged, window, n_valid, causal)
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, dh = self.heads
@@ -291,13 +306,90 @@ class GQAAttention(nn.Module):
                 cache, k, v, cache_index=cache_index, paged=paged,
                 window=window, n_valid=n_valid)
 
-        out = sdpa(q, k, v, causal=causal and kv_x is None,
-                   q_offset=q_offset, kv_len=kv_len,
-                   impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-                   f32_operands=cfg.attn_f32, fused_mask=cfg.attn_fused_mask,
-                   causal_skip=cfg.attn_causal_skip)
+        out = self._sdpa(q, k, v, causal=causal and kv_x is None,
+                         q_offset=q_offset, kv_len=kv_len)
         out = out.reshape(b, s, h * dh)
         return quant_matmul(out, self.wo, cfg.quant, "attn"), cache
+
+    def _sdpa(self, q, k, v, **kw):
+        cfg = self.cfg
+        return sdpa(q, k, v, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                    f32_operands=cfg.attn_f32,
+                    fused_mask=cfg.attn_fused_mask,
+                    causal_skip=cfg.attn_causal_skip, **kw)
+
+    def _split_forward(self, x, positions, cache, cache_index, paged,
+                       window, n_valid, causal):
+        """The block split over the mesh's model axis (Megatron's
+        attention): ``x`` enters through ``tensor_parallel.copy``; ``wq``
+        holds this rank's heads' columns and ``wo`` their rows, whose
+        partial output ``tensor_parallel.reduce`` sums.  Cacheless, the
+        rank attends over its own heads: K/V from its column shards
+        (whole KV heads), or, where the KV heads do not divide the axis,
+        the KV heads its query heads read, projected from the whole
+        ``wk``/``wv``.  With a cache (prefill, the decode step, verify
+        windows) q/k/v are gathered to every head first
+        (``tensor_parallel.gather``, fresh tensors: the cache write never
+        aliases them), the step runs as unsplit on the cache's layout
+        (the sharded decode's: sequence-sharded, all heads), and the rank
+        keeps its heads of the output for ``wo``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, hkv, dh = self.heads
+        m, r = model_size(), model_rank()
+        hq = h // m
+        kv_shard = self.split == tp.LOCAL
+        x = tp.copy(x)
+
+        def proj(w, split_k=False):
+            return quant_matmul(x, w, cfg.quant, "attn", split_k)
+        if cache is None:
+            q = proj(self.wq).reshape(b, s, hq, dh)
+            if kv_shard:
+                k, v = (proj(w).reshape(b, s, hkv // m, dh)
+                        for w in (self.wk, self.wv))
+            else:
+                # the KV heads this rank's query heads read
+                g = h // hkv
+                lo, hi = r * hq // g, ((r + 1) * hq - 1) // g + 1
+                cols = slice(lo * dh, hi * dh)
+                k, v = (proj(w[:, cols]).reshape(b, s, hi - lo, dh)
+                        for w in (self.wk, self.wv))
+                if hq % g and g % hq:     # the heads straddle groups
+                    idx = (torch.arange(r * hq, (r + 1) * hq,
+                                        device=x.device) // g - lo)
+                    k, v = k.index_select(2, idx), v.index_select(2, idx)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            out = self._sdpa(q, k, v, causal=causal).reshape(b, s, hq * dh)
+            return tp.reduce(quant_matmul(out, self.wo, cfg.quant, "attn",
+                                          True)), cache
+
+        q = tp.gather(proj(self.wq)).reshape(b, s, h, dh)
+        k, v = ((tp.gather(proj(w)) if kv_shard else proj(w))
+                .reshape(b, s, hkv, dh) for w in (self.wk, self.wv))
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        mesh = (current_mesh() if s == 1 and window is None
+                and cfg.decode_attn == "sharded" else None)
+        out = None
+        if mesh is not None:
+            from repro_torch.serve import decode_attention as da
+            if da.owns_shard(cache, mesh):
+                out, _, _ = da.sharded_gqa_decode(
+                    q, cache.k, cache.v, k, v, cache_index, mesh,
+                    sm_scale=1.0 / float(dh) ** 0.5,
+                    grouped_bf16=cfg.decode_attn_precision == "bf16_grouped",
+                    block_table=None if paged is None else paged.table)
+        if out is None:
+            k, v, kv_len, q_offset = write_cache(
+                cache, k, v, cache_index=cache_index, paged=paged,
+                window=window, n_valid=n_valid)
+            out = self._sdpa(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len)
+        out = out.reshape(b, s, h * dh)[..., r * hq * dh:(r + 1) * hq * dh]
+        return tp.reduce(quant_matmul(out, self.wo, cfg.quant, "attn",
+                                      True)), cache
 
 
 def mla_shapes(cfg) -> dict[str, tuple[int, int]]:

@@ -11,6 +11,7 @@ from torch import nn
 
 from repro_torch.core.layers import quant_matmul
 from repro_torch.models.common import set_leaf
+from repro_torch.parallel import tensor_parallel as tp
 
 
 def mlp_shapes(cfg, d_ff: int | None = None, mlp_type: str | None = None
@@ -28,21 +29,28 @@ def mlp_shapes(cfg, d_ff: int | None = None, mlp_type: str | None = None
 
 class MLP(nn.Module):
     """``mlp_type``: an override of ``cfg.mlp_type`` (JAX's ``mlp``
-    keyword; the hybrid's shared block is SwiGLU)."""
+    keyword; the hybrid's shared block is SwiGLU).  ``split`` (set by
+    ``tensor_parallel.plan``): the block computes its ``model`` shard of
+    the hidden dimension, ``w_gate``/``w_up`` columns and ``w_down`` rows,
+    between ``tensor_parallel.copy`` and ``reduce`` (Megatron's MLP)."""
 
     def __init__(self, cfg, params: dict, *, mlp_type: str | None = None):
         super().__init__()
         self.cfg = cfg
         self.mlp_type = mlp_type or cfg.mlp_type
+        self.split = False
         for name in mlp_shapes(cfg, mlp_type=self.mlp_type):
             set_leaf(self, name, params[name])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if self.split:
+            x = tp.copy(x)
         up = quant_matmul(x, self.w_up, cfg.quant, "mlp")
         if self.mlp_type == "swiglu":
             gate = quant_matmul(x, self.w_gate, cfg.quant, "mlp")
             h = F.silu(gate) * up
         else:
             h = F.gelu(up, approximate="tanh")
-        return quant_matmul(h, self.w_down, cfg.quant, "mlp")
+        out = quant_matmul(h, self.w_down, cfg.quant, "mlp", self.split)
+        return tp.reduce(out) if self.split else out

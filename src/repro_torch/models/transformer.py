@@ -23,6 +23,14 @@ JAX's sequence-chunked cross entropy (:func:`chunked_xent`) plus the MoE
 blocks' summed load-balance loss, and never holds (S, V) logits for S >
 256.  ``model.requires_grad_()`` makes the float leaves trainable (they
 are frozen parameters by default).
+
+On a mesh (:meth:`TransformerLM.split_over_model`, which
+``parallel.fsdp.shard_model`` and ``parallel.tensor_parallel.
+serving_model`` call) the GQA attention and dense MLP blocks and the
+vocabulary compute their ``model`` shard: a vocab-parallel embedding, a
+vocab-split head whose decode logits are gathered, and a vocab-parallel
+cross entropy (:func:`chunked_xent`'s ``vocab``), JAX's GSPMD split of
+the same specs.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.models.common import (CacheSpec, cache_targets,
 from repro_torch.models.mlp import MLP, mlp_shapes
 from repro_torch.models.moe import MoE, moe_shapes
 from repro_torch.parallel import act_sharding
+from repro_torch.parallel import tensor_parallel as tp
 
 #: the families this module serves (``vlm``: the backbone of
 #: :class:`~repro_torch.models.vlm.VLM`)
@@ -165,6 +174,42 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, p) for p in (params.get("dense_blocks", [])
                                     + list(params["blocks"])))
+        #: (embedding, head) split over the model axis
+        #: (``tensor_parallel.plan``)
+        self.vocab_split = (False, False)
+
+    def split_over_model(self, specs: dict, m: int, serving: bool) -> dict:
+        """Mark the parts that compute their ``model`` shard under
+        ``specs`` (a tree like :meth:`params_tree`) on a model axis of
+        ``m``; returns {leaf path: fsdp mode} of the split leaves
+        (``tensor_parallel.plan``).  Per block: GQA attention
+        (``tensor_parallel.attn_plan``) and a dense MLP
+        (``mlp_plan``), each unless its projections run a ``luna_*`` mode;
+        MLA and the experts stay gathered.  The vocabulary: the embedding
+        when ``embed``'s rows, the head when ``lm_head``'s columns (tied:
+        ``embed``'s rows) are split."""
+        cfg = self.cfg
+        modes = {}
+        per = specs.get("dense_blocks", []) + list(specs["blocks"])
+        names = ([f"dense_blocks/{i}" for i in range(self.n_dense)]
+                 + [f"blocks/{i}" for i in range(len(per) - self.n_dense)])
+        for blk, bspec, name in zip(self.blocks, per, names):
+            if isinstance(blk.attn, GQAAttention) and tp.splits_quant(
+                    cfg, "attn"):
+                blk.attn.split, got = tp.attn_plan(
+                    bspec["attn"], blk.attn.heads, m, serving=serving)
+                modes.update({f"{name}/attn/{k}": v for k, v in got.items()})
+            if not blk.use_moe and tp.splits_quant(cfg, "mlp"):
+                blk.mlp.split, got = tp.mlp_plan(bspec["mlp"])
+                modes.update({f"{name}/mlp/{k}": v for k, v in got.items()})
+        emb = tp.row(specs["embed"])
+        head = emb if cfg.tie_embeddings else tp.col(specs["lm_head"])
+        self.vocab_split = (emb, head)
+        if emb:
+            modes["embed"] = tp.LOCAL
+        if head and not cfg.tie_embeddings:
+            modes["lm_head"] = tp.LOCAL
+        return modes
 
     @classmethod
     def from_params(cls, cfg, params: dict, device=None) -> "TransformerLM":
@@ -241,7 +286,12 @@ class TransformerLM(nn.Module):
         window (JAX's ``n_valid`` through the blocks), whose write targets
         are computed once here for every layer.  ``training`` with
         ``cfg.remat`` recomputes each block in the backward."""
-        x = F.embedding(tokens, self.embed) if embeds is None else embeds
+        if embeds is not None:
+            x = embeds
+        elif self.vocab_split[0]:
+            x = tp.embedding(tokens, self.embed)
+        else:
+            x = F.embedding(tokens, self.embed)
         s = x.shape[1]
         positions = token_positions(s, cache_index, x.device)
         paged, window = cache_targets(
@@ -263,6 +313,11 @@ class TransformerLM(nn.Module):
         return rms_norm(x, self.ln_f, self.cfg.norm_eps), aux, new_caches
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(..., V) logits; a vocab-split head's are gathered over the
+        model axis, so every rank (greedy, sampling) sees the whole row."""
+        if self.vocab_split[1]:
+            return tp.gather(quant_matmul(tp.copy(hidden), self._head(),
+                                          None))
         return quant_matmul(hidden, self._head(), None)
 
     def _head(self) -> torch.Tensor:
@@ -277,8 +332,11 @@ class TransformerLM(nn.Module):
         hidden, aux, _ = self.forward_aux(batch.get("tokens"),
                                           embeds=batch.get("embeds"),
                                           training=True)
-        xent = chunked_xent(hidden, self._head(), batch["labels"],
-                            batch.get("loss_mask"))
+        head, vocab = self._head(), None
+        if self.vocab_split[1]:
+            hidden, vocab = tp.copy(hidden), tp.vocab_shard(head.shape[1])
+        xent = chunked_xent(hidden, head, batch["labels"],
+                            batch.get("loss_mask"), vocab=vocab)
         return xent + aux, {"xent": xent, "aux": aux}
 
     # ---------------- serving ----------------
@@ -345,7 +403,8 @@ class TransformerLM(nn.Module):
 
 def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
                  labels: torch.Tensor, mask: torch.Tensor | None = None,
-                 chunk: int = 256) -> torch.Tensor:
+                 chunk: int = 256, vocab: "tp.VocabShard | None" = None
+                 ) -> torch.Tensor:
     """Sequence-chunked cross entropy (JAX's ``chunked_xent``): the
     logits of one ``chunk`` of positions at a time, summed in order.
     Under autograd each chunk is recomputed in the backward, so (S, V)
@@ -356,10 +415,17 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
     (``act_sharding.batch_sum``), so each rank's loss is its rows' sum
     over the global count and the ranks' losses and gradients sum to
     JAX's; an unmasked mean is the rank's mean over the rank count (every
-    rank holds equally many rows)."""
+    rank holds equally many rows).
+
+    ``vocab``: ``head`` holds this rank's columns of the vocabulary
+    (``tensor_parallel.vocab_shard``), and the log-partition and gold
+    logit come from the ranks' shards (``tensor_parallel.xent_parts``);
+    on a one-rank model axis the ops are the unsplit ones."""
     b, s, _ = hidden.shape
+    if vocab is not None and vocab.ranks == 1:
+        vocab = None
     if s <= chunk:
-        return _xent((hidden @ head).float(), labels, mask)
+        return _xent((hidden @ head).float(), labels, mask, vocab)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the loss "
                          f"chunk {chunk}")
@@ -368,8 +434,7 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
 
     def piece(h, lab, m):
         logits = (h @ head).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        logz, gold = _logz_gold(logits, lab, vocab)
         return ((logz - gold) * m).sum(), m.sum()
 
     run = piece
@@ -385,11 +450,16 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
     return tot / torch.clamp_min(act_sharding.batch_sum(cnt.detach()), 1.0)
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor,
-          mask: torch.Tensor | None = None) -> torch.Tensor:
-    logits = logits.float()
+def _logz_gold(logits, labels, vocab):
+    if vocab is not None:
+        return tp.xent_parts(logits, labels, vocab)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz, torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          mask: torch.Tensor | None = None, vocab=None) -> torch.Tensor:
+    logz, gold = _logz_gold(logits.float(), labels, vocab)
     nll = logz - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp_min(

@@ -21,14 +21,17 @@ Recomputation in the backward can run on autograd's device thread, so
 ``models.common.remat_of`` takes a :func:`snapshot` at the forward and
 re-enters it (:func:`restored`) for the recompute.
 
-JAX's ``shard_hidden`` / ``shard_heads`` are not here.  They are XLA
-placement hints for sequence and head parallelism and never change a
-value, so a port step equals JAX's with or without them.  Under
-``torch.distributed`` the ranks of the ``model`` axis compute the same
-rows redundantly; tensor- and sequence-parallel compute over ``model``
-(Megatron splits of heads, FFN hidden, vocabulary and experts, these
-hints as sequence and head parallelism) is ROADMAP queue 1 item 9d.
-``sequence_parallel`` is kept in the context for them.
+Tensor-parallel compute (:mod:`repro_torch.parallel.tensor_parallel`)
+reads the mesh's model group here (:func:`model_group`,
+:func:`model_rank`, :func:`model_size`): a model sharded over a mesh
+splits the attention heads, the FFN hidden dimension and the vocabulary
+of the dense GQA decoder over ``model`` (Megatron's splits, which JAX's
+GSPMD computes from the same specs).  Still replicated along ``model``
+(ROADMAP queue 1 item 9d): the experts, MLA's heads, the SSM and hybrid
+mixers and whisper's blocks.  JAX's ``shard_hidden`` / ``shard_heads``
+are not here either: they are XLA placement hints for sequence and head
+parallelism and never change a value, so a port step equals JAX's with or
+without them; ``sequence_parallel`` is kept in the context for them.
 """
 from __future__ import annotations
 
@@ -45,8 +48,11 @@ _CTX = threading.local()
 #: collectives a mesh step issued: "rows" (a forward all-reduce of
 #: :func:`batch_sum`), :mod:`~repro_torch.parallel.fsdp`'s "gather" (a
 #: leaf at use) and "grad" (a gradient's sum over the row axes), AdamW's
-#: "norm" (the global norm's all-reduce) and the gradient compression's
-#: "compress" (its scales' all-reduce); beside each, ``"<kind>_bytes"``,
+#: "norm" (the global norm's all-reduce), the gradient compression's
+#: "compress" (its scales' all-reduce) and
+#: :mod:`~repro_torch.parallel.tensor_parallel`'s "tp_reduce" (every
+#: all-reduce over the model group) and "tp_gather" (its all-gathers);
+#: beside each, ``"<kind>_bytes"``,
 #: the payload: the whole tensor the collective acts on (an all-gather's
 #: output), as :mod:`repro_torch.launch.cost`'s ledger counts it
 counts: Counter = Counter()
@@ -92,6 +98,28 @@ def rows_axes() -> tuple[str, ...]:
     """The axes the current step's rows are split over (``()`` outside a
     mesh step)."""
     return _state().get("rows", ()) if current_mesh() is not None else ()
+
+
+def model_group():
+    """The ``ProcessGroup`` of the active mesh's ``model`` axis (None
+    outside a mesh context, or on a mesh without that axis)."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    return mesh.group(("model",))
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the active mesh's ``model`` axis (0
+    outside one)."""
+    mesh = current_mesh()
+    return mesh.coords.get("model", 0) if mesh is not None else 0
+
+
+def model_size() -> int:
+    """The size of the active mesh's ``model`` axis (1 outside one)."""
+    mesh = current_mesh()
+    return mesh.shape.get("model", 1) if mesh is not None else 1
 
 
 def snapshot():

@@ -22,18 +22,30 @@ XLA inserts the all-gathers and reduce-scatters.  Here they are explicit:
 * the gather's backward returns this rank's block of the gradient, summed
   over the batch axes that split the step's rows
   (:func:`~repro_torch.parallel.act_sharding.rows_axes`) and NOT over
-  ``model``, whose ranks computed the same rows;
+  ``model``: a split leaf's model block is this rank's own, and a
+  replicated leaf (``ln1``, ``ln2``, ``ln_f``) acts on rows that every
+  rank along ``model`` holds whole;
+* tensor-parallel compute (:mod:`repro_torch.parallel.tensor_parallel`):
+  :func:`shard_model` asks the model's plan which leaves its blocks
+  compute split.  Such a leaf (:data:`~repro_torch.parallel.
+  tensor_parallel.LOCAL`) is gathered over its spec's other axes only
+  and the rank computes with its ``model`` block.  A leaf a split block
+  uses whole, each rank its own part of it (:data:`~repro_torch.parallel.
+  tensor_parallel.WHOLE`: K/V where the KV heads do not divide the axis),
+  is gathered over every axis and its gradient summed over the row axes
+  AND ``model``, since each rank's gradient is then only its part;
 * the few places where rows meet (the cross entropy's token count, the
   MoE load-balance means) sum over those ranks in the models, through
   :mod:`repro_torch.parallel.act_sharding`'s ``batch_sum``.
 
-Compute stays data-parallel: ranks along ``model`` hold the same rows
-and compute them redundantly (tensor-parallel compute is ROADMAP queue 1
-item 9d).  The gathers and gradient reductions are counted in
-``act_sharding.counts`` (``"gather"``, ``"grad"`` and their payloads'
-``"gather_bytes"``, ``"grad_bytes"``; ``counts`` here is the same
-object), for the card's check that a step took this path and the dry
-run's check that its collective ledger is the traffic a step issues.
+What the plan does not split (the experts, MLA, the SSM and hybrid
+mixers, whisper) ranks along ``model`` compute redundantly on the whole
+leaves (ROADMAP queue 1 item 9d).  The gathers and gradient reductions
+are counted in ``act_sharding.counts`` (``"gather"``, ``"grad"`` and
+their payloads' ``"gather_bytes"``, ``"grad_bytes"``; ``counts`` here is
+the same object), for the card's check that a step took this path and
+the dry run's check that its collective ledger is the traffic a step
+issues.
 """
 from __future__ import annotations
 
@@ -46,9 +58,10 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.act_sharding import counts, note, rows_axes
 from repro_torch.parallel.sharding import param_specs
-from repro_torch.tree import leaves_with_path
+from repro_torch.tree import leaves_with_path, path_key
 
 _RAW = threading.local()
 
@@ -106,14 +119,26 @@ def gather_leaf(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return out
 
 
+def _without_model(spec: tuple) -> tuple:
+    return tuple(None if ax == "model" else ax for ax in spec)
+
+
 class GatherLeaf(torch.autograd.Function):
-    """Forward: the whole leaf (:func:`gather_leaf`).  Backward: the
-    gradient summed over the step's row axes, then this rank's block."""
+    """Forward: the whole leaf (:func:`gather_leaf`), or under ``mode``
+    :data:`~repro_torch.parallel.tensor_parallel.LOCAL` its ``model``
+    block (gathered over the other axes).  Backward: the gradient summed
+    over the step's row axes (and over ``model`` under
+    :data:`~repro_torch.parallel.tensor_parallel.WHOLE`), then this rank's
+    block."""
 
     @staticmethod
-    def forward(ctx, shard, spec, mesh):
+    def forward(ctx, shard, spec, mesh, mode=None):
+        if mode == tp.LOCAL:
+            spec = _without_model(spec)
         ctx.spec, ctx.mesh = spec, mesh
         axes = rows_axes()
+        if mode == tp.WHOLE:
+            axes = mesh.canonical(axes + ("model",))
         ctx.rows = mesh.group(axes) if axes else None
         return gather_leaf(shard, spec, mesh)
 
@@ -127,22 +152,23 @@ class GatherLeaf(torch.autograd.Function):
             note("grad", buf.numel() * buf.element_size())
             grad = buf
         out = block(grad, ctx.spec, ctx.mesh)
-        return (out.clone() if out is not grad else out), None, None
+        return (out.clone() if out is not grad else out), None, None, None
 
 
 class _Gathered(nn.Module):
     """The parametrization of one sharded leaf: ``right_inverse`` keeps
     this rank's block, ``forward`` gathers it at every read (the shard
-    itself inside :func:`raw`)."""
+    itself inside :func:`raw`); ``mode``: the plan's (None: gathered
+    whole)."""
 
-    def __init__(self, spec: tuple, mesh):
+    def __init__(self, spec: tuple, mesh, mode: str | None = None):
         super().__init__()
-        self.spec, self.mesh = spec, mesh
+        self.spec, self.mesh, self.mode = spec, mesh, mode
 
     def forward(self, shard):
         if getattr(_RAW, "on", False):
             return shard
-        return GatherLeaf.apply(shard, self.spec, self.mesh)
+        return GatherLeaf.apply(shard, self.spec, self.mesh, self.mode)
 
     def right_inverse(self, full):
         return shard_leaf(full, self.spec, self.mesh)
@@ -176,17 +202,21 @@ def shard_model(model, mesh, specs=None):
     layout ``param_specs(..., serve_tp=True)``), gathered at each read;
     returns ``model``.  Call it after ``init`` (or a weight load): the
     shard is cut from the full leaf, so every rank starts from the
-    unsharded model's weights."""
+    unsharded model's weights.  The blocks that
+    :func:`~repro_torch.parallel.tensor_parallel.plan` splits compute on
+    their ``model`` blocks (the module docstring)."""
     if getattr(model, "fsdp_specs", None) is not None:
         raise ValueError("the model is already sharded")
     tree = model.params_tree()
     if specs is None:
         specs = param_specs(tree, mesh)
+    modes = tp.plan(model, specs, mesh)
     owners = _owners(model)
-    for (_, leaf), spec in zip(leaves_with_path(tree), flat_specs(specs)):
+    for (path, leaf), spec in zip(leaves_with_path(tree), flat_specs(specs)):
         module, name = owners[id(leaf)]
         parametrize.register_parametrization(
-            module, name, _Gathered(spec, mesh), unsafe=True)
+            module, name, _Gathered(spec, mesh, modes.get(path_key(path))),
+            unsafe=True)
     model.fsdp_specs = specs
     return model
 

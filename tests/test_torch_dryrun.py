@@ -21,8 +21,9 @@ after this file.  The job checks the world is gone after each cell.
   of K and V under both settings.  Every variant's override names a field
   of the port's ``ModelConfig``, and the variants are JAX's.
 * The CLI at full width: ``--arch yi-9b --shape train_4k`` writes an
-  ``ok`` record on meta with H100 constants and the replicated model
-  axis; decode without ``decode_attn="sharded"`` and yi-9b's
+  ``ok`` record on meta with H100 constants, attention, MLP and
+  vocabulary split over the model axis and the FLOPs a rank in the
+  predicted range; decode without ``decode_attn="sharded"`` and yi-9b's
   ``long_500k`` are skips whose reasons name a ROADMAP item or
   ``cell_supported``; ``hillclimb``'s ``sharded_decode+tp`` maps
   ``serve_param_sharding="tp"`` to ``param_specs(serve_tp=True)``.
@@ -197,9 +198,11 @@ def test_dots_saves_exactly_the_blocks_products(job):
     lower by exactly them (and the bmm's are recomputed under both)."""
     nothing, dots = job["remat", "nothing"], job["remat", "dots"]
     # reduced yi-9b: D 128, 4 heads and 2 KV heads of 32, d_ff 256; 4
-    # layers; 4 of the 8 rows on each rank of (2, 2), 64 tokens each
-    d, h, hkv, hd, f, layers, tokens = 128, 4, 2, 32, 256, 4, 4 * 64
-    rerun = d * h * hd + 2 * d * hkv * hd + h * hd * d + 2 * d * f
+    # layers; 4 of the 8 rows on each rank of (2, 2), 64 tokens each; the
+    # heads (KV heads too: 2 divide the model axis of 2) and d_ff split
+    # over model, so a rank runs 1/2 of each product
+    d, h, hkv, hd, f, layers, tokens, m = 128, 4, 2, 32, 256, 4, 4 * 64, 2
+    rerun = (d * h * hd + 2 * d * hkv * hd + h * hd * d + 2 * d * f) // m
     assert nothing["flops"] - dots["flops"] == 2 * tokens * rerun * layers
     assert nothing["collectives"] == dots["collectives"]
 
@@ -236,7 +239,13 @@ def test_cli_records(job):
     assert rec["status"] == "ok"
     assert rec["device"] == "meta"
     assert rec["constants"] == "NVIDIA H100 SXM data sheet"
-    assert rec["model_axis_compute"] == "replicated"
+    # heads, FFN hidden and vocabulary split over model; the counted
+    # FLOPs a rank fall >= 10x from the replicated compute's 5.05e15,
+    # into the 3.2-3.6e14 predicted in PERF.md
+    assert rec["model_axis_compute"] == {"attention": "split",
+                                         "mlp": "split", "vocab": "split"}
+    assert 3.2e14 <= rec["flops"] <= 3.6e14
+    assert 0.60 <= rec["useful_flops_ratio"] <= 0.69
     assert rec["chips"] == 256 and rec["n_params"] == 8829407232
     mem = rec["memory"]
     assert mem["bytes_per_device_peak_estimate"] == (

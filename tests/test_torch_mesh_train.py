@@ -284,15 +284,18 @@ def test_collective_ledger_equals_the_gloo_traffic(ranks, arch, mesh):
     """The dry run's collective ledger of the same reduced step on the same
     mesh (rank 0, counted on meta tensors in a fake world,
     ``launch.dryrun.count_cell``) equals what each gloo rank's step issued
-    (``act_sharding.counts``): the all-gathers are the leaves' gathers,
-    the all-reduces the gradient sums, the row sums and AdamW's norm; in
+    (``act_sharding.counts``): the all-gathers are the leaves' gathers
+    and the tensor-parallel gathers, the all-reduces the gradient sums,
+    the row sums, AdamW's norm and the tensor-parallel reductions; in
     count and in payload bytes."""
     ledger = ranks["dryrun"][(arch, mesh)]["collectives"]
     for out in ranks["outs"]:
         got = out["steps"][(arch, mesh)]["issued"]
-        assert ledger["all_gather"] == {"count": got["gather"],
-                                        "bytes": got["gather_bytes"]}
-        reduces = ("grad", "rows", "norm")
+        gathers = ("gather", "tp_gather")
+        assert ledger["all_gather"] == {
+            "count": sum(got.get(k, 0) for k in gathers),
+            "bytes": sum(got.get(f"{k}_bytes", 0) for k in gathers)}
+        reduces = ("grad", "rows", "norm", "tp_reduce")
         assert ledger["all_reduce"] == {
             "count": sum(got.get(k, 0) for k in reduces),
             "bytes": sum(got.get(f"{k}_bytes", 0) for k in reduces)}

@@ -1,5 +1,6 @@
 """Rank processes of the port's gloo tests (``test_torch_decode_attention``,
-``test_torch_collectives``, ``test_torch_mesh_train``): imports torch,
+``test_torch_collectives``, ``test_torch_mesh_train``,
+``test_torch_tensor_parallel``): imports torch,
 numpy and the port, never jax.
 
     python tests/torch_ranks.py JOB DIR [RANKS]
@@ -362,8 +363,141 @@ def elastic_job(rank: int, workdir: str) -> dict:
             "world": dist.get_world_size()}
 
 
+# ---------------------------------------------------------------------------
+# job: tensor-parallel compute (test_torch_tensor_parallel)
+# ---------------------------------------------------------------------------
+
+def _recorded_step(model, cfg, batch, mesh) -> dict:
+    """:func:`_mesh_step`, recording the first forward's projections
+    (``quant_matmul`` in attention and the MLP: x's width and w's shape
+    in call order) and the NF4 codes it encodes (``nf4_encode``'s
+    outputs, in call order)."""
+    import repro_torch.core.layers as layers
+    import repro_torch.models.attention as attention
+    import repro_torch.models.mlp as mlp
+
+    calls, codes = [], []
+    qm, enc = layers.quant_matmul, layers.nf4_encode
+
+    def rec_qm(x, w, *a, **kw):
+        calls.append((x.shape[-1], tuple(w.shape)))
+        return qm(x, w, *a, **kw)
+
+    def rec_enc(wn, *a):
+        out = enc(wn, *a)
+        codes.append(out.clone().numpy())
+        return out
+    attention.quant_matmul = mlp.quant_matmul = rec_qm
+    layers.nf4_encode = rec_enc
+    try:
+        out = _mesh_step(model, cfg, batch, mesh)
+    finally:
+        attention.quant_matmul = mlp.quant_matmul = qm
+        layers.nf4_encode = enc
+    per_layer = 7 * cfg.num_layers
+    out["projections"] = calls[:per_layer]
+    out["codes"] = codes[:per_layer]
+    return out
+
+
+def _greedy_decode(model, prefill_model, toks, steps, mesh):
+    """Prefill ``toks`` (full precision, ``prefill_model``), then
+    ``steps`` greedy decode steps of ``model`` (each step's token the last
+    one's argmax), under ``activation_sharding(mesh)`` on this rank's
+    shard of the cache (``mesh``) or on one device (None).  Returns the
+    rank's rows, their logits (steps, rows, V) and tokens (rows, steps)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.parallel.act_sharding import activation_sharding
+    from repro_torch.serve import decode_attention as da
+
+    b, p = toks.shape
+    rows = list(range(b))
+    if mesh is not None and mesh.shape["data"] > 1:
+        n = b // mesh.shape["data"]
+        rows = list(range(mesh.coords["data"] * n,
+                          (mesh.coords["data"] + 1) * n))
+    ctx = (activation_sharding(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    with torch.no_grad(), ctx:
+        cache = prefill_model.init_cache(b, p + steps)
+        lg, cache = prefill_model.prefill(torch.as_tensor(toks), cache)
+        if mesh is not None:
+            cache = da.shard_cache(cache, mesh)
+        lg = lg[rows]
+        seq, out = [], []
+        for i in range(steps):
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            out.append(tok[:, 0].numpy())
+            lg, cache = model.decode_step(tok, cache, p + i)
+            seq.append(lg[:, 0].float().numpy())
+    return {"rows": rows, "logits": np.stack(seq),
+            "tokens": np.stack(out, 1)}
+
+
+def tensor_parallel_job(rank: int, workdir: str) -> dict:
+    """``in.pkl``'s training cases (a mode each; ``self_modes`` also on
+    no mesh) on its meshes through :func:`_recorded_step`, and its decode
+    cases (an engine quant each):
+    the split serving model's greedy decode on each mesh, with the shapes
+    of the frozen leaves it holds; with ``self_ref`` also on no mesh and,
+    on each mesh, the whole-weight layout's (``"fsdp"``)."""
+    from dataclasses import replace
+
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.tree import leaves
+
+    job = _inputs(workdir)
+    meshes = {tuple(s): Mesh(tuple(s), ("data", "model"))
+              for s in job["meshes"]}
+    base = get_config(job["arch"]).reduced(**job["reduced"])
+    out = {"steps": {}, "decode": {}, "coords": {
+        s: m.coords for s, m in meshes.items()}}
+    for mode in job["modes"] + job.get("self_modes", ()):
+        cfg = replace(base, quant=QuantConfig(mode=mode))
+        model = params_from_numpy(job["params"], cfg, "cpu")
+        batch = _torch_batch(job["batch"])
+        if job["self_ref"] or mode in job.get("self_modes", ()):
+            out["steps"][(mode, None)] = _recorded_step(model, cfg, batch,
+                                                        None)
+        for s, mesh in meshes.items():
+            out["steps"][(mode, s)] = _recorded_step(model, cfg, batch,
+                                                     mesh)
+    cfg = replace(base, decode_attn="sharded", serve_param_sharding="tp")
+    model = params_from_numpy(job["params"], cfg, "cpu")
+    # self_ref: also the whole-weight serving layout ("fsdp") on each mesh
+    whole = params_from_numpy(job["params"], replace(
+        cfg, serve_param_sharding="fsdp"), "cpu")
+    runs = [((s,), m, model) for s, m in meshes.items()]
+    if job["self_ref"]:
+        runs += [((None,), None, model)] + [
+            ((s, "whole"), m, whole) for s, m in meshes.items()]
+    for quant in job["decode_quants"]:
+        for key, mesh, src in runs:
+            full = tp.serving_model(src, mesh)
+            frozen = tp.serving_model(src, mesh, quant)
+            got = _greedy_decode(frozen, full, job["prompt"],
+                                 job["steps"], mesh)
+            got["frozen_shapes"] = [
+                {k: tuple(v.shape) for k, v in vars(q).items()
+                 if hasattr(v, "shape")} if hasattr(q, "codes")
+                else tuple(q.shape)
+                for q in leaves(frozen.params_tree())]
+            got["split"] = tp.describe(frozen)
+            out["decode"][(quant, *key)] = got
+    return out
+
+
 JOBS = {"decode": decode_job, "collectives": collectives_job,
-        "mesh_train": mesh_train_job, "elastic": elastic_job}
+        "mesh_train": mesh_train_job, "elastic": elastic_job,
+        "tensor_parallel": tensor_parallel_job}
 
 
 def mesh_train_dryrun(workdir: str) -> dict:
@@ -384,8 +518,28 @@ def mesh_train_dryrun(workdir: str) -> dict:
     return out
 
 
+def tensor_parallel_dryrun(workdir: str) -> dict:
+    """The launcher's part of the tensor_parallel job: the dry run's count
+    of each training case's step on each mesh, by (mode, mesh)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.models.registry import get_config
+
+    job = _inputs(workdir)
+    base = get_config(job["arch"]).reduced(**job["reduced"])
+    b, s = job["batch"]["tokens"].shape
+    shape = ShapeConfig("step", s, b, "train")
+    return {(mode, tuple(m)): count_cell(
+        replace(base, quant=QuantConfig(mode=mode)), shape, tuple(m))
+        for mode in job["modes"] for m in job["meshes"]}
+
+
 #: a job's part run by the launcher after its ranks (``DIR/launcher.pkl``)
-LAUNCHER_JOBS = {"mesh_train": mesh_train_dryrun}
+LAUNCHER_JOBS = {"mesh_train": mesh_train_dryrun,
+                 "tensor_parallel": tensor_parallel_dryrun}
 
 
 def _job(job: str, workdir: str):
