@@ -398,6 +398,27 @@ result line):
       near-tie), the frozen leaves the specs' blocks, ``lut_gemm_dc`` /
       ``_res`` launches 7 a layer a tick, the TP collectives counted;
    the phase prints its seconds;
+19. the moe family split over ``model`` (expert parallelism for the
+   routed experts, the shared experts' and MLA's splits), on a one-rank
+   NCCL group, deepseek-v2-lite-16b at its widths, ``MOE_TP_LAYERS`` deep
+   (its dense first block and 3 MoE blocks):
+   a. as 18a: the mesh step in bf16 and ``lut_nf4`` against the no-mesh
+      step, bitwise; the TP all-reduces at ``MOE_TP_REDUCES`` a layer
+      plus 2; ``lut_gemm`` launches (forward, recompute, dx);
+   b. as 18b on an MoE layer's decode projections (``DSV2_TP_SHAPES``:
+      MLA's wq by columns and wo by rows, w_dkv whole on every rank, the
+      shared experts' w_gate/w_up by columns and w_down by rows) for
+      model axes 4 and 16; rank 0's projections device-only beside the
+      whole layer and their byte bound; and the routed experts' decode
+      products (``experts_timing``): all 64 and each rank's E/m, the
+      ranks' outputs against the whole call, device-only beside the
+      experts' byte bound;
+   c. as 18c: lut4 and nf4 ``decode_step`` at that depth under
+      ``serve_param_sharding="tp"`` and ``decode_attn="sharded"``:
+      logits bitwise the whole-weight layout's, tokens the no-mesh
+      decode's (or the window rule), ``lut_gemm_dc`` / ``_res`` launches
+      6 a layer a tick, the TP collectives counted;
+   the phase prints its seconds;
 each run of 6, 7, 9, 10, 11, 12, 14, 15 and 16 asserting every request finished,
 every logit is finite and each kernel's launch counter (all set to 0
 just before the run, read just after) equals the launches the run made
@@ -6418,11 +6439,15 @@ TP_SPLIT = ("col", "col", "col", "row", "col", "col", "row")
 TP_TICKS, TP_PROMPT = 16, 64
 
 
-def tp_train_phase(dev, mesh, wrappers) -> dict:
-    """Phase 18a: yi-9b at ``TRAIN_LAYERS`` through the mesh step on the
-    one-rank ``mesh`` against the no-mesh step, bf16 and lut_nf4
-    (:func:`mesh_step_run` each, counters set to 0 just before).  Returns
-    the mesh steps' launches."""
+def tp_train_phase(dev, mesh, wrappers, arch: str = "yi-9b",
+                   layers: int = TRAIN_LAYERS, reduces=None,
+                   label: str = "18a") -> dict:
+    """Phase 18a (and 19a): ``arch`` at ``layers`` (yi-9b at
+    ``TRAIN_LAYERS``) through the mesh step on the one-rank ``mesh``
+    against the no-mesh step, bf16 and lut_nf4 (:func:`mesh_step_run`
+    each, counters set to 0 just before), at phase 8's batch.
+    ``reduces``: {mode: (TP all-reduces of a dense layer, of an MoE
+    layer)} (default ``TP_REDUCES``).  Returns the mesh steps' launches."""
     from dataclasses import replace
 
     import torch
@@ -6435,13 +6460,19 @@ def tp_train_phase(dev, mesh, wrappers) -> dict:
     from repro_torch.parallel.fsdp import local_tree
     from repro_torch.tree import leaves
 
-    layers = TRAIN_LAYERS
-    cfg0 = replace(get_config("yi-9b"), num_layers=layers,
-                   attn_impl="chunked")
+    reduces = reduces or {k: (v, v) for k, v in TP_REDUCES.items()}
+    cfg0 = replace(get_config(arch), num_layers=layers, attn_impl="chunked")
+    n_moe = layers - cfg0.moe.first_dense if cfg0.moe else 0
+    # a layer's quant_matmul projections (MLA: wq, w_dkv, wo; GQA's 4;
+    # an MoE layer's shared experts or an MLP's 3)
+    per_layer = (3 if cfg0.mla else 4) + 3
     batch = SyntheticLM(cfg0.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(
         0, dev)
+    want_split = {"attention": "split", "mlp": "split", "vocab": "split"}
+    if n_moe:
+        want_split["experts"] = "split"
     launches = {}
-    for mode in TP_REDUCES:
+    for mode in reduces:
         cfg = replace(cfg0, quant=QuantConfig(mode=mode))
 
         def build():
@@ -6465,9 +6496,11 @@ def tp_train_phase(dev, mesh, wrappers) -> dict:
                 leaves(local_tree(model)), leaves(plain.params_tree())))
         n = len(ref["grads"])
         coll = got["collectives"]
-        want_tp = TP_REDUCES[mode] * layers + 2
-        want_lut = 21 * layers if mode == "lut_nf4" else 0
-        emit({"phase18": "18a", "mode": mode, "layers": layers,
+        dense_r, moe_r = reduces[mode]
+        want_tp = dense_r * (layers - n_moe) + moe_r * n_moe + 2
+        want_lut = 3 * per_layer * layers if mode == "lut_nf4" else 0
+        emit({f"phase{label[:2]}": label,
+              "arch": arch, "mode": mode, "layers": layers,
               "batch": [TRAIN_B, TRAIN_S], "split": split,
               "loss": got["loss"].item(), "bitwise_loss": loss_same,
               "bitwise_grads": grads_same, "bitwise_params": params_same,
@@ -6479,21 +6512,20 @@ def tp_train_phase(dev, mesh, wrappers) -> dict:
               **{f"{k}{sfx}": r[k] for r, sfx in ((got, ""),
                                                   (ref, "_no_mesh"))
                  for k in ("wall_s", "peak_gb", "launches")}})
-        check(split == {"attention": "split", "mlp": "split",
-                        "vocab": "split"},
-              f"phase 18a {mode}: the model computes {split}")
+        check(split == want_split,
+              f"phase {label} {mode}: the model computes {split}")
         check(loss_same and grads_same == n and params_same == n,
-              f"phase 18a {mode}: the split mesh step is not the no-mesh "
-              f"step bitwise (loss {loss_same}, gradients {grads_same} of "
-              f"{n}, params {params_same} of {n})")
+              f"phase {label} {mode}: the split mesh step is not the "
+              f"no-mesh step bitwise (loss {loss_same}, gradients "
+              f"{grads_same} of {n}, params {params_same} of {n})")
         check(coll.get("tp_reduce", 0) == want_tp
               and coll.get("tp_gather", 0) == 0,
-              f"phase 18a {mode}: TP collectives {coll}, want {want_tp} "
-              "all-reduces and no gather")
+              f"phase {label} {mode}: TP collectives {coll}, want "
+              f"{want_tp} all-reduces and no gather")
         check(got["launches"] == ref["launches"]
               and got["launches"]["lut_gemm"] == want_lut
-              and back == (7 * layers if want_lut else 0),
-              f"phase 18a {mode}: launches {got['launches']} (no mesh "
+              and back == (per_layer * layers if want_lut else 0),
+              f"phase {label} {mode}: launches {got['launches']} (no mesh "
               f"{ref['launches']}), backward {back}; want {want_lut} "
               "lut_gemm")
         add_launches(launches, got["launches"])
@@ -6518,15 +6550,18 @@ class RankOf:
         return self.r
 
 
-def tp_shard_phase(dev) -> dict:
-    """Phase 18b: each yi-9b decode projection (random bf16 weights, seed
-    18) frozen whole (lut4's ``lut_dc``, nf4's ``nf4_dc``; ``lut_nf4``'s
-    codes and absmax), cut into each rank's shard by its split
-    (``TP_SPLIT``) for each of ``TP_AXES``, and every shard run in turn:
-    the D&C kernels at M = 8, ``lut_gemm`` at M = 8,192 forward and dx
-    (the backward's call over the transposed codes).  Column shards
-    concatenated and row partials summed against the whole call; routes;
-    rank 0's layer of 7 decode shards device-only."""
+def tp_shard_phase(dev, shapes=None, splits=TP_SPLIT, label: str = "18b",
+                   seed: int = 18) -> dict:
+    """Phase 18b (and 19b): each decode projection of ``shapes`` (yi-9b's
+    ``LAYER_SHAPES``; random bf16 weights from ``seed``) frozen whole
+    (lut4's ``lut_dc``, nf4's ``nf4_dc``; ``lut_nf4``'s codes and
+    absmax), cut into each rank's shard by its split (``splits``: "col",
+    "row", or "whole", a leaf every rank runs whole) for each of
+    ``TP_AXES``, and every shard run in turn: the D&C kernels at M = 8,
+    ``lut_gemm`` at M = 8,192 forward and dx (the backward's call over the
+    transposed codes).  Column shards concatenated and row partials summed
+    against the whole call; routes; rank 0's layer of decode shards
+    device-only beside the whole layer and the shards' byte bound."""
     import torch
 
     from repro_torch.core.lut import NF4_CODEBOOK
@@ -6535,7 +6570,8 @@ def tp_shard_phase(dev) -> dict:
                                                        lut_gemm_dc_res)
     from repro_torch.kernels.lut_gemm.ops import codebook_quantize
 
-    gen = torch.Generator(device=dev).manual_seed(18)
+    shapes = shapes or LAYER_SHAPES
+    gen = torch.Generator(device=dev).manual_seed(seed)
     cb = torch.tensor(NF4_CODEBOOK, device=dev)
     out = {"worst": {}, "routes": {}, "bitwise_col": {}}
 
@@ -6554,29 +6590,34 @@ def tp_shard_phase(dev) -> dict:
         if how == "col":
             out["bitwise_col"][what] = (out["bitwise_col"].get(what, True)
                                         and torch.equal(got, whole))
-        check(err <= TP_SHARD_REL, f"phase 18b {what}: shards {how} off "
+        check(err <= TP_SHARD_REL, f"phase {label} {what}: shards {how} off "
               f"the whole call by {err} of its scale > {TP_SHARD_REL}")
 
     layer_ms = {}
     x8 = {}
-    for (k, n), how in zip(LAYER_SHAPES, TP_SPLIT):
+    for (k, n), how in zip(shapes, splits):
         w = (torch.randn(k, n, device=dev, generator=gen)
              / k ** 0.5).to(torch.bfloat16)
         frozen = {q: quantize_weight(w, kern) for q, kern in
                   (("lut4", "lut_dc"), ("nf4", "nf4_dc"))}
-        codes, absmax = codebook_quantize(w, NF4_CODEBOOK)
         x = x8.setdefault(k, torch.randn(8, k, device=dev, generator=gen)
                           .to(torch.bfloat16))
+        layer_ms.setdefault(1, []).append((frozen, x))
+        if how == "whole":
+            for m in TP_AXES:
+                layer_ms.setdefault(m, []).append((frozen, x))
+            continue
+        codes, absmax = codebook_quantize(w, NF4_CODEBOOK)
         xl = torch.randn(8192, k, device=dev, generator=gen).to(
             torch.bfloat16)
         g = (torch.randn(8192, n, device=dev, generator=gen)
              * absmax).to(torch.bfloat16)
         ones_k = torch.ones(k, device=dev)
-        whole = {q: synced(f"18b whole {q}", lambda q=q: dc(q, x, fq))
+        whole = {q: synced(f"{label} whole {q}", lambda q=q: dc(q, x, fq))
                  for q, fq in frozen.items()}
-        whole["fwd"] = synced("18b whole lut_gemm", lambda: lut_gemm(
+        whole["fwd"] = synced(f"{label} whole lut_gemm", lambda: lut_gemm(
             xl, codes, cb, absmax))
-        whole["dx"] = synced("18b whole dx", lambda: lut_gemm(
+        whole["dx"] = synced(f"{label} whole dx", lambda: lut_gemm(
             g, codes.t().contiguous(), cb, ones_k))
         for m in TP_AXES:
             spec = (None, "model") if how == "col" else ("model", None)
@@ -6599,17 +6640,18 @@ def tp_shard_phase(dev) -> dict:
                     gs, c, a = g, codes[rows].contiguous(), absmax
                     ok = ones_k[rows].contiguous()
                 for q in frozen:
-                    parts[q].append(synced(f"18b {q} shard", lambda q=q: dc(
-                        q, xs, sh[q])))
-                parts["fwd"].append(synced("18b lut_gemm shard", lambda: (
-                    lut_gemm(xls, c, cb, a))))
-                parts["dx"].append(synced("18b dx shard", lambda: lut_gemm(
-                    gs, c.t().contiguous(), cb, ok)))
+                    parts[q].append(synced(f"{label} {q} shard",
+                                           lambda q=q: dc(q, xs, sh[q])))
+                parts["fwd"].append(synced(f"{label} lut_gemm shard",
+                                           lambda: lut_gemm(xls, c, cb, a)))
+                parts["dx"].append(synced(f"{label} dx shard", lambda: (
+                    lut_gemm(gs, c.t().contiguous(), cb, ok))))
                 routes = (lut_gemm_dc.launches_tc,
                           lut_gemm_dc_res.launches_tc,
                           lut_gemm.launches_wgmma)
-                check(routes == (1, 1, 2), f"phase 18b ({k}, {n}) m {m} rank "
-                      f"{r}: tensor-core launches {routes}, want (1, 1, 2)")
+                check(routes == (1, 1, 2), f"phase {label} ({k}, {n}) m {m} "
+                      f"rank {r}: tensor-core launches {routes}, want "
+                      "(1, 1, 2)")
                 if r == 0:
                     layer_ms.setdefault(m, []).append((sh, xs))
             dx_how = "row" if how == "col" else "col"
@@ -6617,20 +6659,20 @@ def tp_shard_phase(dev) -> dict:
                 hold(f"{key} {how}", parts[key], whole[key], how)
             hold(f"dx {dx_how}", parts["dx"], whole["dx"], dx_how)
             out["routes"][f"{k}x{n} m{m}"] = "tc, tc, wgmma x2"
-        layer_ms.setdefault(1, []).append((frozen, x))
         del xl, g, parts, whole
     timed = {}
     for m, calls in layer_ms.items():
         for q in ("lut4", "nf4"):
-            seven = [(sh[q], xs) for sh, xs in calls]
-            timed[f"{q} m{m}"] = 7 * graph_ms(
-                lambda i: dc(q, seven[i % 7][1], seven[i % 7][0]), 7 * 4)
+            row = [(sh[q], xs) for sh, xs in calls]
+            timed[f"{q} m{m}"] = len(row) * graph_ms(
+                lambda i: dc(q, row[i % len(row)][1], row[i % len(row)][0]),
+                len(row) * 4)
         bound = sum(bound_ms(8, sh["lut4"].codes.shape[0],
                              sh["lut4"].codes.shape[1], 2,
                              kcost.DC_TABLE_BYTES)[0] for sh, _ in calls)
         timed[f"bound m{m}"] = bound
     out["layer_device_ms"] = timed
-    emit({"phase18": "18b", **out})
+    emit({f"phase{label[:2]}": label, **out})
     return out
 
 
@@ -6663,12 +6705,13 @@ def greedy_ticks(model, prefill_model, prompts, ticks, mesh=None):
     return torch.stack(toks, 1), torch.stack(logits)
 
 
-def tp_decode_phase(dev, mesh, wrappers) -> dict:
-    """Phase 18c: yi-9b at ``TRAIN_LAYERS``, ``decode_attn="sharded"``:
-    for lut4 and nf4, the no-mesh decode, the whole-weight layout
-    (``serve_param_sharding="fsdp"``) on ``mesh`` and the split one
-    (``"tp"``; counters set to 0 just before it).  Returns the split
-    runs' launches."""
+def tp_decode_phase(dev, mesh, wrappers, arch: str = "yi-9b",
+                    layers: int = TRAIN_LAYERS, label: str = "18c") -> dict:
+    """Phase 18c (and 19c): ``arch`` at ``layers`` (yi-9b at
+    ``TRAIN_LAYERS``), ``decode_attn="sharded"``: for lut4 and nf4, the
+    no-mesh decode, the whole-weight layout (``serve_param_sharding=
+    "fsdp"``) on ``mesh`` and the split one (``"tp"``; counters set to 0
+    just before it).  Returns the split runs' launches."""
     from dataclasses import replace
 
     import torch
@@ -6678,8 +6721,7 @@ def tp_decode_phase(dev, mesh, wrappers) -> dict:
     from repro_torch.parallel import tensor_parallel as tp
     from repro_torch.tree import leaves
 
-    layers = TRAIN_LAYERS
-    cfg = replace(get_config("yi-9b"), num_layers=layers,
+    cfg = replace(get_config(arch), num_layers=layers,
                   decode_attn="sharded", serve_param_sharding="tp")
     model = get_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -6688,6 +6730,12 @@ def tp_decode_phase(dev, mesh, wrappers) -> dict:
     prompts = torch.randint(1, cfg.vocab_size, (8, TP_PROMPT), device=dev,
                             generator=torch.Generator(device=dev)
                             .manual_seed(18))
+    # a layer's frozen projections and the TP gathers of a decode tick
+    # (GQA: q, k, v; MLA: q_abs, q_rope) and of the prefill (GQA: q, k,
+    # v; MLA: none), each step's logits gathered once
+    per_layer = 6 if cfg.mla else 7
+    tick_gathers = (2 if cfg.mla else 3) * layers + 1
+    prefill_gathers = (0 if cfg.mla else 3) * layers + 1
     kern = {"lut4": "lut_gemm_dc", "nf4": "lut_gemm_dc_res"}
     launches = {}
     for quant, name in kern.items():
@@ -6720,36 +6768,47 @@ def tp_decode_phase(dev, mesh, wrappers) -> dict:
             if t is None:
                 rows.append({"row": i, "equal": True})
                 continue
-            top = plain_lg[t, i].topk(2).values
-            marg = (top[0] - top[1]).item()
-            dist = (lg[t - 1 if t else 0, i]
-                    - plain_lg[t - 1 if t else 0, i]).abs().max().item()
+            if t == 0:          # chosen from the prefill's logits
+                rows.append({"row": i, "equal": False,
+                             "first_divergence": 0, "passed": False})
+                continue
+            # token t is chosen from tick t - 1's logits (window_rule's
+            # "at t")
+            marg = margin(plain_lg[t - 1, i])
+            dist = (lg[t - 1, i] - plain_lg[t - 1, i]).abs().max().item()
             rows.append({"row": i, "equal": False, "first_divergence": t,
                          "plain_margin": marg, "logit_distance": dist,
                          "passed": marg <= WINDOW_FACTOR * dist})
-        want = {name: 7 * layers * TP_TICKS}
-        emit({"phase18": "18c", "quant": quant, "layers": layers,
-              "ticks": TP_TICKS, "split": tp.describe(frozen),
+        want = {name: per_layer * layers * TP_TICKS}
+        want_reduce = (2 * layers + 1) * (TP_TICKS + 1)
+        want_gather = tick_gathers * TP_TICKS + prefill_gathers
+        split = tp.describe(frozen)
+        emit({f"phase{label[:2]}": label,
+              "arch": arch, "quant": quant, "layers": layers,
+              "ticks": TP_TICKS, "split": split,
               "bitwise_whole_layout": same_lg,
               "equal_rows": sum(r["equal"] for r in rows),
               "divergences": [r for r in rows if not r["equal"]],
               "launches": counts, "launches_tc": tc, "collectives": coll,
+              "tp_want": [want_reduce, want_gather],
               "wall_s": wall, "frozen_shapes_held": shapes_ok})
-        check(same_lg, f"phase 18c {quant}: the split decode's logits are "
-              "not the whole-weight layout's bitwise")
+        check(set(split.values()) == {"split"},
+              f"phase {label} {quant}: the model computes {split}")
+        check(same_lg, f"phase {label} {quant}: the split decode's logits "
+              "are not the whole-weight layout's bitwise")
         check(all(r["equal"] or r["passed"] for r in rows),
-              f"phase 18c {quant}: tokens outside the window rule: {rows}")
-        check(shapes_ok, f"phase 18c {quant}: a frozen leaf is not its "
+              f"phase {label} {quant}: tokens outside the window rule: "
+              f"{rows}")
+        check(shapes_ok, f"phase {label} {quant}: a frozen leaf is not its "
               "spec's block")
         check(counts[name] == want[name] == tc[name]
               and all(v == 0 for k, v in counts.items() if k != name),
-              f"phase 18c {quant}: launches {counts} (tc {tc}), want "
+              f"phase {label} {quant}: launches {counts} (tc {tc}), want "
               f"{want}")
-        check(coll.get("tp_reduce", 0) == (2 * layers + 1) * TP_TICKS + (
-                  2 * layers + 1)
-              and coll.get("tp_gather", 0) == (3 * layers + 1) * (
-                  TP_TICKS + 1),
-              f"phase 18c {quant}: TP collectives {coll}")
+        check(coll.get("tp_reduce", 0) == want_reduce
+              and coll.get("tp_gather", 0) == want_gather,
+              f"phase {label} {quant}: TP collectives {coll}, want "
+              f"{want_reduce} all-reduces and {want_gather} gathers")
         add_launches(launches, counts)
         del frozen, full
         gc.collect()
@@ -6774,11 +6833,90 @@ def tp_phase(dev) -> dict:
     return launches
 
 
+#: phase 19: deepseek-v2-lite-16b at its published widths, its first
+#: (dense) block and 3 MoE blocks
+MOE_TP_LAYERS = 4
+#: phase 19a: the TP all-reduces a step at one rank, (a dense layer, an
+#: MoE layer): the dense layer's as ``TP_REDUCES`` (MLA's reduce and copy
+#: where GQA's were); an MoE layer's one more, the gates' copy backward
+#: (its tokens' copy is the MLP's; the recompute stops before its reduce);
+#: lut_nf4's wo and shared w_down absmax maxima as the dense layer's
+MOE_TP_REDUCES = {"bf16": (5, 6), "lut_nf4": (11, 12)}
+#: phase 19b: an MoE layer's decode projections as the split cuts them:
+#: MLA's wq (columns: 16 heads of 192), w_dkv (whole on every rank), wo
+#: (rows); the shared experts' w_gate, w_up (columns), w_down (rows)
+DSV2_TP_SHAPES = [(2048, 3072), (2048, 576), (2048, 2048), (2048, 2816),
+                  (2048, 2816), (2816, 2048)]
+DSV2_TP_SPLIT = ("col", "whole", "row", "col", "col", "row")
+
+
+def experts_timing(dev) -> dict:
+    """Phase 19b's routed experts: a decode tick's three batched products
+    (``models.moe.experts``) of deepseek-v2-lite-16b (64 experts of 2048
+    x 1408, bf16, seed 19) on 8 rows' dispatch buffer (capacity 4), all
+    64 experts against rank 0's E/m at each of ``TP_AXES``: the ranks'
+    outputs concatenated over E against the whole call (within
+    ``TP_SHARD_REL`` of its scale), device-only ms beside the expert
+    weights' byte bound."""
+    import torch
+
+    from repro_torch.models.moe import experts
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    e, d, f, cap = 64, 2048, 1408, 4
+
+    def rand(*shape, scale):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(torch.bfloat16)
+    params = {"w_gate": rand(e, d, f, scale=d ** -0.5),
+              "w_up": rand(e, d, f, scale=d ** -0.5),
+              "w_down": rand(e, f, d, scale=f ** -0.5)}
+    xg = rand(1, e, cap, d, scale=1.0)
+    whole = synced("19b experts", lambda: experts(params, xg))
+    out = {"worst": 0.0}
+    for m in (1,) + TP_AXES:
+        n = e // m
+        if m > 1:
+            parts = [synced("19b expert shard", lambda r=r: experts(
+                {k: v[r * n:(r + 1) * n] for k, v in params.items()},
+                xg[:, r * n:(r + 1) * n])) for r in range(m)]
+            err = ((torch.cat(parts, 1) - whole).abs().max()
+                   / whole.abs().max()).item()
+            out["worst"] = max(out["worst"], err)
+            check(err <= TP_SHARD_REL, f"phase 19b experts m {m}: the "
+                  f"ranks' outputs off the whole call by {err}")
+        local = {k: v[:n].contiguous() for k, v in params.items()}
+        x0 = xg[:, :n].contiguous()
+        out[f"device_ms m{m}"] = graph_ms(lambda i: experts(local, x0), 8)
+        out[f"bound_ms m{m}"] = 1e3 * 3 * n * d * f * 2 / HBM_BYTES_S
+    emit({"phase19": "19b experts", **out})
+    return out
+
+
+def moe_tp_phase(dev) -> dict:
+    """Phase 19 (the module docstring): the moe family split over
+    ``model``: 19a and 19c on a one-rank NCCL group, 19b on the kernels
+    alone.  Returns the main-path launches of 19a and 19c."""
+    t19 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    launches = {}
+    arch = "deepseek-v2-lite-16b"
+    with one_rank_mesh() as mesh:
+        add_launches(launches, tp_train_phase(
+            dev, mesh, wrappers, arch, MOE_TP_LAYERS, MOE_TP_REDUCES, "19a"))
+        tp_shard_phase(dev, DSV2_TP_SHAPES, DSV2_TP_SPLIT, "19b", seed=19)
+        experts_timing(dev)
+        add_launches(launches, tp_decode_phase(dev, mesh, wrappers, arch,
+                                               MOE_TP_LAYERS, "19c"))
+    emit({"phase19_s": time.perf_counter() - t19})
+    return launches
+
+
 #: the phases ``--phases`` selects, in the order they run: "6" is yi-9b's
 #: serving (6, 9a, 10a, 10c), "7" mamba2-1.3b's (7, 9b, 10b), "8" the
 #: trainer's (8, 8b); 1 and 2 always run
 PHASES = ("3", "4", "5", "6", "7", "11", "12", "8", "13", "14", "15", "16",
-          "17", "18")
+          "17", "18", "19")
 
 
 def main() -> int:
@@ -6966,6 +7104,8 @@ def main() -> int:
         add_launches(launches, dryrun_phase(dev))
     if "18" in only:
         add_launches(launches, tp_phase(dev))
+    if "19" in only:
+        add_launches(launches, moe_tp_phase(dev))
     if only != set(PHASES):
         emit({"phases_passed": sorted(only, key=PHASES.index),
               "launches": launches, "script_s": time.perf_counter() - T0})

@@ -162,8 +162,9 @@ def quant_matmul(x: torch.Tensor, w, cfg: QuantConfig | None = None,
         # without autograd this is the plain forward: the kernel on CUDA
         # tensors, the library path on CPU ones
         return ste_luna_matmul(x.float(), w.float(),
-                               LUNA_MODE_OF[cfg.mode].value,
-                               cfg.bits).to(x.dtype)
+                               LUNA_MODE_OF[cfg.mode].value, cfg.bits,
+                               rows_axes() + _k_axes(split_k),
+                               _k_axes(split_k)).to(x.dtype)
     if cfg.mode == "int8":
         return _int8_matmul(x, w, split_k).to(x.dtype)
     if cfg.mode == "int4_dequant":

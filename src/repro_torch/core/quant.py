@@ -103,17 +103,22 @@ def luna_epilogue(acc: torch.Tensor, qx: torch.Tensor, qw: torch.Tensor,
 
 def luna_matmul_f32(x: torch.Tensor, w: torch.Tensor, mode: LunaMode | str,
                     bits: int = 4, x_qp: QParams | None = None,
-                    w_qp: QParams | None = None) -> torch.Tensor:
+                    w_qp: QParams | None = None, *,
+                    x_across: tuple[str, ...] = (),
+                    w_across: tuple[str, ...] = ()) -> torch.Tensor:
     """Float-in/float-out matmul with LUNA integer arithmetic inside.
 
     ``x``: (..., K); ``w``: (K, N).  Dynamic per-tensor activation quant,
     per-output-channel weight quant unless QParams are given (static PTQ).
+    ``x_across`` / ``w_across``: the mesh axes whose ranks hold the other
+    blocks of x's rows and K / of w's K (:func:`calibrate`'s
+    ``across``), so each rank's codes are those of the whole tensors.
     The integer core is :func:`repro_torch.core.luna.luna_matmul`; the
     card's kernel route is ``kernels.luna_mm.ops.luna_matmul_f32_kernel``.
     """
     mode = LunaMode(mode)
-    x_qp = x_qp or calibrate(x, bits, axis=None)
-    w_qp = w_qp or calibrate(w, bits, axis=-1)
+    x_qp = x_qp or calibrate(x, bits, axis=None, across=x_across)
+    w_qp = w_qp or calibrate(w, bits, axis=-1, across=w_across)
     qx = quantize(x, x_qp)
     qw = quantize(w, w_qp)
     acc = luna_matmul(qx, qw, bits=bits, mode=mode)
@@ -125,29 +130,31 @@ class _SteLunaMatmul(torch.autograd.Function):
     gradients (JAX's ``custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, x, w, mode, bits):
+    def forward(ctx, x, w, mode, bits, x_across, w_across):
         ctx.save_for_backward(x, w)
+        kw = {"x_across": x_across, "w_across": w_across}
         if takes_kernels(x):
             from repro_torch.kernels.luna_mm import ops as luna_ops
             return luna_ops.luna_matmul_f32_kernel(
-                x, w, mode=LunaMode(mode).value, bits=bits)
-        return luna_matmul_f32(x, w, mode, bits)
+                x, w, mode=LunaMode(mode).value, bits=bits, **kw)
+        return luna_matmul_f32(x, w, mode, bits, **kw)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         gx = torch.einsum("...n,kn->...k", g, w)
         gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
-        return gx.to(x.dtype), gw.to(w.dtype), None, None
+        return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None
 
 
 def ste_luna_matmul(x: torch.Tensor, w: torch.Tensor, mode: LunaMode | str,
-                    bits: int = 4) -> torch.Tensor:
+                    bits: int = 4, x_across: tuple[str, ...] = (),
+                    w_across: tuple[str, ...] = ()) -> torch.Tensor:
     """QAT matmul: the forward is :func:`luna_matmul_f32` (on CUDA tensors
-    the ``luna_mm`` kernel's route), the backward pretends it was
-    ``x @ w``: ``gx = g wᵀ``, ``gw = xᵀ g``.  ``x``: (..., K) f32, ``w``:
-    (K, N) f32."""
-    return _SteLunaMatmul.apply(x, w, mode, bits)
+    the ``luna_mm`` kernel's route; ``x_across``/``w_across`` as its),
+    the backward pretends it was ``x @ w``: ``gx = g wᵀ``, ``gw = xᵀ g``.
+    ``x``: (..., K) f32, ``w``: (K, N) f32."""
+    return _SteLunaMatmul.apply(x, w, mode, bits, x_across, w_across)
 
 
 #: evaluation strategies for a frozen 4-bit weight: "lut_dc" sums the two

@@ -25,17 +25,18 @@ def luna_mm_codes(y_codes: torch.Tensor, w_codes: torch.Tensor, *,
 
 
 def luna_matmul_f32_kernel(x: torch.Tensor, w: torch.Tensor, *,
-                           mode: str = "opt_dc", bits: int = 4
-                           ) -> torch.Tensor:
+                           mode: str = "opt_dc", bits: int = 4,
+                           x_across=(), w_across=()) -> torch.Tensor:
     """Float GEMM through the integer kernel (dynamic PTQ, zero-point
-    algebra): ``repro_torch.core.quant.luna_matmul_f32`` with the
-    contraction in :func:`luna_mm_codes`.  x: (..., K), w: (K, N)."""
+    algebra): ``repro_torch.core.quant.luna_matmul_f32`` (its
+    ``x_across``/``w_across`` too) with the contraction in
+    :func:`luna_mm_codes`.  x: (..., K), w: (K, N)."""
     if bits != 4:
         raise NotImplementedError(
             f"the LUNA GEMM kernel implements the paper's 4-bit datapath, "
             f"not bits={bits}: ROADMAP queue 2 kernel 6 (other widths)")
-    x_qp = calibrate(x, bits, axis=None)
-    w_qp = calibrate(w, bits, axis=-1)
+    x_qp = calibrate(x, bits, axis=None, across=x_across)
+    w_qp = calibrate(w, bits, axis=-1, across=w_across)
     qx = quantize(x, x_qp)
     qw = quantize(w, w_qp)
     k = x.shape[-1]

@@ -11,20 +11,22 @@ For each supported cell this module:
   3. runs rank 0's step under :class:`~repro_torch.launch.cost.CostMode`:
      training is ``make_train_step(cfg, AdamW(), mesh)``, a prefill is
      ``prefill`` on the rank's rows, a decode is ``decode_step`` under
-     ``activation_sharding(mesh)`` on the rank's shard of the cache;
+     ``activation_sharding(mesh)`` on the rank's shard of the cache (both
+     under ``rows_split_over`` the batch axes: the rows meet where JAX's
+     global batch does, an MoE decode's expert choice);
   4. counts the step at the probe depths of
      :mod:`repro_torch.launch.accounting` and extrapolates to full depth;
   5. writes the record to ``results_torch/dryrun/<cell>.json``.
 
 What is counted is what the port runs, not what XLA would compile: the
-dense GQA decoder's attention heads, FFN hidden dimension and vocabulary
-are split over ``model`` (:mod:`repro_torch.parallel.tensor_parallel`),
-while the experts, MLA, the SSM and hybrid mixers and whisper compute the
-same rows on every rank of the axis (ROADMAP queue 1 item 9d); the record's
-``"model_axis_compute"`` says which part does which
-(``tensor_parallel.describe``).  Where the port has no code
-path for a cell, the record is a skip naming the reason; nothing is
-invented.  The argument bytes are rank 0's share of the params, the AdamW
+attention heads (GQA and MLA), the FFN hidden dimension, the routed and
+shared experts and the vocabulary are split over ``model``
+(:mod:`repro_torch.parallel.tensor_parallel`), while the SSM and hybrid
+mixers and whisper's blocks compute the same rows on every rank of the
+axis (ROADMAP queue 1 item 9d); the record's ``"model_axis_compute"``
+says which part does which (``tensor_parallel.describe``).  Where the
+port has no code path for a cell, the record is a skip naming the
+reason; nothing is invented.  The argument bytes are rank 0's share of the params, the AdamW
 moments, the batch and the caches under JAX's specs (exact); the saved
 bytes are what autograd keeps for the backward outside the remat'd
 blocks, and argument plus saved is the peak estimate.
@@ -62,7 +64,8 @@ from repro_torch.models.registry import (ARCH_IDS, cell_supported,
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel import fsdp
 from repro_torch.parallel import tensor_parallel as tp
-from repro_torch.parallel.act_sharding import activation_sharding
+from repro_torch.parallel.act_sharding import (activation_sharding,
+                                               rows_split_over)
 from repro_torch.parallel.sharding import (batch_specs, cache_specs,
                                            param_specs)
 from repro_torch.serve.config import ENGINE_QUANT_MODES, model_quant
@@ -75,7 +78,9 @@ CONSTANTS = "NVIDIA H100 SXM data sheet"
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
 SHAPES = {s.name: s for s in ALL_SHAPES}
-#: the ROADMAP item of what the port does not run on a model axis
+#: the ROADMAP item of what the port does not run on a model axis (the
+#: SSM and hybrid mixers and whisper's blocks replicated along it, a
+#: decode that gathers a sequence-sharded cache)
 ITEM_9D = "ROADMAP queue 1 item 9d"
 
 
@@ -153,7 +158,7 @@ def argument_bytes(cfg, shape: ShapeConfig, mesh, model, quant: str
             and cfg.serve_param_sharding != "tp"):
         out["params"] = cost.tree_bytes(quantize_decode_params(tree, quant))
     elif quant in ENGINE_QUANT_MODES and shape.kind == "decode":
-        out["params"] = _frozen_shard_bytes(tree, quant, mesh)
+        out["params"] = _frozen_shard_bytes(model, tree, quant, mesh)
     else:
         serve_tp = (shape.kind != "train"
                     and cfg.serve_param_sharding == "tp")
@@ -177,13 +182,15 @@ def argument_bytes(cfg, shape: ShapeConfig, mesh, model, quant: str
     return out
 
 
-def _frozen_shard_bytes(tree, quant: str, mesh) -> int:
-    """Rank 0's bytes of the frozen decode tree cut by
-    ``param_specs(serve_tp=True)``: a ``QuantizedWeight``'s codes, scales
-    and zero points by the weight's spec, its tables whole."""
+def _frozen_shard_bytes(model, tree, quant: str, mesh) -> int:
+    """Rank 0's bytes of the frozen decode tree as
+    ``tensor_parallel.serving_model`` cuts it (``serving_specs``: the
+    split blocks' leaves by ``param_specs(serve_tp=True)``, the others
+    whole): a ``QuantizedWeight``'s codes, scales and zero points by the
+    weight's spec, its tables whole."""
     from repro_torch.core.quant import QuantizedWeight
     frozen = quantize_decode_params(tree, quant)
-    specs = fsdp.flat_specs(param_specs(tree, mesh, serve_tp=True))
+    specs = fsdp.flat_specs(tp.serving_specs(model, mesh))
     total = 0
     for leaf, spec in zip(leaves(frozen), specs):
         if not isinstance(leaf, QuantizedWeight):
@@ -250,7 +257,7 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, *, quant: str = "bf16",
         state = opt.init(fsdp.local_tree(model))
         step = make_train_step(cfg, opt, mesh)
         return (lambda: step(model, state, batch)), model
-    rows, _ = local_rows(batch, mesh)
+    rows, axes = local_rows(batch, mesh)
     b = next(iter(rows.values())).shape[0]
     if shape.kind == "decode" and engine_quant:
         model = tp.serving_model(model, mesh, quant)
@@ -263,7 +270,8 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, *, quant: str = "bf16",
         caches = model.init_cache(b, shape.seq_len)
 
         def run():
-            with torch.no_grad(), activation_sharding(mesh):
+            with torch.no_grad(), activation_sharding(mesh), \
+                    rows_split_over(axes):
                 return model.prefill(rows["tokens"], caches, **extra)
         return run, model
     from repro_torch.serve.decode_attention import shard_cache
@@ -277,7 +285,8 @@ def prepare_step(cfg, shape: ShapeConfig, mesh, *, quant: str = "bf16",
     index = shape.seq_len - 1
 
     def run():
-        with torch.no_grad(), activation_sharding(mesh):
+        with torch.no_grad(), activation_sharding(mesh), \
+                rows_split_over(axes):
             return model.decode_step(token, caches, index)
     return run, model
 

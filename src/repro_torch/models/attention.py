@@ -38,7 +38,10 @@ Tensor-parallel GQA (``GQAAttention.split``, set by
 :func:`repro_torch.parallel.tensor_parallel.plan` on a sharded model):
 the block computes its ``model`` shard of the heads, Megatron's
 column-parallel ``wq``/``wk``/``wv`` and row-parallel ``wo``
-(:meth:`GQAAttention._split_forward`); MLA stays gathered.
+(:meth:`GQAAttention._split_forward`); tensor-parallel MLA
+(``MLAAttention.split``): its ``model`` shard of the heads, ``wq`` (or
+``w_uq``), ``w_uk`` and ``w_uv`` by columns and ``wo`` by rows, the
+compressed cache the same on every rank (:class:`MLAAttention`).
 """
 from __future__ import annotations
 
@@ -413,11 +416,26 @@ def mla_shapes(cfg) -> dict[str, tuple[int, int]]:
 class MLAAttention(nn.Module):
     """DeepSeek-V2's multi-head latent attention with the compressed
     cache ``KVCache(k=c_kv (…, R), v=k_rope (…, dr))`` (JAX's
-    ``mla_attention``)."""
+    ``mla_attention``).
+
+    ``split`` (set by ``tensor_parallel.plan``): the block computes its
+    ``model`` shard of the heads.  ``x`` enters through
+    ``tensor_parallel.copy``; ``wq`` (or ``w_uq`` after the whole
+    ``w_dq``), ``w_uk`` and ``w_uv`` hold this rank's ``H/m`` heads'
+    columns and ``wo`` their rows, whose partial output
+    ``tensor_parallel.reduce`` sums.  ``w_dkv`` is whole: every rank
+    computes the same compressed c_kv and k_rope, writes the same cache
+    (one for every head) and attends with its own heads
+    (:func:`mla_absorbed` on ``H/m`` heads).  Under
+    ``decode_attn="sharded"`` the sequence-sharded cache's decode takes
+    every head: ``q_abs`` and ``q_rope`` are gathered over heads first
+    (``tensor_parallel.gather``), and the rank keeps its heads of the
+    context for ``w_uv`` and ``wo``."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
         self.cfg = cfg
+        self.split = False
         for name in mla_shapes(cfg):
             set_leaf(self, name, params[name])
 
@@ -429,7 +447,10 @@ class MLAAttention(nn.Module):
         :meth:`GQAAttention.forward`'s."""
         cfg, m = self.cfg, self.cfg.mla
         b, s, _ = x.shape
-        h, nope, rank = cfg.num_heads, m.qk_nope_dim, m.kv_lora_rank
+        if self.split:
+            x = tp.copy(x)
+        h = cfg.num_heads // (model_size() if self.split else 1)
+        nope, rank = m.qk_nope_dim, m.kv_lora_rank
         qd = nope + m.qk_rope_dim
         if m.q_lora_rank:
             q = quant_matmul(quant_matmul(x, self.w_dq, cfg.quant, "attn"),
@@ -453,15 +474,21 @@ class MLAAttention(nn.Module):
                 q_abs = torch.einsum(
                     "bqhd,rhd->bqhr", q_nope.float(),
                     self.w_uk.reshape(rank, h, nope).float())
+                if self.split:
+                    # the sequence-sharded cache attends every head
+                    q_abs, q_rope = tp.gather(q_abs, 2), tp.gather(q_rope, 2)
                 ctx_c, _, _ = da.sharded_mla_decode(
                     q_abs, q_rope.float(), cache.k, cache.v, c_kv, k_rope,
                     cache_index, mesh, sm_scale=1.0 / float(qd) ** 0.5,
                     block_table=None if paged is None else paged.table)
+                if self.split:
+                    r = model_rank()
+                    ctx_c = ctx_c[:, :, r * h:(r + 1) * h]
                 ctx = torch.einsum(
                     "bqhr,rhd->bqhd", ctx_c.float(),
                     self.w_uv.reshape(rank, h, m.v_dim).float())
                 ctx = ctx.reshape(b, s, h * m.v_dim).to(x.dtype)
-                return quant_matmul(ctx, self.wo, cfg.quant, "attn"), cache
+                return self._out(ctx), cache
         if cache is not None:
             c_kv, k_rope, kv_len, q_offset = write_cache(
                 cache, c_kv, k_rope, cache_index=cache_index, paged=paged,
@@ -469,7 +496,13 @@ class MLAAttention(nn.Module):
 
         ctx = mla_absorbed(cfg, self.w_uk, self.w_uv, q_nope, q_rope, c_kv,
                            k_rope, q_offset, kv_len)
-        return quant_matmul(ctx, self.wo, cfg.quant, "attn"), cache
+        return self._out(ctx), cache
+
+    def _out(self, ctx: torch.Tensor) -> torch.Tensor:
+        """``wo`` on ctx (B, S, H·v): split, this rank's heads' rows and
+        the ranks' partials summed."""
+        out = quant_matmul(ctx, self.wo, self.cfg.quant, "attn", self.split)
+        return tp.reduce(out) if self.split else out
 
 
 def mla_absorbed(cfg, w_uk: torch.Tensor, w_uv: torch.Tensor,

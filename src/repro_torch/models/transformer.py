@@ -26,7 +26,8 @@ are frozen parameters by default).
 
 On a mesh (:meth:`TransformerLM.split_over_model`, which
 ``parallel.fsdp.shard_model`` and ``parallel.tensor_parallel.
-serving_model`` call) the GQA attention and dense MLP blocks and the
+serving_model`` call) the attention blocks (GQA and MLA heads), the dense
+MLPs, the MoE feed-forwards (the experts and the shared experts) and the
 vocabulary compute their ``model`` shard: a vocab-parallel embedding, a
 vocab-split head whose decode logits are gathered, and a vocab-parallel
 cross entropy (:func:`chunked_xent`'s ``vocab``), JAX's GSPMD split of
@@ -183,23 +184,30 @@ class TransformerLM(nn.Module):
         ``specs`` (a tree like :meth:`params_tree`) on a model axis of
         ``m``; returns {leaf path: fsdp mode} of the split leaves
         (``tensor_parallel.plan``).  Per block: GQA attention
-        (``tensor_parallel.attn_plan``) and a dense MLP
-        (``mlp_plan``), each unless its projections run a ``luna_*`` mode;
-        MLA and the experts stay gathered.  The vocabulary: the embedding
-        when ``embed``'s rows, the head when ``lm_head``'s columns (tied:
-        ``embed``'s rows) are split."""
+        (``tensor_parallel.attn_plan``), MLA attention (``mla_plan``), a
+        dense MLP (``mlp_plan``; the moe family's ``first_dense`` blocks
+        too) and an MoE feed-forward (``moe_plan``: the experts and the
+        shared experts).  The vocabulary: the embedding when ``embed``'s
+        rows, the head when ``lm_head``'s columns (tied: ``embed``'s rows)
+        are split."""
         cfg = self.cfg
         modes = {}
         per = specs.get("dense_blocks", []) + list(specs["blocks"])
         names = ([f"dense_blocks/{i}" for i in range(self.n_dense)]
                  + [f"blocks/{i}" for i in range(len(per) - self.n_dense)])
         for blk, bspec, name in zip(self.blocks, per, names):
-            if isinstance(blk.attn, GQAAttention) and tp.splits_quant(
-                    cfg, "attn"):
+            if isinstance(blk.attn, GQAAttention):
                 blk.attn.split, got = tp.attn_plan(
                     bspec["attn"], blk.attn.heads, m, serving=serving)
-                modes.update({f"{name}/attn/{k}": v for k, v in got.items()})
-            if not blk.use_moe and tp.splits_quant(cfg, "mlp"):
+            else:
+                blk.attn.split, got = tp.mla_plan(bspec["attn"],
+                                                  cfg.num_heads, m)
+            modes.update({f"{name}/attn/{k}": v for k, v in got.items()})
+            if blk.use_moe:
+                blk.moe.split, got = tp.moe_plan(
+                    bspec["moe"], cfg.moe.num_experts, m)
+                modes.update({f"{name}/moe/{k}": v for k, v in got.items()})
+            else:
                 blk.mlp.split, got = tp.mlp_plan(bspec["mlp"])
                 modes.update({f"{name}/mlp/{k}": v for k, v in got.items()})
         emb = tp.row(specs["embed"])
@@ -286,12 +294,7 @@ class TransformerLM(nn.Module):
         window (JAX's ``n_valid`` through the blocks), whose write targets
         are computed once here for every layer.  ``training`` with
         ``cfg.remat`` recomputes each block in the backward."""
-        if embeds is not None:
-            x = embeds
-        elif self.vocab_split[0]:
-            x = tp.embedding(tokens, self.embed)
-        else:
-            x = F.embedding(tokens, self.embed)
+        x = embeds if embeds is not None else self.embed_tokens(tokens)
         s = x.shape[1]
         positions = token_positions(s, cache_index, x.device)
         paged, window = cache_targets(
@@ -311,6 +314,13 @@ class TransformerLM(nn.Module):
             if caches is not None:
                 new_caches.append(c)
         return rms_norm(x, self.ln_f, self.cfg.norm_eps), aux, new_caches
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens``' embeddings (vocab-parallel when the embedding is
+        split)."""
+        if self.vocab_split[0]:
+            return tp.embedding(tokens, self.embed)
+        return F.embedding(tokens, self.embed)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """(..., V) logits; a vocab-split head's are gathered over the
@@ -332,12 +342,17 @@ class TransformerLM(nn.Module):
         hidden, aux, _ = self.forward_aux(batch.get("tokens"),
                                           embeds=batch.get("embeds"),
                                           training=True)
+        xent = self.xent(hidden, batch["labels"], batch.get("loss_mask"))
+        return xent + aux, {"xent": xent, "aux": aux}
+
+    def xent(self, hidden: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+        """:func:`chunked_xent` of ``hidden`` through the head
+        (vocab-parallel when the head is split)."""
         head, vocab = self._head(), None
         if self.vocab_split[1]:
             hidden, vocab = tp.copy(hidden), tp.vocab_shard(head.shape[1])
-        xent = chunked_xent(hidden, head, batch["labels"],
-                            batch.get("loss_mask"), vocab=vocab)
-        return xent + aux, {"xent": xent, "aux": aux}
+        return chunked_xent(hidden, head, labels, mask, vocab=vocab)
 
     # ---------------- serving ----------------
     def init_cache(self, batch: int, s_max: int, *,

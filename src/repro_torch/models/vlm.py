@@ -7,15 +7,17 @@ the anyres tiling and the CLIP tower are out of scope.  The multimodal
 sequence is [patches; text] over the standard decoder
 (:class:`~repro_torch.models.transformer.TransformerLM`, whose tree this
 model's ``params_tree()`` is).  Decode positions count the patches.
+On a mesh the backbone splits over ``model`` as the dense decoder does
+(:meth:`VLM.split_over_model`): its attention heads, FFN hidden dimension
+and vocabulary.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import CacheSpec, reject_paged_spec
-from repro_torch.models.transformer import TransformerLM, chunked_xent
+from repro_torch.models.transformer import TransformerLM
 
 
 class VLM(nn.Module):
@@ -38,6 +40,13 @@ class VLM(nn.Module):
     def params_tree(self) -> dict:
         return self.backbone.params_tree()
 
+    def split_over_model(self, specs: dict, m: int, serving: bool) -> dict:
+        """The backbone's split (``TransformerLM.split_over_model``): this
+        model's tree is the backbone's, leaf for leaf, so the paths are
+        the same (the patches come in as activations: no leaf of theirs
+        to split)."""
+        return self.backbone.split_over_model(specs, m, serving)
+
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "VLM":
         self.backbone.init(gen)
@@ -47,7 +56,7 @@ class VLM(nn.Module):
                ) -> torch.Tensor:
         """[patches; text]: the patches in the embedding's dtype before the
         text tokens' embeddings."""
-        tok = F.embedding(tokens, self.backbone.embed)
+        tok = self.backbone.embed_tokens(tokens)
         return torch.cat([patches.to(tok.dtype), tok], dim=1)
 
     def loss(self, batch: dict):
@@ -66,8 +75,7 @@ class VLM(nn.Module):
                             device=embeds.device)], dim=1)
         hidden, aux, _ = self.backbone.forward_aux(embeds=embeds,
                                                    training=True)
-        xent = chunked_xent(hidden, self.backbone.lm_head, batch["labels"],
-                            mask)
+        xent = self.backbone.xent(hidden, batch["labels"], mask)
         return xent + aux, {"xent": xent}
 
     def init_cache(self, batch: int, s_max: int, *,

@@ -24,11 +24,15 @@ re-enters it (:func:`restored`) for the recompute.
 Tensor-parallel compute (:mod:`repro_torch.parallel.tensor_parallel`)
 reads the mesh's model group here (:func:`model_group`,
 :func:`model_rank`, :func:`model_size`): a model sharded over a mesh
-splits the attention heads, the FFN hidden dimension and the vocabulary
-of the dense GQA decoder over ``model`` (Megatron's splits, which JAX's
-GSPMD computes from the same specs).  Still replicated along ``model``
-(ROADMAP queue 1 item 9d): the experts, MLA's heads, the SSM and hybrid
-mixers and whisper's blocks.  JAX's ``shard_hidden`` / ``shard_heads``
+splits the attention heads (GQA and MLA), the FFN hidden dimension, the
+routed experts (expert parallelism: tokens stay replicated along
+``model``, so the dispatch is group-local and a reduce, no all-to-all),
+the shared experts and the vocabulary over ``model`` (Megatron's splits,
+which JAX's GSPMD computes from the same specs).  Still replicated along
+``model`` (ROADMAP queue 1 item 9d): the SSM and hybrid mixers and
+whisper's blocks.  A serving step whose rows are split over the batch
+axes declares them too (:func:`rows_split_over`): an MoE decode step's
+expert choice runs over the global batch.  JAX's ``shard_hidden`` / ``shard_heads``
 are not here either: they are XLA placement hints for sequence and head
 parallelism and never change a value, so a port step equals JAX's with or
 without them; ``sequence_parallel`` is kept in the context for them.

@@ -29,18 +29,23 @@ XLA inserts the all-gathers and reduce-scatters.  Here they are explicit:
   :func:`shard_model` asks the model's plan which leaves its blocks
   compute split.  Such a leaf (:data:`~repro_torch.parallel.
   tensor_parallel.LOCAL`) is gathered over its spec's other axes only
-  and the rank computes with its ``model`` block.  A leaf a split block
-  uses whole, each rank its own part of it (:data:`~repro_torch.parallel.
-  tensor_parallel.WHOLE`: K/V where the KV heads do not divide the axis),
-  is gathered over every axis and its gradient summed over the row axes
-  AND ``model``, since each rank's gradient is then only its part;
+  and the rank computes with its ``model`` block (a 3-D expert stack:
+  its ``E/m`` experts, gathered over ``data`` on dim 1 of ``w_gate``/
+  ``w_up``, dim 2 of ``w_down``), its gradient summed over the row axes
+  only.  A leaf a split block uses whole, each rank its own part of it
+  (:data:`~repro_torch.parallel.tensor_parallel.WHOLE`: K/V where the KV
+  heads do not divide the axis; MLA's ``w_dkv`` and ``w_dq``, whose
+  outputs each rank's heads read), is gathered over every axis and its
+  gradient summed over the row axes AND ``model``, since each rank's
+  gradient is then only its part.  The MoE router keeps the replicated
+  rule: every rank holds its whole gradient (``models.moe``);
 * the few places where rows meet (the cross entropy's token count, the
   MoE load-balance means) sum over those ranks in the models, through
   :mod:`repro_torch.parallel.act_sharding`'s ``batch_sum``.
 
-What the plan does not split (the experts, MLA, the SSM and hybrid
-mixers, whisper) ranks along ``model`` compute redundantly on the whole
-leaves (ROADMAP queue 1 item 9d).  The gathers and gradient reductions
+What the plan does not split (the SSM and hybrid mixers, whisper's
+blocks) ranks along ``model`` compute redundantly on the whole leaves
+(ROADMAP queue 1 item 9d).  The gathers and gradient reductions
 are counted in ``act_sharding.counts`` (``"gather"``, ``"grad"`` and
 their payloads' ``"gather_bytes"``, ``"grad_bytes"``; ``counts`` here is
 the same object), for the card's check that a step took this path and

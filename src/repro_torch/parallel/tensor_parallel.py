@@ -1,24 +1,30 @@
 """Tensor-parallel compute over the mesh's ``model`` axis: Megatron's
 splits of the dense GQA decoder (attention heads, the FFN hidden
-dimension, the vocabulary).
+dimension, the vocabulary) and of the moe family (expert parallelism
+for the routed experts, the shared experts' hidden dimension, MLA's
+heads).
 
 JAX has no counterpart file: its params carry ``parallel.sharding``'s
-specs (``attn/w[qkv]`` and ``w_(gate|up)`` columns over ``model``,
-``attn/wo`` and ``w_down`` rows, ``embed`` rows and ``lm_head`` columns)
-and GSPMD splits the compute under them.  Here the split is explicit:
+specs (``attn/w[qkv]``, ``w_(gate|up)``, MLA's ``w_uq``/``w_uk``/
+``w_uv`` columns over ``model``, ``attn/wo`` and ``w_down`` rows, the
+expert stacks on their expert dimension, ``embed`` rows and ``lm_head``
+columns) and GSPMD splits the compute under them.  Here the split is
+explicit:
 
 * :func:`plan` decides, per block and from the specs (never per leaf),
   which parts of a model compute on their ``model`` shard, and marks the
-  modules (``GQAAttention.split``: the K/V leaves' mode; ``MLP.split``;
+  modules (``GQAAttention.split``: the K/V leaves' mode;
+  ``MLAAttention.split``; ``MLP.split``; ``MoE.split``;
   ``TransformerLM.vocab_split``).  :func:`~repro_torch.parallel.fsdp.
   shard_model` then gathers a split leaf over its other axes only
-  (:data:`LOCAL`), and a leaf that a split block uses whole in a
-  rank-specific way over every axis, its gradient summed over ``model``
-  too (:data:`WHOLE`: the K/V projections where the KV heads do not
-  divide the axis, which JAX's spec cuts mid-head).  A block whose specs
-  do not split consistently (``_guard`` dropped ``model`` where it does
-  not divide), or whose projections run a ``luna_*`` mode (their
-  calibration sits inside ``core.quant``), keeps the gathered compute;
+  (:data:`LOCAL`: a rank's heads, hidden columns or ``E/m`` experts),
+  and a leaf that a split block uses whole in a rank-specific way over
+  every axis, its gradient summed over ``model`` too (:data:`WHOLE`: the
+  K/V projections where the KV heads do not divide the axis, which JAX's
+  spec cuts mid-head; MLA's ``w_dkv`` and ``w_dq``, whose outputs each
+  rank's heads read).  A block whose specs do not split consistently
+  (``_guard`` dropped ``model`` where it does not divide) keeps the
+  gathered compute, as do the SSM and hybrid mixers and whisper's blocks;
 * the model-group regions, ``torch.autograd.Function`` s over
   ``act_sharding.model_group()``: :func:`copy` (identity forward,
   all-reduce backward: Megatron's *f*), :func:`reduce` (all-reduce
@@ -30,13 +36,13 @@ and GSPMD splits the compute under them.  Here the split is explicit:
 * :func:`mesh_amax` / :func:`mesh_amin`: a calibration maximum over
   the dimension a row-parallel split cuts (``wo``'s and ``w_down``'s
   K, over ``model``), or over a step's rows (the batch axes: ``int8``'s
-  per-tensor activation scale is the global batch's, as JAX's),
-  all-reduced so that each shard's codes are bitwise the matching block
-  of the unsharded codes, the gradient going where the global maximum
-  lies;
+  and the ``luna_*`` modes' per-tensor activation scale is the global
+  batch's, as JAX's), all-reduced so that each shard's codes are bitwise
+  the matching block of the unsharded codes, the gradient going where
+  the global maximum lies;
 * :func:`serving_model`: the decode model of ``serve_param_sharding=
   "tp"``, each rank holding only its ``model`` shard of the (frozen)
-  weights.
+  weights of the blocks that compute split, and every other leaf whole.
 
 Every region runs at any model-axis size, one rank included, where each
 collective is the identity on the values.  Each collective is counted in
@@ -57,6 +63,7 @@ import torch.nn.functional as F
 
 from repro_torch.parallel.act_sharding import (current_mesh, model_group,
                                                model_rank, model_size, note)
+from repro_torch.parallel.sharding import param_specs
 
 #: fsdp leaf modes: gathered over the spec's axes other than ``model``
 #: (the rank computes with its model block)
@@ -84,13 +91,14 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM,
     return out
 
 
-def all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group, n: int,
+               kind: str = "tp_gather") -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order (a new
-    tensor; counted)."""
+    tensor; counted as ``kind``)."""
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
-    note("tp_gather", n * x.numel() * x.element_size())
+    note(kind, n * x.numel() * x.element_size())
     return torch.cat(parts, dim=dim)
 
 
@@ -267,13 +275,10 @@ def row(spec: tuple) -> bool:
     return len(spec) == 2 and _names(spec, 0) and _other_free(spec, 0)
 
 
-def splits_quant(cfg, group: str) -> bool:
-    """Whether a block of ``group``'s projections can compute split under
-    ``cfg.quant``: the ``luna_*`` modes calibrate inside ``core.quant``
-    and keep the gathered compute."""
-    from repro_torch.core.layers import LUNA_MODE_OF
-    q = cfg.quant
-    return not (q.applies(group) and q.mode in LUNA_MODE_OF)
+def experts(spec: tuple) -> bool:
+    """An (E, ·, ·) expert stack's spec splits its expert dimension over
+    ``model`` (expert parallelism)."""
+    return len(spec) == 3 and _names(spec, 0) and _other_free(spec, 0)
 
 
 def attn_plan(specs: dict, heads: tuple, m: int, *, serving: bool = False
@@ -292,6 +297,22 @@ def attn_plan(specs: dict, heads: tuple, m: int, *, serving: bool = False
     return kv, {"wq": LOCAL, "wo": LOCAL, "wk": kv, "wv": kv}
 
 
+def mla_plan(specs: dict, h: int, m: int) -> tuple[bool, dict]:
+    """(split, {leaf name: fsdp mode}) of an MLA block: split when its
+    head projections (``wq``, or ``w_uq`` after the whole ``w_dq``;
+    ``w_uk``, ``w_uv``) are column- and ``wo`` row-split over whole heads
+    (their columns are head-major, so a contiguous block is whole heads).
+    ``w_dkv`` and ``w_dq`` are :data:`WHOLE`: every rank computes the
+    compressed KV (and q) alike, and its heads back-propagate only their
+    share into it."""
+    up = "w_uq" if "w_uq" in specs else "wq"
+    if not (all(col(specs[n]) for n in (up, "w_uk", "w_uv"))
+            and row(specs["wo"])) or h % m:
+        return False, {}
+    return True, {n: (WHOLE if n in ("w_dkv", "w_dq") else LOCAL)
+                  for n in specs}
+
+
 def mlp_plan(specs: dict) -> tuple[bool, dict]:
     """(split, {leaf name: fsdp mode}) of a dense MLP: ``w_gate``/``w_up``
     column- and ``w_down`` row-split."""
@@ -299,6 +320,22 @@ def mlp_plan(specs: dict) -> tuple[bool, dict]:
     if not (all(col(s) for s in ups) and row(specs["w_down"])):
         return False, {}
     return True, {n: LOCAL for n in specs}
+
+
+def moe_plan(specs: dict, e: int, m: int) -> tuple[bool, dict]:
+    """(split, {leaf path under the block's ``moe``: fsdp mode}) of an MoE
+    feed-forward: split when the expert stacks split on their ``e``
+    experts (``e % m == 0``: a rank runs ``e/m`` of them) and the shared
+    experts split as :func:`mlp_plan`.  The router stays replicated: every
+    rank routes alike, and its gradient is summed over the rows only."""
+    stacks = ("w_gate", "w_up", "w_down")
+    shared_ok, shared = (mlp_plan(specs["shared"]) if "shared" in specs
+                         else (True, {}))
+    if not (all(experts(specs[n]) for n in stacks) and shared_ok) or e % m:
+        return False, {}
+    modes = {n: LOCAL for n in stacks}
+    modes.update({f"shared/{n}": v for n, v in shared.items()})
+    return True, modes
 
 
 def plan(model, specs, mesh, *, serving: bool = False) -> dict:
@@ -322,19 +359,16 @@ def describe(model) -> dict:
     from repro_torch.models.moe import MoE
     from repro_torch.models.ssm import Mamba2
 
+    parts = ((GQAAttention, "attention"), (MLAAttention, "attention"),
+             (MLP, "mlp"), (MoE, "experts"), (Mamba2, "mixer"))
     seen: dict[str, set] = {}
+    vocab = None
     for mod in model.modules():
-        if isinstance(mod, (GQAAttention, MLAAttention)):
-            seen.setdefault("attention", set()).add(
-                getattr(mod, "split", None) is not None)
-        elif isinstance(mod, MLP):
-            seen.setdefault("mlp", set()).add(bool(getattr(mod, "split",
-                                                           False)))
-        elif isinstance(mod, MoE):
-            seen.setdefault("experts", set()).add(False)
-        elif isinstance(mod, Mamba2):
-            seen.setdefault("mixer", set()).add(False)
-    vocab = getattr(model, "vocab_split", None)
+        vocab = vocab or getattr(mod, "vocab_split", None)
+        for cls, part in parts:
+            if isinstance(mod, cls):
+                seen.setdefault(part, set()).add(
+                    bool(getattr(mod, "split", None)))
     seen["vocab"] = {bool(vocab) and all(vocab)}
     return {k: ("mixed" if len(v) > 1 else "split" if v == {True}
                 else "replicated") for k, v in seen.items()}
@@ -346,16 +380,17 @@ def serving_model(model, mesh, quant: str | None = None):
     mode, ``core.quant.DECODE_QUANT_KERNELS``) freezes the decode
     projections as the engine does, from the WHOLE weights.  Under
     ``cfg.serve_param_sharding="tp"`` (JAX's ``param_shardings(
-    serve_tp=True)``) every leaf is then cut to this rank's block under
-    ``param_specs(serve_tp=True)`` (a ``QuantizedWeight`` through
-    :meth:`~repro_torch.core.quant.QuantizedWeight.shard`: codes,
-    scales and zero points cut, tables whole) and the blocks compute
-    split; under ``"fsdp"`` the frozen tree stays whole on every rank
-    (its FSDP layout is ROADMAP queue 1 item 9d)."""
+    serve_tp=True)``) the leaves of the blocks that :func:`plan` splits
+    are then cut to this rank's block (:func:`serving_specs`; a
+    ``QuantizedWeight`` through :meth:`~repro_torch.core.quant.
+    QuantizedWeight.shard`: codes, scales and zero points cut, tables
+    whole) and those blocks compute split, while every other leaf stays
+    whole and its block computes gathered; under ``"fsdp"`` the frozen
+    tree stays whole on every rank (its FSDP layout is ROADMAP queue 1
+    item 9d)."""
     from repro_torch.core.quant import (QuantizedWeight,
                                         quantize_decode_params)
     from repro_torch.parallel.fsdp import shard_leaf
-    from repro_torch.parallel.sharding import param_specs
     from repro_torch.tree import tree_map
 
     cfg = model.cfg
@@ -363,7 +398,7 @@ def serving_model(model, mesh, quant: str | None = None):
     tree = whole if quant is None else quantize_decode_params(whole, quant)
     if mesh is None or cfg.serve_param_sharding != "tp":
         return type(model).from_params(cfg, tree, device=model.device)
-    specs = param_specs(whole, mesh, serve_tp=True)
+    specs = serving_specs(model, mesh)
 
     def cut(leaf, spec):
         if isinstance(leaf, QuantizedWeight):
@@ -371,6 +406,22 @@ def serving_model(model, mesh, quant: str | None = None):
         return shard_leaf(leaf.detach(), spec, mesh)
     out = type(model).from_params(cfg, tree_map(cut, tree, specs),
                                   device=model.device)
-    plan(out, specs, mesh, serving=True)
-    out.serve_specs = specs
+    plan(out, param_specs(whole, mesh, serve_tp=True), mesh, serving=True)
     return out
+
+
+def serving_specs(model, mesh):
+    """The spec tree :func:`serving_model` cuts ``model``'s leaves by:
+    ``param_specs(serve_tp=True)`` at the leaves :func:`plan` splits
+    (decided per block on a view of ``model``, whose modules stay
+    unmarked), ``()`` (whole) at every other."""
+    from repro_torch.tree import leaves_with_path, path_key, tree_map
+
+    whole = model.params_tree()
+    specs = param_specs(whole, mesh, serve_tp=True)
+    view = (type(model).from_params(model.cfg, whole, device=model.device)
+            if hasattr(model, "split_over_model") else model)
+    modes = plan(view, specs, mesh, serving=True)
+    keep = iter([modes.get(path_key(p)) == LOCAL
+                 for p, _ in leaves_with_path(whole)])
+    return tree_map(lambda _, spec: spec if next(keep) else (), whole, specs)

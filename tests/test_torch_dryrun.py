@@ -27,6 +27,11 @@ after this file.  The job checks the world is gone after each cell.
   ``long_500k`` are skips whose reasons name a ROADMAP item or
   ``cell_supported``; ``hillclimb``'s ``sharded_decode+tp`` maps
   ``serve_param_sharding="tp"`` to ``param_specs(serve_tp=True)``.
+* ``hillclimb``'s ``sharded_decode+tp`` lut4 decode counts for every
+  arch with a decode path on a model axis (a block the plan leaves
+  gathered keeps its frozen leaves whole); the moe family and llava split
+  their every part at (16, 16); deepseek-v2-lite's ``train_4k`` counts
+  >= 8x fewer FLOPs a rank than with no block split.
 * A fake world refuses to start inside an initialised group.
 """
 import os
@@ -127,6 +132,38 @@ JOB = textwrap.dedent('''
     res["fsdp_gathers"] = hc.run_variant(
         "yi-9b", "decode_32k", "sharded_decode",
         out_dir=out_dir)["collective_breakdown"]["all_gather"]
+
+    # every arch's split lut4 decode at (16, 16), and its seconds
+    import time
+    from repro_torch.models.registry import ARCH_IDS
+    res["tp_decode"] = {}
+    for arch in ARCH_IDS:
+        t0 = time.time()
+        rec = hc.run_variant(arch, "decode_32k", "sharded_decode+tp",
+                             quant="lut4", out_dir=out_dir)
+        res["tp_decode"][arch] = (rec["status"], rec.get("reason"),
+                                  rec.get("model_axis_compute"),
+                                  time.time() - t0)
+
+    # what each family splits at (16, 16), on meta
+    from repro_torch.parallel import tensor_parallel as tpar
+    res["describe"] = {}
+    for arch in ("deepseek-v2-lite-16b", "deepseek-v2-236b",
+                 "llava-next-mistral-7b"):
+        model = get_model(get_config(arch), device="meta")
+        tpar.plan(model, param_specs(model.params_tree(), mesh), mesh)
+        res["describe"][arch] = tpar.describe(model)
+
+    # deepseek-v2-lite's train_4k, split and with no block split
+    res["moe_train"] = dr.run_cell("deepseek-v2-lite-16b", "train_4k",
+                                   False)
+    plan = tpar.plan
+    tpar.plan = lambda *a, **k: {}
+    try:
+        res["moe_train_unsplit"] = dr.run_cell("deepseek-v2-lite-16b",
+                                               "train_4k", False)
+    finally:
+        tpar.plan = plan
 
     # a fake world refuses to start inside an initialised group
     with dr.fake_world(4):
@@ -265,6 +302,52 @@ def test_tp_variant_takes_the_serve_tp_specs(job):
     got, want = job["tp"]
     assert got == want[True] > want[False]
     assert job["tp_gathers"] < job["fsdp_gathers"]
+
+
+def test_tp_decode_counts_every_arch(job):
+    """``hillclimb --variant sharded_decode+tp --quant lut4 --shape
+    decode_32k`` on meta at (16, 16): every arch with a decode path on a
+    model axis counts (the blocks the plan does not split keep their
+    leaves whole: minitron-4b's 24 heads, whisper's blocks), the SSM
+    families are the dry run's skips, and each count takes seconds."""
+    for arch, (status, reason, split, secs) in job["tp_decode"].items():
+        print(f"TP_DECODE {arch}: {status} {split} {secs:.1f}s")
+        if arch in ("mamba2-1.3b", "zamba2-1.2b"):
+            assert status == "skip" and "item 9d" in reason, arch
+            continue
+        assert status == "ok", (arch, reason)
+        assert secs < 60, (arch, secs)
+    got = {a: r[2] for a, r in job["tp_decode"].items()}
+    assert got["minitron-4b"]["attention"] == "replicated"
+    assert got["minitron-4b"]["mlp"] == "split"
+    assert set(got["whisper-base"].values()) == {"replicated"}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-v2-236b",
+                                  "llava-next-mistral-7b"])
+def test_moe_family_and_llava_split_at_production(job, arch):
+    want = {"attention": "split", "mlp": "split", "vocab": "split"}
+    if arch.startswith("deepseek"):
+        want["experts"] = "split"
+    assert job["describe"][arch] == want
+
+
+def test_moe_train_flops_fall_with_the_split(job):
+    """deepseek-v2-lite-16b ``train_4k`` at (16, 16): the MLA heads, the
+    experts' capacity slots and the shared experts cost 1/16 a rank, so
+    the counted FLOPs fall by >= 8x against the same cell with no block
+    split (PERF.md predicted 1.5-2.2e14 from 2.315e15 with only the dense
+    MLP and the vocabulary split)."""
+    rec, unsplit = job["moe_train"], job["moe_train_unsplit"]
+    print(f"MOE_TRAIN flops {rec['flops']:.4g} (unsplit "
+          f"{unsplit['flops']:.4g}), useful {rec['useful_flops_ratio']:.3f}"
+          f" ({unsplit['useful_flops_ratio']:.3f}), collectives "
+          f"{rec['collective_breakdown']} ({unsplit['collective_breakdown']})"
+          f", memory_s {rec['memory_s']:.3f} ({unsplit['memory_s']:.3f})")
+    assert rec["status"] == unsplit["status"] == "ok"
+    assert set(rec["model_axis_compute"].values()) == {"split"}
+    assert set(unsplit["model_axis_compute"].values()) == {"replicated"}
+    assert rec["flops"] * 8 <= unsplit["flops"]
 
 
 def test_fake_world_refuses_an_initialised_group(job):

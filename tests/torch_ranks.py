@@ -1,6 +1,7 @@
 """Rank processes of the port's gloo tests (``test_torch_decode_attention``,
 ``test_torch_collectives``, ``test_torch_mesh_train``,
-``test_torch_tensor_parallel``): imports torch,
+``test_torch_tensor_parallel``, ``test_torch_tensor_parallel_moe``):
+imports torch,
 numpy and the port, never jax.
 
     python tests/torch_ranks.py JOB DIR [RANKS]
@@ -400,26 +401,35 @@ def _recorded_step(model, cfg, batch, mesh) -> dict:
     return out
 
 
-def _greedy_decode(model, prefill_model, toks, steps, mesh):
+def _greedy_decode(model, prefill_model, toks, steps, mesh,
+                   split_rows=True):
     """Prefill ``toks`` (full precision, ``prefill_model``), then
     ``steps`` greedy decode steps of ``model`` (each step's token the last
     one's argmax), under ``activation_sharding(mesh)`` on this rank's
-    shard of the cache (``mesh``) or on one device (None).  Returns the
-    rank's rows, their logits (steps, rows, V) and tokens (rows, steps)."""
+    shard of the cache (``mesh``) or on one device (None); the decode
+    steps of a rank's block of the rows under ``rows_split_over("data")``
+    (``split_rows=False``: not, as if each rank's rows were the batch).
+    Returns the rank's rows, their logits (steps, rows, V) and tokens
+    (rows, steps)."""
     import contextlib
 
     import numpy as np
     import torch
 
-    from repro_torch.parallel.act_sharding import activation_sharding
+    from repro_torch.parallel.act_sharding import (activation_sharding,
+                                                   rows_split_over)
     from repro_torch.serve import decode_attention as da
 
     b, p = toks.shape
     rows = list(range(b))
+    split = contextlib.nullcontext
     if mesh is not None and mesh.shape["data"] > 1:
         n = b // mesh.shape["data"]
         rows = list(range(mesh.coords["data"] * n,
                           (mesh.coords["data"] + 1) * n))
+        if split_rows:
+            def split():
+                return rows_split_over(("data",))
     ctx = (activation_sharding(mesh) if mesh is not None
            else contextlib.nullcontext())
     with torch.no_grad(), ctx:
@@ -432,7 +442,8 @@ def _greedy_decode(model, prefill_model, toks, steps, mesh):
         for i in range(steps):
             tok = lg[:, -1].argmax(-1, keepdim=True)
             out.append(tok[:, 0].numpy())
-            lg, cache = model.decode_step(tok, cache, p + i)
+            with split():
+                lg, cache = model.decode_step(tok, cache, p + i)
             seq.append(lg[:, 0].float().numpy())
     return {"rows": rows, "logits": np.stack(seq),
             "tokens": np.stack(out, 1)}
@@ -495,9 +506,209 @@ def tensor_parallel_job(rank: int, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# job: the moe family split over model (test_torch_tensor_parallel_moe)
+# ---------------------------------------------------------------------------
+
+def megatron_moe_ffn(params, x, cfg, *, window=False, split=False):
+    """A mutation of ``models.moe.moe_ffn``'s split path: Megatron's copy
+    at the block's entry, as GQA and the MLP take it (the routing reads
+    the copied hidden, and the gates enter the split region uncopied)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    from repro_torch.parallel import act_sharding as acts
+    from repro_torch.parallel import tensor_parallel as tp
+
+    mc = cfg.moe
+    b, s, d = x.shape
+    e = mc.num_experts
+    x = tp.copy(x)
+    xg = moe.groups(x, window)
+    probs, top_e, sel_gate, sel_idx = moe.route(params["router"], xg, cfg)
+    importance = probs.mean((0, 1))
+    load = F.one_hot(top_e[..., 0], e).float().mean((0, 1))
+    if acts.rows_axes():
+        importance, load = acts.batch_mean(
+            torch.stack([importance, load])).unbind(0)
+    aux = e * torch.sum(importance * load) * mc.aux_loss_coef
+    n = e // acts.model_size()
+    first = acts.model_rank() * n
+    sel_gate = sel_gate[:, first:first + n]
+    sel_idx = sel_idx[:, first:first + n]
+    valid = (sel_gate > 0.0).float()
+    yg = moe.experts(params, moe.dispatch(xg, sel_idx, valid))
+    yg = yg * (sel_gate * valid)[..., None].to(yg.dtype)
+    out = moe.combine(yg, top_e, sel_idx, first).reshape(b, s, d)
+    out = out + moe.shared_experts(params["shared"], x, cfg, True)
+    return tp.reduce(out).to(x.dtype), aux
+
+
+def _moe_recorded_step(model, cfg, batch, mesh) -> dict:
+    """:func:`_mesh_step`, recording the first forward's projections in
+    attention and the MoE blocks (``quant_matmul``: x's width and w's
+    shape, in call order) and the expert stacks the routed products run
+    on (``moe.experts``: ``w_gate``'s shape)."""
+    import repro_torch.models.attention as attention
+    import repro_torch.models.mlp as mlp
+    import repro_torch.models.moe as moe
+
+    calls, stacks = [], []
+    qm, ex = attention.quant_matmul, moe.experts
+
+    def rec_qm(x, w, *a, **kw):
+        calls.append((x.shape[-1], tuple(w.shape)))
+        return qm(x, w, *a, **kw)
+
+    def rec_ex(params, xg):
+        stacks.append(tuple(params["w_gate"].shape))
+        return ex(params, xg)
+    attention.quant_matmul = mlp.quant_matmul = moe.quant_matmul = rec_qm
+    moe.experts = rec_ex
+    try:
+        out = _mesh_step(model, cfg, batch, mesh)
+    finally:
+        attention.quant_matmul = mlp.quant_matmul = moe.quant_matmul = qm
+        moe.experts = ex
+    # layer 0 (MLA + dense MLP: 3 + 3), layer 1 (MLA + shared: 3 + 3)
+    out["projections"] = calls[:12]
+    out["stacks"] = stacks[:1]
+    return out
+
+
+def _counting_choice(drops: list):
+    """``moe.choose`` wrapped to append, at each decode step's choice (its
+    one group), how many of this rank's tokens' top-k picks no expert's
+    capacity took."""
+    import repro_torch.models.moe as moe
+    plain = moe.choose
+
+    def choose(gates, cfg, across=()):
+        sel_gate, sel_idx = plain(gates, cfg, across)
+        if gates.shape[0] == 1:
+            drops.append(int((gates > 0).sum()) - int((sel_gate > 0).sum()))
+        return sel_gate, sel_idx
+    return plain, choose
+
+
+def tensor_parallel_moe_job(rank: int, workdir: str) -> dict:
+    """``in.pkl``'s moe cases: the split mesh step of each mode on each
+    mesh (``self_ref``: also on no mesh), the mutation's step
+    (:func:`megatron_moe_ffn`) on each of ``mutation_meshes``, the split
+    serving model's greedy decode of each engine quant on each mesh (with
+    ``self_ref`` also on no mesh and the whole-weight layout), the
+    data-split decode of ``wide`` rows with and without the rows split
+    declared, and the ``luna_*`` steps of ``luna``'s yi-9b on no mesh and
+    on its meshes (on each of its ``control`` meshes also the control
+    whose activation scale takes the rank's rows only)."""
+    from dataclasses import replace
+
+    import repro_torch.core.layers as layers
+    import repro_torch.models.moe as moe
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core.layers import QuantConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.parallel import tensor_parallel as tp
+    from repro_torch.tree import leaves, leaves_with_path, path_key
+
+    job = _inputs(workdir)
+    meshes = {tuple(s): Mesh(tuple(s), ("data", "model"))
+              for s in job["meshes"]}
+    base = get_config(job["arch"]).reduced(**job["reduced"])
+    base = replace(base, moe=replace(base.moe,
+                                     aux_loss_coef=job["aux_loss_coef"]))
+    batch = _torch_batch(job["batch"])
+    out = {"steps": {}, "decode": {}, "luna": {}, "coords": {
+        s: m.coords for s, m in meshes.items()}}
+    for mode in job["modes"]:
+        cfg = replace(base, quant=QuantConfig(mode=mode))
+        model = params_from_numpy(job["params"], cfg, "cpu")
+        out["paths"] = [path_key(p) for p, _ in
+                        leaves_with_path(model.params_tree())]
+        if job["self_ref"]:
+            out["steps"][(mode, None)] = _moe_recorded_step(model, cfg,
+                                                            batch, None)
+        for s, mesh in meshes.items():
+            out["steps"][(mode, s)] = _moe_recorded_step(model, cfg, batch,
+                                                         mesh)
+    plain = moe.moe_ffn
+    moe.moe_ffn = megatron_moe_ffn
+    try:
+        model = params_from_numpy(job["params"], base, "cpu")
+        for s in job["mutation_meshes"]:
+            out["steps"][("mutation", tuple(s))] = _mesh_step(
+                model, base, batch, meshes[tuple(s)])
+    finally:
+        moe.moe_ffn = plain
+
+    cfg = replace(base, decode_attn="sharded", serve_param_sharding="tp")
+    model = params_from_numpy(job["params"], cfg, "cpu")
+    whole = params_from_numpy(job["params"], replace(
+        cfg, serve_param_sharding="fsdp"), "cpu")
+    runs = [((s,), m, model) for s, m in meshes.items()]
+    if job["self_ref"]:
+        runs += [((None,), None, model)] + [
+            ((s, "whole"), m, whole) for s, m in meshes.items()]
+    for quant in job["decode_quants"]:
+        for key, mesh, src in runs:
+            full = tp.serving_model(src, mesh)
+            frozen = tp.serving_model(src, mesh, quant)
+            got = _greedy_decode(frozen, full, job["prompt"],
+                                 job["steps"], mesh)
+            got["frozen_shapes"] = [
+                {k: tuple(v.shape) for k, v in vars(q).items()
+                 if hasattr(v, "shape")} if hasattr(q, "codes")
+                else tuple(q.shape)
+                for q in leaves(frozen.params_tree())]
+            got["split"] = tp.describe(frozen)
+            out["decode"][(quant, *key)] = got
+    wide = job.get("wide")
+    if wide:
+        mesh = meshes[tuple(wide["mesh"])]
+        for split_rows in (True, False):
+            drops = []
+            plain_choose, moe.choose = _counting_choice(drops)
+            try:
+                got = _greedy_decode(
+                    tp.serving_model(model, mesh, wide["quant"]),
+                    tp.serving_model(model, mesh), wide["prompt"],
+                    job["steps"], mesh, split_rows=split_rows)
+            finally:
+                moe.choose = plain_choose
+            got["drops"] = drops
+            out["decode"][("wide", split_rows)] = got
+
+    luna = job.get("luna")
+    if luna:
+        ycfg = get_config("yi-9b").reduced(**luna["reduced"])
+        lbatch = _torch_batch(luna["batch"])
+        lmeshes = {tuple(s): Mesh(tuple(s), ("data", "model"))
+                   for s in luna["meshes"]}
+        for mode in luna["modes"]:
+            cfg = replace(ycfg, quant=QuantConfig(mode=mode))
+            model = params_from_numpy(luna["params"], cfg, "cpu")
+            out["luna"][(mode, None)] = _mesh_step(model, cfg, lbatch, None)
+            for s, mesh in lmeshes.items():
+                out["luna"][(mode, s)] = _mesh_step(model, cfg, lbatch,
+                                                    mesh)
+                if s not in map(tuple, luna["control"]):
+                    continue
+                rows = layers.rows_axes
+                layers.rows_axes = tuple   # each rank's rows only
+                try:
+                    out["luna"][(mode, s, "rank rows")] = _mesh_step(
+                        model, cfg, lbatch, mesh)
+                finally:
+                    layers.rows_axes = rows
+    return out
+
+
 JOBS = {"decode": decode_job, "collectives": collectives_job,
         "mesh_train": mesh_train_job, "elastic": elastic_job,
-        "tensor_parallel": tensor_parallel_job}
+        "tensor_parallel": tensor_parallel_job,
+        "tensor_parallel_moe": tensor_parallel_moe_job}
 
 
 def mesh_train_dryrun(workdir: str) -> dict:
